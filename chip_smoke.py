@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+# -*- coding: utf-8 -*-
+"""Chip smoke test of the PyTorch/CUDA port (mcsas_tpu_torch) on one GPU.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure raises and the script exits nonzero):
+  1. device: the card's name and power limit (nvidia-smi) and the
+     torch/CUDA versions; fails when torch.cuda.is_available() is False;
+  2. build: compiles csrc/mc_chunk.cu with nvcc for sm_90a (timed);
+  3. kernel vs plain version: one 256-step chunk at the headline shape
+     (R=10, N=300, K=128, local moves 0.5) on injected proposals — the
+     accept decisions must be identical, or first differ at a near-tie
+     (|Δχ²| ≤ 1e-6 relative, printed); ft = Σ bank (rtol 1e-5); χ² within
+     1e-5 relative of the plain version's;
+  4. Philox mode: one chunk drawing in-kernel — descent, parameters in
+     range, every accepted proposal equal to the host model of the
+     stream (so each repetition draws its own stream), and agreement
+     with the plain version fed that host stream;
+  5. the main path: ``fit()`` of Sphere on testdata/sasfit_sphere-10-1.dat
+     with the headline config on device="cuda" — 10/10 repetitions
+     converged, max χ² ≤ 1, the kernel's launch counter above 0, and the
+     result held to the reference McSAS fixture of that dataset; the warm
+     wall time of five fits.
+
+With ``--profile`` it then runs one more fit under torch.profiler and
+prints where the device time went and the device's idle share.
+
+The line before the last is a JSON summary of the kernel; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(HERE, "testdata", "sasfit_sphere-10-1.dat")
+FIXTURE = os.path.join(HERE, "testdata", "reference_sphere10_fixture.json")
+NEAR_TIE = 1e-6
+SOURCE = "mcsas_tpu_torch/csrc/mc_chunk.cu"
+REPLACES = "mcsas_tpu/ops/mc_kernel.py:410"
+
+
+def headline_config(mcsas_config):
+    """bench.py's headline workload (the JAX package's main path)."""
+    return mcsas_config(num_contribs=300, num_reps=10,
+                        max_iterations=8_000_000, chunk_steps=2048,
+                        candidates_per_step=128, seed=2026, max_retries=1,
+                        local_moves=0.5)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compare_chunks(name, mc_kernel, ks, kt, ts, tt, rtol_chi=1e-5):
+    """Kernel state/trace (ks, kt) against the plain version's (ts, tt).
+    Returns (max |Δχ²| over the repetitions without a flip, or None when
+    every repetition flips; flips {rep: first step})."""
+    kc = kt["choice"].cpu().numpy()
+    tc = tt["choice"].cpu().numpy()
+    flips = {}
+    for r in range(kc.shape[1]):
+        diff = np.nonzero(kc[:, r] != tc[:, r])[0]
+        if len(diff):
+            s = int(diff[0])
+            m = float(mc_kernel.decision_margin(tt["chi"][s, r],
+                                                tt["conval"][s, r]))
+            print(f"[{name}] rep {r}: first flip at step {s}: kernel k="
+                  f"{kc[s, r]}, plain k={tc[s, r]}, current chi2 "
+                  f"{float(tt['conval'][s, r])!r}, margin {m:.3g}")
+            if not m <= NEAR_TIE:
+                raise AssertionError(f"[{name}] rep {r} flips at step {s} "
+                                     f"with margin {m:.3g} > {NEAR_TIE}")
+            flips[r] = s
+    same = [r for r in range(kc.shape[1]) if r not in flips]
+    k_conv = ks.conval.double().cpu().numpy()
+    t_conv = ts.conval.double().cpu().numpy()
+    if same:
+        idx = np.asarray(same)
+        for field in ("n_moves", "n_iter"):
+            a = getattr(ks, field).cpu().numpy()[idx]
+            b = getattr(ts, field).cpu().numpy()[idx]
+            if not np.array_equal(a, b):
+                raise AssertionError(f"[{name}] {field} {a} != {b}")
+        np.testing.assert_allclose(ks.rset.cpu().numpy()[idx],
+                                   ts.rset.cpu().numpy()[idx], rtol=1e-6)
+        np.testing.assert_allclose(k_conv[idx], t_conv[idx], rtol=rtol_chi)
+    bank_sum = ks.ibank.double().sum(dim=1).cpu().numpy()
+    np.testing.assert_allclose(ks.ft.double().cpu().numpy(), bank_sum,
+                               rtol=1e-5, atol=1e-5 * np.abs(bank_sum).max())
+    err = float(np.max(np.abs(k_conv - t_conv)[same])) if same else None
+    print(f"[{name}] {len(same)}/{kc.shape[1]} repetitions identical in "
+          f"every decision over {kc.shape[0]} steps; max |chi2 kernel - "
+          f"plain| over them = {err!r} (tolerance 1e-5 relative); "
+          f"ft = sum(bank) within 1e-5")
+    return err, flips
+
+
+def time_chunk(torch, fn, reps):
+    """Mean milliseconds of fn() over *reps* runs, with CUDA events, after
+    one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def profile_fit(torch, run, card):
+    """``--profile``: one more warm fit under torch.profiler.  Prints the
+    device's busy time (the sum of its kernels' self times), the chunk
+    kernel's part of it, the idle share of the fit's wall time (the fit
+    runs on one stream, so kernels do not overlap) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    if not rows:
+        raise AssertionError("[profile] the profiler saw no device time")
+    rows.sort(reverse=True)
+    busy = sum(us for us, _, _ in rows) / 1e6
+    k1 = [(us, n) for us, n, key in rows if "mc_chunk" in key]
+    k1_ms = sum(us for us, _ in k1) / 1e3
+    k1_n = sum(n for _, n in k1)
+    print(f"[profile] one warm fit under torch.profiler, {card}: wall "
+          f"{wall:.4f} s; device busy {busy * 1e3:.2f} ms "
+          f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; mc_chunk "
+          f"{k1_ms:.2f} ms in {k1_n} launches; other kernels "
+          f"{busy * 1e3 - k1_ms:.2f} ms", flush=True)
+    for us, n, key in rows[:8]:
+        print(f"[profile] {us / 1e3:10.3f} ms {n:6d}x  {key[:80]}")
+
+
+def main():
+    import torch
+    # ---- phase 1: device
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script needs an NVIDIA GPU")
+    card = card_line()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    sys.path.insert(0, HERE)
+    from mcsas_tpu_torch import fit, load
+    from mcsas_tpu_torch.config import McSASConfig
+    from mcsas_tpu_torch.core.engine import McSASEngine
+    from mcsas_tpu_torch.models import get_model
+    from mcsas_tpu_torch.ops import mc_kernel
+    from mcsas_tpu_torch.post.histogram import HistogramSpec
+
+    # ---- phase 2: build
+    build = mc_kernel.build_library()
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print("ptxas:", line.strip())
+    mc_kernel._library()
+    print(f"[build] {build.path.name}: nvcc {build.seconds:.2f} s",
+          flush=True)
+
+    # ---- phase 3: kernel against the plain version, injected proposals
+    cfg = headline_config(McSASConfig)
+    data = load(DATA)
+    eng = McSASEngine(data, get_model("Sphere").bind(), cfg, device="cuda")
+    if not eng.runs_cuda_kernel:
+        raise AssertionError("the headline engine does not use the kernel")
+    eng.gen.manual_seed(1)
+    state0 = eng._init_batch()
+
+    def pair(props, seed=None):
+        """One chunk of the kernel (injected *props*, or Philox *seed*)
+        and of the plain version on *props*, from the same state."""
+        ks, kt = state0.clone(), {}
+        if seed is None:
+            mc_kernel.run_chunk(ks, 0, eng.consts, eng.spec,
+                                proposals=props, trace=kt)
+        else:
+            mc_kernel.run_chunk(ks, 0, eng.consts, eng.spec, seed=seed,
+                                n_steps=props.shape[0], trace=kt)
+        ts, tt = state0.clone(), {}
+        mc_kernel.chunk_reference(ts, 0, eng.consts, eng.spec, props,
+                                  trace=tt)
+        torch.cuda.synchronize()
+        return ks, kt, ts, tt
+
+    def check(name, props, seed=None):
+        """Compares a 256-step chunk; after a near-tie flip, the window
+        before the earliest flip is compared again on every repetition.
+        Returns (the window the error covers, max |Δχ²| over it, the
+        kernel's state and trace of the whole chunk)."""
+        ks, kt, ts, tt = pair(props, seed)
+        err, flips = compare_chunks(name, mc_kernel, ks, kt, ts, tt)
+        if ks.conval.gt(state0.conval).any():
+            raise AssertionError(f"[{name}] kernel chunk raised a chi2")
+        steps, reps = int(props.shape[0]), cfg.num_reps - len(flips)
+        if flips:
+            first = min(flips.values())
+            if first < 1:
+                raise AssertionError(f"[{name}] flip at the first step")
+            err, again = compare_chunks(f"{name}, first {first} steps",
+                                        mc_kernel,
+                                        *pair(props[:first], seed))
+            if again:
+                raise AssertionError(f"[{name}] flips before step {first}")
+            steps, reps = first, cfg.num_reps
+        if err is None:
+            raise AssertionError(f"[{name}] no repetition left to compare")
+        window = {"mode": name, "steps": steps, "reps": reps}
+        return window, err, ks, kt
+
+    win_inj, err_inj, _, _ = check("injected",
+                                   eng._draw_chunk_proposals(n_steps=256))
+
+    # ---- phase 4: Philox mode
+    seed = 20261016
+    host = mc_kernel.philox_proposals(eng.spec, seed, cfg.num_reps, 256)
+    if np.array_equal(host[:, 0], host[:, 1]):
+        raise AssertionError("repetitions 0 and 1 share a Philox stream")
+    win_phx, err_phx, ps, pt = check(
+        "philox", torch.as_tensor(host, device="cuda"), seed=seed)
+    lo, hi = eng.bound.ranges[0]
+    rset = ps.rset.cpu().numpy()
+    if not (rset.min() >= np.float32(lo) and rset.max() <= np.float32(hi)):
+        raise AssertionError("Philox chunk left the active range")
+    if not ((ps.conval < state0.conval).all() and (ps.n_moves > 0).all()):
+        raise AssertionError("Philox chunk did not descend in every rep")
+    choice = pt["choice"].cpu().numpy()
+    cur0 = state0.rset.cpu().numpy()
+    k_glob = eng.spec.k_global
+    checked = 0
+    for s, r in zip(*np.nonzero(choice >= 0)):
+        k = int(choice[s, r])
+        slot = s % cfg.num_contribs          # 256 < N: one visit per slot
+        got = rset[r, slot, 0]
+        if k < k_glob:
+            want = host[s, r, k, 0]
+            ok = got == want
+        else:
+            f = np.exp((2.0 * host[s, r, k, 0] - 1.0) * cfg.local_scale)
+            want = np.clip(cur0[r, slot, 0] * f, lo, hi)
+            ok = abs(got - want) <= 1e-6 * abs(want)
+        if not ok:
+            raise AssertionError(f"Philox step {s} rep {r} k={k}: kernel "
+                                 f"accepted {got!r}, host stream {want!r}")
+        checked += 1
+    print(f"[philox] {checked} accepted proposals equal the host model of "
+          f"the stream; reps draw distinct streams", flush=True)
+
+    # per-chunk times at the main path's chunk (2048 steps), CUDA events
+    props_full = eng._draw_chunk_proposals()
+    steps = cfg.chunk_steps
+    work = state0.clone()
+
+    def reset():
+        for name in ("rset", "ibank", "ft", "scale", "background",
+                     "conval", "n_iter", "n_moves"):
+            getattr(work, name).copy_(getattr(state0, name))
+
+    def kernel_philox():
+        reset()
+        mc_kernel.run_chunk(work, 0, eng.consts, eng.spec, seed=seed,
+                            n_steps=steps)
+
+    def kernel_injected():
+        reset()
+        mc_kernel.run_chunk(work, 0, eng.consts, eng.spec,
+                            proposals=props_full)
+
+    def plain():
+        reset()
+        mc_kernel.chunk_reference(work, 0, eng.consts, eng.spec,
+                                  props_full)
+
+    ms_philox = time_chunk(torch, kernel_philox, 5)
+    ms_injected = time_chunk(torch, kernel_injected, 5)
+    ms_plain = time_chunk(torch, plain, 2)
+    print(f"[time] {steps}-step chunk at R=10 N=300 K=128 Nq={data.count} "
+          f"(reset copy included), {card}: kernel Philox {ms_philox:.3f} "
+          f"ms, kernel injected {ms_injected:.3f} ms, plain PyTorch "
+          f"{ms_plain:.3f} ms", flush=True)
+
+    # ---- phase 5: the main path
+    def timed_fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(DATA, "Sphere", cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    first = fit(DATA, "Sphere", cfg, device="cuda")       # cold
+    mc_kernel.run_chunk.launches = 0
+    res, wall = timed_fit()
+    launches = mc_kernel.run_chunk.launches
+    walls = [wall] + [timed_fit()[1] for _ in range(4)]
+    e = res.engine
+    for r_ in (first, res):
+        if not (r_.engine.converged.all() and r_.engine.conval.max() <= 1.0):
+            raise AssertionError(
+                f"main path: {int(r_.engine.converged.sum())}/10 converged,"
+                f" max chi2 {r_.engine.conval.max()}")
+    if launches <= 0 or not e.used_pallas:
+        raise AssertionError("main path did not launch the CUDA kernel")
+    if not np.array_equal(first.engine.contribs, e.contribs):
+        raise AssertionError("two runs of one seed differ")
+    if not (e.contribs.shape == (10, 300, 1)
+            and np.isfinite(e.contribs).all()
+            and np.isfinite(res.fractions.measval).all()
+            and res.fractions.measval.shape == (10, data.count)):
+        raise AssertionError("main path result has the wrong shape or "
+                             "non-finite values")
+    # the repo's own yardstick: the reference McSAS fit of this dataset
+    with open(FIXTURE, encoding="utf-8") as fd:
+        fix = json.load(fd)
+    lo_f, hi_f = fix["workload"]["activeRange_m"]
+    y_ref = np.asarray(fix["histograms"]["vol"]["yMean"])
+    spec = HistogramSpec("radius", lo_f, hi_f, bin_count=len(y_ref),
+                         xscale="log", yweight="vol", auto_follow=False)
+    h = res.histogram([spec]).histograms[0]
+    y_eng = h.bins.mean / max(h.bins.mean.sum(), 1e-300)
+    bar_err = float(np.max(np.abs(y_eng - y_ref / y_ref.sum())))
+    fu = np.where(data.fu == 0, 1.0, data.fu)
+    z = float(np.max(np.abs(res.fit_measval_mean
+                            - np.asarray(fix["fitMeasValMean"])) / fu))
+    if not (bar_err <= 0.2 and z < 3.0):
+        raise AssertionError(f"against the reference fixture: max bar "
+                             f"diff {bar_err:.3g} (limit 0.2), fit curve "
+                             f"{z:.3g} sigma (limit 3)")
+    rate = e.total_iters / e.elapsed
+    print(f"[fit] 10/10 converged, max chi2 {e.conval.max():.4f}, "
+          f"{launches} kernel launches, total_iters {e.total_iters}, "
+          f"warm wall {wall:.4f} s (engine {e.elapsed:.4f} s), "
+          f"{rate:.4g} proposals/s; warm walls of 5 fits {walls}, median "
+          f"{float(np.median(walls)):.4f} s; on {card}", flush=True)
+    print(f"[fit] vs reference McSAS: max vol-bar diff {bar_err:.3g} "
+          f"(limit 0.2), fit curve within {z:.3g} sigma (limit 3)")
+    if "--profile" in sys.argv[1:]:
+        profile_fit(torch, lambda: fit(DATA, "Sphere", cfg, device="cuda"),
+                    card)
+
+    # max_abs_err: the larger |Δχ²| of the two comparisons, over the
+    # window each covers (printed in "compared")
+    print(json.dumps({"kernels": [{
+        "name": "mc_chunk", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES, "launches": launches,
+        "max_abs_err": max(err_inj, err_phx), "ms": ms_philox,
+        "plain_ms": ms_plain, "compared": [win_inj, win_phx]}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

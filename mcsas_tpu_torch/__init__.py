@@ -1,0 +1,25 @@
+# -*- coding: utf-8 -*-
+"""mcsas_tpu_torch — the PyTorch/CUDA port of mcsas_tpu: Monte Carlo
+size-distribution retrieval for small-angle scattering on an NVIDIA GPU.
+
+Quick start::
+
+    import mcsas_tpu_torch as mt
+    result = mt.fit("mydata.csv", model="Sphere", device="cuda")
+
+The package imports torch and numpy only; the JAX package ``mcsas_tpu``
+beside it is the reference it is tested against.
+"""
+
+__version__ = "0.1.0"
+
+from .api import McSASResult, fit                    # noqa: E402
+from .config import McSASConfig                      # noqa: E402
+from .data import DataConfig, SASData, load          # noqa: E402
+from .models import REGISTRY, get_model              # noqa: E402
+from .post.histogram import HistogramSpec            # noqa: E402
+
+__all__ = [
+    "__version__", "McSASConfig", "DataConfig", "SASData", "load",
+    "REGISTRY", "get_model", "HistogramSpec", "McSASResult", "fit",
+]

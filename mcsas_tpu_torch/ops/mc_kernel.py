@@ -1,0 +1,450 @@
+# -*- coding: utf-8 -*-
+"""The fused MC chunk: a whole chunk of accept/reject steps per launch.
+
+Three pieces, the Hopper counterpart of the JAX package's fused Pallas
+kernel (mcsas_tpu/ops/mc_kernel.py, ``build_chunk_fn``):
+
+* :func:`chunk_reference` — the plain PyTorch version, batched over
+  (R, K, Nq), in the operation order of the JAX scan path
+  (mcsas_tpu/core/engine.py::McSASEngine._step).  The CPU tests hold it
+  against the JAX package, and the kernel is held against it on the card.
+* ``csrc/mc_chunk.cu`` — the CUDA C++ kernel (sm_90a), built with nvcc at
+  first use into ``build/kernels/`` and bound with ctypes.
+* :func:`run_chunk` — the wrapper: it checks its arguments, launches the
+  kernel for CUDA tensors, runs the plain version for CPU tensors, and
+  counts kernel launches in ``run_chunk.launches``.
+
+One chunk, per repetition: ft is rebuilt from the bank (float64 sum), then
+every step draws K candidates for the slot at the shared cursor ri (the
+last ``k_local`` as local moves around the slot's current value),
+evaluates their rows, solves each candidate's scale/background with
+float64 sums, picks the first minimum χ² (NaN counts as +inf), accepts it
+iff the repetition is active and χ² improves, and advances ri mod N.
+
+Proposals come either injected, as an (S, R, K, P) tensor in the JAX
+contract (global columns in SI, local columns unit uniforms), or — kernel
+only — from the in-kernel Philox4x32-10 stream described by
+:func:`philox_proposals`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.fitcore import FitConstants, solve_scale_bg
+from ..core.rng import DECADES, local_candidates
+from ..models.sphere import Sphere
+
+MAX_P = 8                      # active parameters the kernel takes
+_GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
+              / "build" / "kernels")
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass(frozen=True)
+class ChunkSpec:
+    """Static description of one engine's chunk: everything but the state.
+
+    ``kern`` is the engine's ``IntensityKernel``: the plain version calls
+    its ``row``; the kernel computes the same row from the model id, the
+    fit grid and the row scalars."""
+    model: object
+    kern: object
+    n_contribs: int
+    k_cand: int
+    k_local: int
+    local_scale: float
+    crit: float
+    max_iter: int
+    find_bg: bool
+    pos_bg: bool
+    ranges: tuple
+    generators: tuple
+
+    @property
+    def k_global(self) -> int:
+        return self.k_cand - self.k_local
+
+    def bounds(self, dtype, device):
+        """(lo, hi) active-range vectors as tensors."""
+        lo = torch.tensor([r[0] for r in self.ranges], dtype=dtype,
+                          device=device)
+        hi = torch.tensor([r[1] for r in self.ranges], dtype=dtype,
+                          device=device)
+        return lo, hi
+
+
+def model_id(model) -> int:
+    """The kernel's integer id of a model; only Sphere has a device
+    function so far."""
+    if model is Sphere:
+        return 0
+    raise ValueError(f"the CUDA chunk kernel has no device function for "
+                     f"model {getattr(model, 'name', model)!r}")
+
+
+def supports(engine) -> bool:
+    """True when the fused kernel can run this engine's configuration."""
+    return (engine.bound.model is Sphere
+            and engine.dtype == torch.float32
+            and 1 <= engine.bound.n_active <= MAX_P)
+
+
+# ------------------------------------------------------- plain version
+
+def chunk_reference(state, ri: int, consts: FitConstants, spec: ChunkSpec,
+                    proposals: torch.Tensor, trace: Optional[dict] = None):
+    """Plain PyTorch chunk: ``proposals.shape[0]`` steps, state updated in
+    place.  Returns ``(state, cursor)``.
+
+    With a *trace* dict it also records, per step, the chosen candidate
+    (``choice`` (S, R) int32, -1 where nothing was accepted), every
+    candidate's χ² (``chi`` (S, R, K)), χ² before the step (``conval``
+    (S, R)) and the slot's parameters after it (``slot`` (S, R, P)) —
+    what a comparison needs to find the first flip and judge a near-tie.
+    """
+    n_steps = int(proposals.shape[0])
+    n = spec.n_contribs
+    k_global = spec.k_global
+    r_idx = torch.arange(state.rset.shape[0], device=state.rset.device)
+    lo, hi = spec.bounds(state.rset.dtype, state.rset.device)
+    crit = spec.crit
+    keys = ("choice", "chi", "conval", "slot")
+    if trace is not None:
+        trace.update({key: [] for key in keys})
+
+    # refresh totals from the bank: bounds float32 drift per chunk
+    state.ft.copy_(state.ibank.double().sum(dim=1))
+    for s in range(n_steps):
+        ri_s = (ri + s) % n
+        active = (state.conval > crit) & (state.n_iter < spec.max_iter)
+        cands = proposals[s]                                  # (R, K, P)
+        if spec.k_local:
+            local = local_candidates(state.rset[:, ri_s, :],
+                                     cands[:, k_global:, :], lo, hi,
+                                     spec.local_scale)
+            cands = torch.cat([cands[:, :k_global, :], local], dim=1)
+        rows = spec.kern.row(cands)                           # (R, K, Nq)
+        old = state.ibank[:, ri_s, :]
+        x = (state.ft - old)[:, None, :] + rows
+        sol = solve_scale_bg(x, consts, spec.find_bg, spec.pos_bg)
+        chi = torch.where(torch.isnan(sol.chisqr),
+                          torch.full_like(sol.chisqr, float("inf")),
+                          sol.chisqr)
+        best = torch.argmin(chi, dim=1)                       # first min
+        best_chi = chi[r_idx, best]
+        accept = active & (best_chi < state.conval)
+        if trace is not None:
+            trace["choice"].append(torch.where(
+                accept, best.to(torch.int32), -1))
+            trace["chi"].append(chi)
+            trace["conval"].append(state.conval.clone())
+        acc = accept[:, None]
+        state.rset[:, ri_s, :] = torch.where(acc, cands[r_idx, best],
+                                             state.rset[:, ri_s, :])
+        state.ibank[:, ri_s, :] = torch.where(acc, rows[r_idx, best], old)
+        state.ft.copy_(torch.where(acc, x[r_idx, best], state.ft))
+        state.scale.copy_(torch.where(accept, sol.scale[r_idx, best],
+                                      state.scale))
+        state.background.copy_(torch.where(
+            accept, sol.background[r_idx, best], state.background))
+        state.conval.copy_(torch.where(accept, best_chi, state.conval))
+        state.n_iter += spec.k_cand * active.to(torch.int32)
+        state.n_moves += accept.to(torch.int32)
+        if trace is not None:
+            trace["slot"].append(state.rset[:, ri_s, :].clone())
+    if trace is not None:
+        for key in keys:
+            trace[key] = torch.stack(trace[key]) if trace[key] else None
+    return state, (ri + n_steps) % n
+
+
+def decision_margin(chi: torch.Tensor, conval: torch.Tensor) -> torch.Tensor:
+    """How close a step's decision was: the smaller of the relative gaps
+    best-vs-current χ² and best-vs-next-larger candidate χ² (candidates
+    equal to the best are the same proposal and cannot flip).  *chi* is
+    (..., K), *conval* (...); a margin near float32 rounding (~1e-7) means
+    another summation order may decide the step the other way."""
+    chi = chi.double()
+    best = chi.min(dim=-1).values
+    above = torch.where(chi > best[..., None], chi,
+                        torch.full_like(chi, float("inf")))
+    second = above.min(dim=-1).values
+    conv = conval.double()
+    return torch.minimum(
+        (best - conv).abs() / conv.abs().clamp_min(1e-300),
+        (second - best).abs() / best.abs().clamp_min(1e-300))
+
+
+# ------------------------------------------- the kernel's Philox stream
+
+_PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
+_PHILOX_W = (np.uint32(0x9E3779B9), np.uint32(0xBB67AE85))
+_MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def philox4x32(counter, key, rounds: int = 10) -> np.ndarray:
+    """Philox4x32 (Salmon et al., SC'11) on the host, vectorized:
+    *counter* (4, ...) and *key* (2, ...) uint32 → (4, ...) uint32.  The
+    kernel's ``philox_x0`` computes word 0 of the same function."""
+    c = [np.asarray(w, np.uint32) for w in counter]
+    k0, k1 = (np.asarray(w, np.uint32) for w in key)
+    with np.errstate(over="ignore"):
+        for i in range(rounds):
+            if i:
+                k0 = k0 + _PHILOX_W[0]
+                k1 = k1 + _PHILOX_W[1]
+            p0 = _PHILOX_M[0] * c[0].astype(np.uint64)
+            p1 = _PHILOX_M[1] * c[2].astype(np.uint64)
+            hi0 = (p0 >> np.uint64(32)).astype(np.uint32)
+            hi1 = (p1 >> np.uint64(32)).astype(np.uint32)
+            lo0 = (p0 & _MASK32).astype(np.uint32)
+            lo1 = (p1 & _MASK32).astype(np.uint32)
+            c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return np.stack(c)
+
+
+def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
+                     n_steps: int) -> np.ndarray:
+    """The proposals the kernel draws in Philox mode, as an (S, R, K, P)
+    float32 array in the injected contract.
+
+    Key (seed, rep), counter (step, k, parameter, 0); the top 24 bits of
+    output word 0 make the unit uniform u.  Global columns become
+    lo + g(u)·(hi − lo) with g the generator's transform; local columns
+    keep u."""
+    k, p = spec.k_cand, len(spec.ranges)
+    s_ix, r_ix, k_ix, p_ix = np.meshgrid(
+        np.arange(n_steps), np.arange(n_reps), np.arange(k), np.arange(p),
+        indexing="ij")
+    zero = np.zeros_like(s_ix)
+    bits = philox4x32((s_ix, k_ix, p_ix, zero),
+                      (np.full_like(s_ix, seed & 0xFFFFFFFF), r_ix))[0]
+    u = (bits >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    out = u.copy()
+    for ip, (g, (lo, hi)) in enumerate(zip(spec.generators, spec.ranges)):
+        ug = u[..., :spec.k_global, ip]
+        if g in DECADES:
+            dec = np.float32(DECADES[g])
+            ug = ((np.float32(10.0) ** (ug * dec) - np.float32(1.0))
+                  / np.float32(10.0 ** DECADES[g]))
+        lo32, hi32 = np.float32(lo), np.float32(hi)
+        out[..., :spec.k_global, ip] = ug * (hi32 - lo32) + lo32
+    return out
+
+
+# -------------------------------------------------- build and binding
+
+class _ChunkParams(ctypes.Structure):
+    """Mirror of ``ChunkParams`` in csrc/mc_chunk.cu (same field order)."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "q", "y", "u", "rset", "ibank", "ft", "scale", "background",
+            "conval", "n_iter", "n_moves", "rows", "proposals", "trace")]
+        + [("s_u", ctypes.c_double), ("s_uy", ctypes.c_double),
+           ("lo", ctypes.c_float * MAX_P), ("hi", ctypes.c_float * MAX_P)]
+        + [(name, ctypes.c_float) for name in (
+            "crit", "local_scale", "inv_v_ref", "comp2", "inv_i_ref",
+            "row_clamp")]
+        + [("gen", ctypes.c_int32 * MAX_P)]
+        + [(name, ctypes.c_int32) for name in (
+            "n_reps", "n_contribs", "nq", "n_params", "k_cand", "k_global",
+            "n_steps", "ri0", "max_iter", "n_fit", "model_id", "find_bg",
+            "pos_bg", "device")]
+        + [("seed", ctypes.c_uint32)])
+
+
+@dataclass(frozen=True)
+class KernelBuild:
+    path: pathlib.Path
+    seconds: float          # nvcc wall time; 0.0 when the library existed
+    log: str                # nvcc/ptxas output (registers, spills)
+
+
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the CUDA chunk "
+                       "kernel")
+
+
+def build_library() -> KernelBuild:
+    """Compiles csrc/mc_chunk.cu into build/kernels/, keyed by a hash of
+    the source and the flags; reuses an existing build.  Raises with
+    nvcc's output when the build fails."""
+    src = _CSRC / "mc_chunk.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    path = _BUILD_DIR / f"mc_chunk_{digest[:16]}.so"
+    if path.exists():
+        return KernelBuild(path=path, seconds=0.0, log="")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode} "
+                           f"building {src}:\n{proc.stderr}{proc.stdout}")
+    os.replace(tmp, path)
+    return KernelBuild(path=path, seconds=seconds,
+                       log=proc.stderr + proc.stdout)
+
+
+def _library():
+    """The loaded kernel library (built at first use)."""
+    build = build_library()
+    lib = _LOADED.get(build.path)
+    if lib is None:
+        lib = ctypes.CDLL(str(build.path))
+        lib.mc_chunk_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.mc_chunk_launch.restype = ctypes.c_int
+        lib.mc_chunk_params_size.argtypes = []
+        lib.mc_chunk_params_size.restype = ctypes.c_int
+        lib.mc_chunk_error_string.argtypes = [ctypes.c_int]
+        lib.mc_chunk_error_string.restype = ctypes.c_char_p
+        size = lib.mc_chunk_params_size()
+        if size != ctypes.sizeof(_ChunkParams):
+            raise RuntimeError(
+                f"ChunkParams layout mismatch: C {size} bytes, ctypes "
+                f"{ctypes.sizeof(_ChunkParams)} bytes")
+        _LOADED[build.path] = lib
+    return lib
+
+
+# ---------------------------------------------------------- the wrapper
+
+def _check(state, consts: FitConstants, spec: ChunkSpec, proposals):
+    dev = state.rset.device
+    r, n, p = state.rset.shape
+    nq = consts.n
+    want = {"rset": (r, n, p), "ibank": (r, n, nq), "ft": (r, nq),
+            "scale": (r,), "background": (r,), "conval": (r,),
+            "n_iter": (r,), "n_moves": (r,)}
+    for name, shape in want.items():
+        t = getattr(state, name)
+        dt = torch.int32 if name in ("n_iter", "n_moves") else torch.float32
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"state.{name}: want {dt} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"state.{name} must be contiguous")
+    for name, t in (("consts.y", consts.y), ("consts.u", consts.u),
+                    ("spec.kern.grid", spec.kern.grid)):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != (nq,) or not t.is_contiguous()):
+            raise ValueError(f"{name}: want contiguous float32 ({nq},) "
+                             f"on {dev}")
+    if n != spec.n_contribs or p != len(spec.ranges):
+        raise ValueError(f"state has N={n}, P={p}; spec wants "
+                         f"N={spec.n_contribs}, P={len(spec.ranges)}")
+    if proposals is not None:
+        k = spec.k_cand
+        if (proposals.device != dev or proposals.dtype != torch.float32
+                or proposals.dim() != 4
+                or tuple(proposals.shape[1:]) != (r, k, p)
+                or not proposals.is_contiguous()):
+            raise ValueError(f"proposals: want contiguous float32 "
+                             f"(S, {r}, {k}, {p}) on {dev}, got "
+                             f"{proposals.dtype} {tuple(proposals.shape)} "
+                             f"on {proposals.device}")
+
+
+def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
+              proposals: Optional[torch.Tensor] = None,
+              seed: Optional[int] = None, n_steps: Optional[int] = None,
+              trace: Optional[dict] = None):
+    """Runs one chunk on the state's device, updating it in place;
+    returns ``(state, cursor)``.
+
+    CUDA tensors launch the kernel: with *proposals* (S, R, K, P) it uses
+    them, otherwise it draws from its Philox stream keyed by *seed* for
+    *n_steps* steps.  CPU tensors run :func:`chunk_reference`, which needs
+    *proposals*.  With a *trace* dict the chosen candidate per step lands
+    in ``trace["choice"]`` (S, R) int32, -1 where nothing was accepted.
+    """
+    _check(state, consts, spec, proposals)
+    if proposals is not None:
+        if n_steps is not None and n_steps != proposals.shape[0]:
+            raise ValueError("n_steps disagrees with proposals.shape[0]")
+        n_steps = int(proposals.shape[0])
+    dev = state.rset.device
+    if dev.type == "cpu":
+        if proposals is None:
+            raise ValueError("the plain chunk on CPU tensors needs "
+                             "injected proposals")
+        return chunk_reference(state, ri, consts, spec, proposals, trace)
+    if dev.type != "cuda":
+        raise ValueError(f"no chunk implementation for device {dev}")
+    if proposals is None and (seed is None or n_steps is None):
+        raise ValueError("the Philox mode needs seed and n_steps")
+    if spec.k_cand < 1 or not 0 <= spec.k_local <= spec.k_cand:
+        raise ValueError(f"invalid candidate split: K={spec.k_cand}, "
+                         f"{spec.k_local} local")
+    r, n, p = state.rset.shape
+    nq, k = consts.n, spec.k_cand
+    lib = _library()
+    rows = torch.empty((r, nq, k), dtype=torch.float32, device=dev)
+    choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
+              if trace is not None else None)
+    prm = _ChunkParams(
+        q=spec.kern.grid.data_ptr(), y=consts.y.data_ptr(),
+        u=consts.u.data_ptr(), rset=state.rset.data_ptr(),
+        ibank=state.ibank.data_ptr(), ft=state.ft.data_ptr(),
+        scale=state.scale.data_ptr(),
+        background=state.background.data_ptr(),
+        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
+        n_moves=state.n_moves.data_ptr(), rows=rows.data_ptr(),
+        proposals=(proposals.data_ptr() if proposals is not None else None),
+        trace=(choice.data_ptr() if choice is not None else None),
+        s_u=consts.s_u, s_uy=consts.s_uy,
+        crit=spec.crit, local_scale=spec.local_scale,
+        inv_v_ref=spec.kern.inv_v_ref, comp2=spec.kern.comp2,
+        inv_i_ref=spec.kern.inv_i_ref, row_clamp=spec.kern.row_clamp,
+        n_reps=r, n_contribs=n, nq=nq, n_params=p, k_cand=k,
+        k_global=spec.k_global, n_steps=n_steps, ri0=ri % n,
+        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
+        model_id=model_id(spec.model), find_bg=int(spec.find_bg),
+        pos_bg=int(spec.pos_bg),
+        device=(dev.index if dev.index is not None
+                else torch.cuda.current_device()),
+        seed=(seed or 0) & 0xFFFFFFFF)
+    for ip, ((lo, hi), g) in enumerate(zip(spec.ranges, spec.generators)):
+        prm.lo[ip], prm.hi[ip], prm.gen[ip] = lo, hi, _GEN_CODES[g]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.mc_chunk_launch(ctypes.byref(prm), ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.mc_chunk_error_string(rc).decode()
+        raise RuntimeError(f"mc_chunk launch failed: CUDA error {rc} "
+                           f"({msg})")
+    run_chunk.launches += 1
+    if trace is not None:
+        trace["choice"] = choice
+    return state, (ri + n_steps) % n
+
+
+run_chunk.launches = 0

@@ -1,0 +1,120 @@
+# -*- coding: utf-8 -*-
+"""PyTorch port on the card: the CUDA chunk kernel against its plain
+PyTorch version.  Marked ``cuda``; every test skips without a CUDA device
+(decided inside the fixture).  On a machine with a card and without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from mcsas_tpu_torch import load  # noqa: E402
+from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
+from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
+from mcsas_tpu_torch.models import get_model  # noqa: E402
+from mcsas_tpu_torch.ops import mc_kernel  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+DATA = (pathlib.Path(__file__).resolve().parent.parent / "testdata"
+        / "sasfit_sphere-10-1.dat")
+
+
+@pytest.fixture(scope="module")
+def engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cfg = McSASConfig(num_contribs=64, num_reps=3, chunk_steps=128,
+                      candidates_per_step=48, local_moves=0.5, seed=5,
+                      max_iterations=1_000_000)
+    eng = McSASEngine(load(DATA), get_model("Sphere").bind(), cfg,
+                      device="cuda")
+    assert eng.runs_cuda_kernel
+    return eng
+
+
+def test_kernel_matches_plain_version(engine):
+    """Injected proposals: identical accept decisions until a near-tie
+    (relative χ² gap ≤ 1e-6); where no flip occurs, the same state.  The
+    two run the same float32 operations, so ft matches the plain
+    version's to 1e-6; against Σ bank it carries the incremental float32
+    drift of 200 steps over 64 slots (rows of clamped, huge candidates
+    enter and leave the total), bounded to 1e-3 of max |ft| by the
+    refresh at every chunk start."""
+    engine.gen.manual_seed(2)
+    state = engine._init_batch()
+    props = engine._draw_chunk_proposals(n_steps=200)
+    ks, kt = state.clone(), {}
+    before = mc_kernel.run_chunk.launches
+    _, ri = mc_kernel.run_chunk(ks, 7, engine.consts, engine.spec,
+                                proposals=props, trace=kt)
+    assert mc_kernel.run_chunk.launches == before + 1 and ri == 207 % 64
+    ts, tt = state.clone(), {}
+    mc_kernel.chunk_reference(ts, 7, engine.consts, engine.spec, props,
+                              trace=tt)
+    torch.cuda.synchronize()
+    kc, tc = kt["choice"].cpu().numpy(), tt["choice"].cpu().numpy()
+    for r in range(kc.shape[1]):
+        diff = np.nonzero(kc[:, r] != tc[:, r])[0]
+        if len(diff):
+            s = diff[0]
+            margin = float(mc_kernel.decision_margin(tt["chi"][s, r],
+                                                     tt["conval"][s, r]))
+            assert margin <= 1e-6, (r, s, margin)
+        else:
+            np.testing.assert_allclose(ks.rset[r].cpu(), ts.rset[r].cpu(),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(ks.conval[r].cpu(),
+                                       ts.conval[r].cpu(), rtol=1e-5)
+            np.testing.assert_allclose(ks.ft[r].cpu(), ts.ft[r].cpu(),
+                                       rtol=1e-6)
+            assert int(ks.n_moves[r]) == int(ts.n_moves[r])
+    bank_sum = ks.ibank.double().sum(1).cpu()
+    np.testing.assert_allclose(ks.ft.double().cpu(), bank_sum, rtol=0,
+                               atol=1e-3 * float(bank_sum.abs().max()))
+
+
+def test_philox_mode_draws_the_documented_stream(engine):
+    engine.gen.manual_seed(3)
+    state = engine._init_batch()
+    ps, pt = state.clone(), {}
+    mc_kernel.run_chunk(ps, 0, engine.consts, engine.spec, seed=77,
+                        n_steps=60, trace=pt)
+    host = mc_kernel.philox_proposals(engine.spec, 77, 3, 60)
+    choice = pt["choice"].cpu().numpy()
+    rset = ps.rset.cpu().numpy()
+    hits = 0
+    for s, r in zip(*np.nonzero((choice >= 0)
+                                & (choice < engine.spec.k_global))):
+        assert rset[r, s, 0] == host[s, r, choice[s, r], 0]
+        hits += 1
+    assert hits > 0
+    assert (ps.conval <= state.conval).all()
+
+
+def test_ineligible_config_on_the_card_raises(engine):
+    """On the card only use_pallas='off' runs the plain chunk: a float64
+    config under 'auto' raises instead of running it quietly."""
+    d, bound = engine.data, engine.bound
+    with pytest.raises(ValueError, match="eligible"):
+        McSASEngine(d, bound, McSASConfig(num_contribs=64, dtype="float64"),
+                    device="cuda")
+    off = McSASEngine(d, bound, McSASConfig(num_contribs=64, dtype="float64",
+                                            use_pallas="off"),
+                      device="cuda")
+    assert not off.runs_cuda_kernel
+
+
+def test_kernel_refuses_bad_input(engine):
+    state = engine._init_batch()
+    bad = state.clone()
+    bad.ft = bad.ft.double()
+    with pytest.raises(ValueError, match="ft"):
+        mc_kernel.run_chunk(bad, 0, engine.consts, engine.spec, seed=1,
+                            n_steps=4)
+    with pytest.raises(ValueError, match="seed"):
+        mc_kernel.run_chunk(state, 0, engine.consts, engine.spec)
