@@ -7,8 +7,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises and the script exits nonzero):
   1. device: the card's name and power limit (nvidia-smi) and the
      torch/CUDA versions; fails when torch.cuda.is_available() is False;
-  2. build: compiles csrc/mc_chunk.cu with nvcc for sm_90a (timed);
-  3. kernel vs plain version: one 256-step chunk at the headline shape
+  2. build: compiles csrc/mc_chunk.cu (K1) and csrc/mc_prefetch.cu (K2)
+     with nvcc for sm_90a, one nvcc each, started together (timed);
+  3. K1 vs plain version: one 256-step chunk at the headline shape
      (R=10, N=300, K=128, local moves 0.5) on injected proposals — the
      accept decisions must be identical, or first differ at a near-tie
      (|Δχ²| ≤ 1e-6 relative, printed); ft = Σ bank (rtol 1e-5); χ² within
@@ -21,13 +22,26 @@ Phases (any failure raises and the script exits nonzero):
      with the headline config on device="cuda" — 10/10 repetitions
      converged, max χ² ≤ 1, the kernel's launch counter above 0, and the
      result held to the reference McSAS fixture of that dataset; the warm
-     wall time of five fits.
+     wall time of five fits;
+  6. K2 vs plain version: the cylinder suite row of bench.py (the
+     synthetic cylinder golden, CylindersIsotropic on its 4096-row
+     parameter table, R=10, N=300, K=128, Nq=100): one 131-step segment
+     from a state initialized on the card, without and with local moves
+     0.5 — decisions identical or first differing at a near-tie, ft =
+     Σ bank, χ² within 1e-5 relative; the table bake, K2 and the plain
+     version timed;
+  7. the cylinder main path: ``fit()`` of that row on device="cuda" —
+     10/10 converged, max χ² ≤ 1, K2's launch counter above 0 and K1's
+     at 0, two runs of one seed equal, the vol-weighted mean radius
+     within 10 % of the golden 10 nm; the warm wall time of five fits.
 
-With ``--profile`` it then runs one more fit under torch.profiler and
-prints where the device time went and the device's idle share.
+With ``--profile`` it also runs one more fit of each path under
+torch.profiler and prints where the device time went and the device's
+idle share, times K2 on shorter segments and the row lookup beside it,
+and splits three cylinder fits into set-up, MC run and post pass.
 
-The line before the last is a JSON summary of the kernel; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is a JSON summary of the kernels; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -41,8 +55,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "testdata", "sasfit_sphere-10-1.dat")
 FIXTURE = os.path.join(HERE, "testdata", "reference_sphere10_fixture.json")
 NEAR_TIE = 1e-6
-SOURCE = "mcsas_tpu_torch/csrc/mc_chunk.cu"
-REPLACES = "mcsas_tpu/ops/mc_kernel.py:410"
+GOLDEN_RADIUS = 10e-9     # the synthetic cylinder's radius (aspect 10)
 
 
 def headline_config(mcsas_config):
@@ -51,6 +64,40 @@ def headline_config(mcsas_config):
                         max_iterations=8_000_000, chunk_steps=2048,
                         candidates_per_step=128, seed=2026, max_retries=1,
                         local_moves=0.5)
+
+
+def cylinder_config(mcsas_config):
+    """bench.py's suite row 'cylinders-isotropic' (bench.py:162-164,
+    213-222); table_ff 'auto' resolves to on at this budget."""
+    return mcsas_config(num_contribs=300, num_reps=10,
+                        max_iterations=8_000_000, chunk_steps=1024,
+                        candidates_per_step=128, seed=2026, max_retries=1,
+                        convergence_criterion=1.0, local_moves=0.0,
+                        show_incomplete=True)
+
+
+def cylinder_bound(get_model):
+    return get_model("CylindersIsotropic").bind(
+        active=("radius",), active_ranges={"radius": (0.5e-9, 300e-9)})
+
+
+def cylinder_golden():
+    """bench.synth_golden("cylinder") built with the port's float64
+    functions: q = geomspace(0.01, 2, 100) nm⁻¹, I = ff² of the converged
+    n=801 orientation rule at R = 10 nm, aspect 10, normalized to max 1,
+    σ = 0.01·I, no rebinning."""
+    import torch
+    from mcsas_tpu_torch.data import DataConfig, from_raw
+    from mcsas_tpu_torch.models.cylinders import _cyl_iso_ff_ab
+    q_nm = np.geomspace(0.01, 2.0, 100)
+    q = torch.as_tensor(q_nm * 1e9, dtype=torch.float64)
+    r, asp = GOLDEN_RADIUS, 10.0
+    ff = _cyl_iso_ff_ab(q * r, q * (2.0 * r * asp), 801,
+                        torch.float64).numpy()
+    i = ff ** 2
+    i = i / i.max()
+    return from_raw(np.column_stack([q_nm, i, 0.01 * i]),
+                    title="synthetic-cylinder", config=DataConfig(n_bin=0))
 
 
 def card_line():
@@ -104,6 +151,33 @@ def compare_chunks(name, mc_kernel, ks, kt, ts, tt, rtol_chi=1e-5):
     return err, flips
 
 
+def check_pair(name, mc_kernel, pair, steps, state0, n_reps):
+    """Runs *pair(n)* — the kernel and its plain version over the first n
+    steps from *state0*, returning (ks, kt, ts, tt) — over *steps* steps
+    and compares them; after a near-tie flip, the window before the
+    earliest flip is compared again on every repetition.  Returns (the
+    window the error covers, max |Δχ²| over it, the kernel's state and
+    trace of the whole run)."""
+    ks, kt, ts, tt = pair(steps)
+    err, flips = compare_chunks(name, mc_kernel, ks, kt, ts, tt)
+    if ks.conval.gt(state0.conval).any():
+        raise AssertionError(f"[{name}] the kernel raised a chi2")
+    reps = n_reps - len(flips)
+    if flips:
+        first = min(flips.values())
+        if first < 1:
+            raise AssertionError(f"[{name}] flip at the first step")
+        err, again = compare_chunks(f"{name}, first {first} steps",
+                                    mc_kernel, *pair(first))
+        if again:
+            raise AssertionError(f"[{name}] flips before step {first}")
+        steps, reps = first, n_reps
+    if err is None:
+        raise AssertionError(f"[{name}] no repetition left to compare")
+    window = {"mode": name, "steps": steps, "reps": reps}
+    return window, err, ks, kt
+
+
 def time_chunk(torch, fn, reps):
     """Mean milliseconds of fn() over *reps* runs, with CUDA events, after
     one warm-up run."""
@@ -119,11 +193,12 @@ def time_chunk(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def profile_fit(torch, run, card):
+def profile_fit(torch, run, card, label, kernel):
     """``--profile``: one more warm fit under torch.profiler.  Prints the
     device's busy time (the sum of its kernels' self times), the chunk
-    kernel's part of it, the idle share of the fit's wall time (the fit
-    runs on one stream, so kernels do not overlap) and the top kernels."""
+    kernel's part of it (*kernel*: a name fragment), the idle share of
+    the fit's wall time (the fit runs on one stream, so kernels do not
+    overlap) and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -143,20 +218,44 @@ def profile_fit(torch, run, card):
         raise AssertionError("[profile] the profiler saw no device time")
     rows.sort(reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e6
-    k1 = [(us, n) for us, n, key in rows if "mc_chunk" in key]
+    k1 = [(us, n) for us, n, key in rows if kernel in key]
     k1_ms = sum(us for us, _ in k1) / 1e3
     k1_n = sum(n for _, n in k1)
-    print(f"[profile] one warm fit under torch.profiler, {card}: wall "
-          f"{wall:.4f} s; device busy {busy * 1e3:.2f} ms "
-          f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; mc_chunk "
+    print(f"[profile] one warm {label} fit under torch.profiler, {card}: "
+          f"wall {wall:.4f} s; device busy {busy * 1e3:.2f} ms "
+          f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; {kernel} "
           f"{k1_ms:.2f} ms in {k1_n} launches; other kernels "
           f"{busy * 1e3 - k1_ms:.2f} ms", flush=True)
     for us, n, key in rows[:8]:
         print(f"[profile] {us / 1e3:10.3f} ms {n:6d}x  {key[:80]}")
 
 
+def fit_phases(torch, engine_cls, histogram_all, data, bound, cfg, card):
+    """``--profile``: the host-clock split of three warm fits into what
+    ``api.fit`` runs — engine set-up, the MC run, the float64 post pass
+    with the histograms."""
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = engine_cls(data, bound, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        histogram_all(res.contribs, data, bound, cfg, None,
+                      device=eng.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        print(f"[profile] cylinder fit phases, {card}: set-up "
+              f"{(t1 - t0) * 1e3:.2f} ms, run {(t2 - t1) * 1e3:.2f} ms, "
+              f"post pass and histograms {(t3 - t2) * 1e3:.2f} ms",
+              flush=True)
+
+
 def main():
     import torch
+    profiling = "--profile" in sys.argv[1:]
     # ---- phase 1: device
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
@@ -172,16 +271,20 @@ def main():
     from mcsas_tpu_torch.core.engine import McSASEngine
     from mcsas_tpu_torch.models import get_model
     from mcsas_tpu_torch.ops import mc_kernel
-    from mcsas_tpu_torch.post.histogram import HistogramSpec
+    from mcsas_tpu_torch.post.histogram import HistogramSpec, histogram_all
 
-    # ---- phase 2: build
-    build = mc_kernel.build_library()
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("ptxas:", line.strip())
-    mc_kernel._library()
-    print(f"[build] {build.path.name}: nvcc {build.seconds:.2f} s",
-          flush=True)
+    # ---- phase 2: build (one nvcc per kernel source, in parallel)
+    t0 = time.perf_counter()
+    builds = mc_kernel.build_libraries()
+    build_wall = time.perf_counter() - t0
+    for name, build in builds.items():
+        for line in build.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"ptxas [{name}]:", line.strip())
+        mc_kernel._library(name)
+        print(f"[build] {build.path.name}: nvcc {build.seconds:.2f} s",
+              flush=True)
+    print(f"[build] both kernels in {build_wall:.2f} s wall", flush=True)
 
     # ---- phase 3: kernel against the plain version, injected proposals
     cfg = headline_config(McSASConfig)
@@ -209,29 +312,9 @@ def main():
         return ks, kt, ts, tt
 
     def check(name, props, seed=None):
-        """Compares a 256-step chunk; after a near-tie flip, the window
-        before the earliest flip is compared again on every repetition.
-        Returns (the window the error covers, max |Δχ²| over it, the
-        kernel's state and trace of the whole chunk)."""
-        ks, kt, ts, tt = pair(props, seed)
-        err, flips = compare_chunks(name, mc_kernel, ks, kt, ts, tt)
-        if ks.conval.gt(state0.conval).any():
-            raise AssertionError(f"[{name}] kernel chunk raised a chi2")
-        steps, reps = int(props.shape[0]), cfg.num_reps - len(flips)
-        if flips:
-            first = min(flips.values())
-            if first < 1:
-                raise AssertionError(f"[{name}] flip at the first step")
-            err, again = compare_chunks(f"{name}, first {first} steps",
-                                        mc_kernel,
-                                        *pair(props[:first], seed))
-            if again:
-                raise AssertionError(f"[{name}] flips before step {first}")
-            steps, reps = first, cfg.num_reps
-        if err is None:
-            raise AssertionError(f"[{name}] no repetition left to compare")
-        window = {"mode": name, "steps": steps, "reps": reps}
-        return window, err, ks, kt
+        """Compares a 256-step chunk (see check_pair)."""
+        return check_pair(name, mc_kernel, lambda n: pair(props[:n], seed),
+                          int(props.shape[0]), state0, cfg.num_reps)
 
     win_inj, err_inj, _, _ = check("injected",
                                    eng._draw_chunk_proposals(n_steps=256))
@@ -314,8 +397,11 @@ def main():
 
     first = fit(DATA, "Sphere", cfg, device="cuda")       # cold
     mc_kernel.run_chunk.launches = 0
+    mc_kernel.run_prefetch_chunk.launches = 0
     res, wall = timed_fit()
     launches = mc_kernel.run_chunk.launches
+    if mc_kernel.run_prefetch_chunk.launches:
+        raise AssertionError("the Sphere main path launched K2")
     walls = [wall] + [timed_fit()[1] for _ in range(4)]
     e = res.engine
     for r_ in (first, res):
@@ -358,17 +444,171 @@ def main():
           f"{float(np.median(walls)):.4f} s; on {card}", flush=True)
     print(f"[fit] vs reference McSAS: max vol-bar diff {bar_err:.3g} "
           f"(limit 0.2), fit curve within {z:.3g} sigma (limit 3)")
-    if "--profile" in sys.argv[1:]:
+    if profiling:
         profile_fit(torch, lambda: fit(DATA, "Sphere", cfg, device="cuda"),
-                    card)
+                    card, "Sphere", "mc_chunk")
 
-    # max_abs_err: the larger |Δχ²| of the two comparisons, over the
+    # ---- phase 6: K2 against its plain version, full-width segments
+    from mcsas_tpu_torch.ops import tables
+    golden = cylinder_golden()
+    cyl_cfg = cylinder_config(McSASConfig)
+    cyl_bound = cylinder_bound(get_model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, table = cyl_bound.model.ff_table_factory(
+        cyl_bound, golden.q, torch.float32, torch.device("cuda"))
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    print(f"[bake] {tuple(table.values.shape)} float32 table, n=801 rule, "
+          f"on the card in {bake_s:.3f} s (first torch use of these "
+          f"operations included), {card}", flush=True)
+    if table.values.shape != (4096, golden.count):
+        raise AssertionError(f"table shape {tuple(table.values.shape)}")
+    tables_memo = len(tables._TABLE_CACHE)
+    k2_windows, k2_errs, k2_ms, k2_plain_ms = [], [], [], []
+    for local in (0.0, 0.5):
+        ceng = McSASEngine(golden, cyl_bound,
+                           cyl_cfg.replace(local_moves=local),
+                           device="cuda")
+        if len(tables._TABLE_CACHE) != tables_memo:
+            raise AssertionError("the engine baked its table again")
+        if not (ceng.uses_table and ceng.runs_cuda_kernel
+                and ceng.seg_steps == 131):
+            raise AssertionError(f"cylinder engine: table {ceng.uses_table}"
+                                 f", kernel {ceng.runs_cuda_kernel}, "
+                                 f"segment {ceng.seg_steps} (want 131)")
+        ceng.gen.manual_seed(1)
+        cstate0 = ceng._init_batch()
+        cands = mc_kernel.segment_candidates(
+            cstate0, 0, ceng.spec, ceng._draw_chunk_proposals(131))
+        rows = ceng.kern.row(cands)
+
+        def k2_pair(n, ceng=ceng, cstate0=cstate0, cands=cands, rows=rows):
+            ks, kt = cstate0.clone(), {}
+            mc_kernel.run_prefetch_chunk(ks, 0, ceng.consts, ceng.spec,
+                                         rows[:n], cands[:n], trace=kt)
+            ts, tt = cstate0.clone(), {}
+            mc_kernel.prefetch_reference(ts, 0, ceng.consts, ceng.spec,
+                                         rows[:n], cands[:n], trace=tt)
+            torch.cuda.synchronize()
+            return ks, kt, ts, tt
+
+        name = f"K2 local_moves={local}"
+        win, err, ks, _ = check_pair(name, mc_kernel, k2_pair, 131,
+                                     cstate0, cyl_cfg.num_reps)
+        if not (ks.n_moves > 0).all():
+            raise AssertionError(f"[{name}] a repetition accepted nothing")
+        k2_windows.append(win)
+        k2_errs.append(err)
+        cwork = cstate0.clone()
+
+        def reset(cwork=cwork, cstate0=cstate0):
+            for f in ("rset", "ibank", "ft", "scale", "background",
+                      "conval", "n_iter", "n_moves"):
+                getattr(cwork, f).copy_(getattr(cstate0, f))
+
+        def k2(ceng=ceng, cwork=cwork, cands=cands, rows=rows, reset=reset):
+            reset()
+            mc_kernel.run_prefetch_chunk(cwork, 0, ceng.consts, ceng.spec,
+                                         rows, cands)
+
+        def k2_plain(ceng=ceng, cwork=cwork, cands=cands, rows=rows,
+                     reset=reset):
+            reset()
+            mc_kernel.prefetch_reference(cwork, 0, ceng.consts, ceng.spec,
+                                         rows, cands)
+
+        k2_ms.append(time_chunk(torch, k2, 10))
+        k2_plain_ms.append(time_chunk(torch, k2_plain, 2))
+        print(f"[time] {name}: 131-step segment at R=10 N=300 K=128 "
+              f"Nq={golden.count} (reset copy included), {card}: kernel "
+              f"{k2_ms[-1]:.3f} ms, plain PyTorch {k2_plain_ms[-1]:.3f} ms",
+              flush=True)
+        if profiling and not local:
+            # shorter segments split K2's time into a per-launch part
+            # (launch, ft rebuild, reset copy) and a per-step part
+            for n in (8, 32):
+                ms = time_chunk(torch, lambda n=n: k2(rows=rows[:n],
+                                                       cands=cands[:n]), 10)
+                print(f"[profile] {name}: {n}-step segment {ms:.4f} ms",
+                      flush=True)
+            draw_ms = time_chunk(
+                torch, lambda: ceng._draw_chunk_proposals(131), 10)
+            row_ms = time_chunk(torch, lambda: ceng.kern.row(cands), 10)
+            print(f"[profile] per 131-step segment, outside K2: draw "
+                  f"{draw_ms:.4f} ms, table row lookup {row_ms:.4f} ms",
+                  flush=True)
+
+    # ---- phase 7: the cylinder main path
+    def cyl_fit():
+        return fit(golden, cyl_bound, cyl_cfg, device="cuda")
+
+    def timed_cyl_fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cyl_fit()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cfirst = cyl_fit()
+    mc_kernel.run_chunk.launches = 0
+    mc_kernel.run_prefetch_chunk.launches = 0
+    cres, cwall = timed_cyl_fit()
+    k2_launches = mc_kernel.run_prefetch_chunk.launches
+    k1_during = mc_kernel.run_chunk.launches
+    cwalls = [cwall] + [timed_cyl_fit()[1] for _ in range(4)]
+    ce = cres.engine
+    for r_ in (cfirst, cres):
+        if not (r_.engine.converged.all()
+                and r_.engine.conval.max() <= 1.0):
+            raise AssertionError(
+                f"cylinder path: {int(r_.engine.converged.sum())}/10 "
+                f"converged, max chi2 {r_.engine.conval.max()}")
+    if k2_launches <= 0 or k1_during != 0:
+        raise AssertionError(f"cylinder path: {k2_launches} K2 launches, "
+                             f"{k1_during} K1 launches")
+    if not (ce.used_table and ce.used_prefetch and ce.used_pallas):
+        raise AssertionError("cylinder path: used_table/used_prefetch not "
+                             "both set")
+    if not np.array_equal(cfirst.engine.contribs, ce.contribs):
+        raise AssertionError("cylinder path: two runs of one seed differ")
+    if not (ce.contribs.shape == (10, 300, 1)
+            and np.isfinite(ce.contribs).all()
+            and np.isfinite(cres.fractions.measval).all()
+            and cres.fractions.measval.shape == (10, golden.count)):
+        raise AssertionError("cylinder path: wrong shape or non-finite "
+                             "values")
+    mean_r = float(cres.histograms[0].moments.mean[0])
+    if not abs(mean_r - GOLDEN_RADIUS) <= 0.1 * GOLDEN_RADIUS:
+        raise AssertionError(f"cylinder path: vol-weighted mean radius "
+                             f"{mean_r!r} m, golden {GOLDEN_RADIUS} m")
+    print(f"[fit cylinder] 10/10 converged, max chi2 {ce.conval.max():.4f},"
+          f" {k2_launches} K2 launches, total_iters {ce.total_iters} (the "
+          f"JAX package's TPU round: about 4.65M), warm wall {cwall:.4f} s "
+          f"(engine {ce.elapsed:.4f} s), "
+          f"{ce.total_iters / ce.elapsed:.4g} proposals/s; warm walls of 5"
+          f" fits {cwalls}, median {float(np.median(cwalls)):.4f} s; "
+          f"vol-weighted mean radius {mean_r * 1e9:.4f} nm (golden 10); "
+          f"on {card}", flush=True)
+    if profiling:
+        profile_fit(torch, cyl_fit, card, "cylinder", "mc_prefetch")
+        fit_phases(torch, McSASEngine, histogram_all, golden, cyl_bound,
+                   cyl_cfg, card)
+
+    # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # window each covers (printed in "compared")
     print(json.dumps({"kernels": [{
-        "name": "mc_chunk", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
+        "name": "mc_chunk", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/mc_chunk.cu",
+        "replaces": "mcsas_tpu/ops/mc_kernel.py:410", "launches": launches,
         "max_abs_err": max(err_inj, err_phx), "ms": ms_philox,
-        "plain_ms": ms_plain, "compared": [win_inj, win_phx]}]}))
+        "plain_ms": ms_plain, "compared": [win_inj, win_phx]}, {
+        "name": "mc_prefetch", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",
+        "replaces": "mcsas_tpu/ops/mc_kernel.py:719",
+        "launches": k2_launches, "max_abs_err": max(k2_errs),
+        "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
+        "compared": k2_windows}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -57,10 +57,13 @@ class McSASConfig:
     # is unchanged, so the result is still a strict-descent MC fit.
     local_moves: float = 0.0
     local_scale: float = 0.2
-    # Kept so configurations round-trip through JSON unchanged: the
-    # table tier and the float32 post tier are not part of this package
-    # (its post pass always runs float64 on the engine's device).
+    # Parameter-table tier for quadrature models (ops/tables.py): "auto"
+    # bakes a table when the proposal budget amortizes the bake (see
+    # table_ff_enabled), "on" always, "off" never.
     table_ff: str = "auto"
+    # Kept so configurations round-trip through JSON unchanged: the
+    # float32 post tier is not part of this package (its post pass always
+    # runs float64 on the engine's device).
     post_compute: str = "auto"
 
     _JSON_KEYS = {

@@ -17,6 +17,10 @@ background per iteration.  The recast, shared with the JAX package
   decided on the host between chunks.
 * ``candidates_per_step`` (K) proposals for the same slot are evaluated
   per step and the best improving one is accepted.
+* On the parameter-table tier (quadrature models, float32) a chunk is one
+  prefetch segment: its proposals are drawn and their rows evaluated by
+  the table lookup up front, and the prefetch kernel K2 (or its plain
+  version) runs the steps on them.
 * Rows are computed with the weight normalized by a host-side float64
   reference volume (w/w_ref), so float32 never touches the ~1e-32 SI
   magnitudes; the fitted scale absorbs the factor exactly.
@@ -41,6 +45,7 @@ from ..config import McSASConfig
 from ..data import SASData
 from ..models.base import BoundModel
 from ..ops import mc_kernel
+from ..ops.tables import ParamTable
 from .fitcore import FitConstants, make_constants, solve_scale_bg
 from .rng import draw_params, local_candidates
 
@@ -121,9 +126,11 @@ class EngineResult:
     elapsed: float            # seconds
     iters_per_sec: float
     moves_per_sec: float
-    # True only when the CUDA chunk kernel ran
+    # True only when a CUDA chunk kernel (K1 or K2) ran
     used_pallas: bool = False
+    # the form factor came from a parameter table
     used_table: bool = False
+    # True only when the prefetch kernel K2 ran
     used_prefetch: bool = False
     # accumulated over ALL attempts (retried repetitions included) — the
     # per-rep n_iter above resets on retry
@@ -171,46 +178,76 @@ class IntensityKernel:
     """The normalized intensity row of one (data, model, config) triple.
 
     ``row(pvec)`` maps parameter vectors (..., P) to rows (..., Nq):
-    (ff·√w)² with w = (v·inv_v_ref)^comp2 / i_ref, clamped at
-    ``row_clamp``.  The scalars are what the CUDA kernel needs to compute
-    the same row.  The volume is scaled by a multiplication with the
-    host reciprocal of v_ref, which eager PyTorch performs identically on
-    the CPU and on CUDA (PyTorch turns a CUDA division by a host scalar
-    into that multiplication), so the kernel can match it bitwise.
+    (ffv·√w)² with w = (v·inv_v_ref)^comp2 / i_ref, clamped at
+    ``row_clamp``.  ffv is the model's form factor on the fit grid or,
+    on the parameter-table tier, ``table_fn(table, pdict)``: the
+    multilinear blend of the baked rows (ops/tables.py), which plays the
+    part of the model's weights.  The scalars are what the CUDA kernels
+    need to compute or consume the same rows.  The volume is scaled by a
+    multiplication with the host reciprocal of v_ref, which eager PyTorch
+    performs identically on the CPU and on CUDA (PyTorch turns a CUDA
+    division by a host scalar into that multiplication), so the kernel can
+    match it bitwise.
     """
-    row: Callable
+    bound: BoundModel
+    model_ff: Callable        # ff(grid, pdict), when there is no table
     grid: torch.Tensor        # (Nq,) fit grid, engine dtype and device
     w_ref: float              # v_ref^comp2 · i_ref: back to SI scale
     inv_v_ref: float
     comp2: float
     inv_i_ref: float
     row_clamp: float
+    table: Optional[ParamTable] = None
+    table_fn: Optional[Callable] = None   # (table, pdict) -> (..., Nq)
+
+    def row(self, pvec: torch.Tensor) -> torch.Tensor:
+        pd = self.bound.pdict(pvec[..., None, :])     # entries (..., 1)
+        w = ((self.bound.model.volume(pd) * self.inv_v_ref) ** self.comp2
+             * self.inv_i_ref)
+        # normalize at AMPLITUDE level, (ffv·√w)² rather than ffv²·w: raw
+        # |ff|² alone can underflow float32 (and 1/i_ref alone overflow
+        # it), while the amplitude-scaled product is O(1) by construction
+        s = torch.sqrt(torch.as_tensor(w, dtype=self.grid.dtype,
+                                       device=self.grid.device))
+        if self.table is not None:
+            ffv = self.table_fn(self.table, self.bound.pdict(pvec))
+        else:
+            ffv = self.model_ff(self.grid, pd)
+        fs = ffv * s
+        return torch.clamp_max(fs * fs, self.row_clamp)
 
 
 def make_intensity_kernels(bound: BoundModel, data: SASData,
                            cfg: McSASConfig, dtype=torch.float32,
                            device="cpu") -> IntensityKernel:
-    """Builds the intensity row for the fit grid (unsmeared 1D data)."""
+    """Builds the intensity row for the fit grid (unsmeared 1D data).
+
+    A float32 engine of a model with a table factory reads its form
+    factor from a parameter table baked on *device* when
+    ``cfg.table_ff_enabled()`` (the JAX package's table branch,
+    mcsas_tpu/core/engine.py:236-279)."""
     if data.psi is not None and bound.model.ff2d is not None:
         raise NotImplementedError(
             "2D (q, psi) fitting is not ported to PyTorch yet")
     if data.uses_smearing and bound.model.can_smear:
         raise NotImplementedError("smeared fitting is not ported to "
                                   "PyTorch yet")
-    if (dtype == torch.float32 and bound.model.ff_table_factory is not None
-            and cfg.table_ff_enabled()):
-        raise NotImplementedError("the parameter-table tier is not ported "
-                                  "to PyTorch yet")
     comp2 = 2.0 * cfg.compensation_exponent
     v_ref = bound.reference_volume()
-    inv_v_ref = 1.0 / v_ref
     grid = torch.as_tensor(np.asarray(data.q, np.float64)).to(
         device=device, dtype=dtype)
     i_ref = magnitude_probe(bound, data.q)
-    inv_i_ref = 1.0 / i_ref
     model_ff = bound.model.ff
     if dtype == torch.float32 and bound.model.ff_fast is not None:
         model_ff = bound.model.ff_fast
+    table = table_fn = None
+    factory = bound.model.ff_table_factory
+    if (dtype == torch.float32 and factory is not None
+            and cfg.table_ff_enabled()):
+        made = factory(bound, np.asarray(data.q, np.float64), dtype,
+                       torch.device(device))
+        if made is not None:
+            table_fn, table = made
 
     # float32 overflow guard: candidate rows at extreme range corners can
     # reach (v/v_ref)^(2c)·(ff/ff_ref)² ≈ 1e20, and the solve's Σu·x²
@@ -227,21 +264,11 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
         / max(float(cfg.num_contribs), 1.0)
     row_clamp = max(row_clamp, 1e3)   # stay far above the working range
 
-    def intensity_row(pvec):
-        pd = bound.pdict(pvec[..., None, :])     # entries (..., 1)
-        w = (bound.model.volume(pd) * inv_v_ref) ** comp2 * inv_i_ref
-        # normalize at AMPLITUDE level, (ffv·√w)² rather than ffv²·w: raw
-        # |ff|² alone can underflow float32 (and 1/i_ref alone overflow
-        # it), while the amplitude-scaled product is O(1) by construction
-        s = torch.sqrt(torch.as_tensor(w, dtype=dtype, device=device))
-        fs = model_ff(grid, pd) * s
-        return torch.clamp_max(fs * fs, row_clamp)
-
-    return IntensityKernel(row=intensity_row, grid=grid,
+    return IntensityKernel(bound=bound, model_ff=model_ff, grid=grid,
                            w_ref=v_ref ** comp2 * i_ref,
-                           inv_v_ref=inv_v_ref,
-                           comp2=comp2, inv_i_ref=inv_i_ref,
-                           row_clamp=row_clamp)
+                           inv_v_ref=1.0 / v_ref, comp2=comp2,
+                           inv_i_ref=1.0 / i_ref, row_clamp=row_clamp,
+                           table=table, table_fn=table_fn)
 
 
 class McSASEngine:
@@ -275,6 +302,7 @@ class McSASEngine:
                                            self.device)
         self.grid = self.kern.grid
         self.w_ref = self.kern.w_ref
+        self.uses_table = self.kern.table is not None
         self.spec = mc_kernel.ChunkSpec(
             model=bound.model, kern=self.kern,
             n_contribs=cfg.num_contribs, k_cand=cfg.candidates_per_step,
@@ -284,23 +312,30 @@ class McSASEngine:
             find_bg=bool(cfg.find_background),
             pos_bg=bool(cfg.positive_background),
             ranges=tuple(bound.ranges), generators=tuple(bound.generators))
+        # a table engine runs its chunks as prefetch segments (K2 or its
+        # plain version), any other engine as K1 chunks
+        self.seg_steps = (mc_kernel.prefetch_seg_steps(self)
+                          if self.uses_table else None)
         self.runs_cuda_kernel = self._kernel_route()
         self.gen = torch.Generator(device=self.device)
 
     def _kernel_route(self) -> bool:
-        """True when chunks launch the CUDA kernel.  On the card only an
-        explicit ``use_pallas='off'`` picks the plain chunk; a config the
-        kernel cannot run raises there, as it does anywhere under 'on'."""
+        """True when chunks launch a CUDA kernel: K1 where it can run the
+        config, else K2 where it can.  On the card only an explicit
+        ``use_pallas='off'`` picks the plain version; a config neither
+        kernel can run raises there, as it does anywhere under 'on'."""
         mode = self.cfg.use_pallas
         if mode == "off":
             return False
         on_card = self.device.type == "cuda"
-        if not mc_kernel.supports(self) and (mode == "on" or on_card):
+        ok = (mc_kernel.supports_prefetch(self) if self.uses_table
+              else mc_kernel.supports(self))
+        if not ok and (mode == "on" or on_card):
             raise ValueError(
                 f"use_pallas={mode!r} on {self.device.type} but this "
-                "model/config is not eligible for the chunk kernel "
-                "(Sphere, float32); pass use_pallas='off' for the plain "
-                "PyTorch chunk")
+                "model/config is not eligible for a chunk kernel (K1: "
+                "Sphere, float32; K2: the parameter-table tier, float32); "
+                "pass use_pallas='off' for the plain PyTorch chunk")
         return on_card
 
     def _k_local(self) -> int:
@@ -358,7 +393,10 @@ class McSASEngine:
         return torch.cat(parts, dim=2).contiguous()
 
     def _chunk(self, state: RepState, ri: int):
-        """One chunk of cfg.chunk_steps steps; returns (state, cursor)."""
+        """One chunk of cfg.chunk_steps steps (a table engine: one segment
+        of seg_steps steps); returns (state, cursor)."""
+        if self.uses_table:
+            return self._segment(state, ri)
         if self.runs_cuda_kernel:
             # in-kernel Philox stream, keyed by a fresh per-chunk seed
             seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
@@ -370,6 +408,20 @@ class McSASEngine:
         # the CPU, or an explicit use_pallas='off': the plain chunk
         return mc_kernel.chunk_reference(state, ri, self.consts, self.spec,
                                          self._draw_chunk_proposals())
+
+    def _segment(self, state: RepState, ri: int):
+        """One prefetch segment (mcsas_tpu/core/engine.py:404-417 and
+        mc_kernel.py:771-818): the whole segment's proposals are drawn,
+        the local ones moved around the segment-start slot values, and
+        every candidate row is evaluated by the table lookup on the
+        device; then one K2 launch (or its plain version) runs the
+        solve/accept sequence."""
+        cands = mc_kernel.segment_candidates(
+            state, ri, self.spec, self._draw_chunk_proposals(self.seg_steps))
+        rows = self.kern.row(cands)                     # (S, R, K, Nq)
+        run = (mc_kernel.run_prefetch_chunk if self.runs_cuda_kernel
+               else mc_kernel.prefetch_reference)
+        return run(state, ri, self.consts, self.spec, rows, cands)
 
     # --------------------------------------------------------------- run
     def run(self, stop: Optional[Callable[[], bool]] = None,
@@ -460,4 +512,6 @@ class McSASEngine:
             moves_per_sec=int(n_moves.sum()) / max(elapsed, 1e-9),
             total_iters=total_iters,
             used_pallas=self.runs_cuda_kernel,
+            used_table=self.uses_table,
+            used_prefetch=self.runs_cuda_kernel and self.uses_table,
         )

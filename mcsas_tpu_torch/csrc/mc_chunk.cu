@@ -23,7 +23,8 @@
 //   threads write neighbouring addresses and the rows stay in L1/L2 until
 //   the accepted one is copied into the bank.
 // * Rounding follows the plain PyTorch version (ops/mc_kernel.py,
-//   chunk_reference): __fmul_rn/__fadd_rn keep nvcc from contracting into
+//   chunk_reference; the solve and the tie rule are in mc_common.cuh):
+//   __fmul_rn/__fadd_rn keep nvcc from contracting into
 //   FMAs, the solve's sums accumulate in float64, rows, ft and the stored
 //   state stay float32.  The transcendentals are the precise sincosf, powf
 //   and expf: build without --use_fast_math (approximate transcendentals
@@ -40,6 +41,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mc_common.cuh"
 
 #define MC_MAX_P 8
 #define MC_MAX_THREADS 256
@@ -153,40 +156,6 @@ __device__ __forceinline__ float sphere_row(float q, float radius, float sw,
   return row > clamp ? clamp : row;
 }
 
-// closed-form weighted 2x2 solve of fitcore.solve_scale_bg, float64
-__device__ __forceinline__ void solve_scale_bg(double sx, double sxx,
-                                               double sxy,
-                                               const ChunkParams& p,
-                                               float* a_out, float* b_out) {
-  const double s_u = p.s_u, s_uy = p.s_uy;
-  const bool xx_zero = sxx <= 0.0;
-  const double a_nobg = xx_zero ? 0.0 : __ddiv_rn(sxy, sxx);
-  double a = a_nobg, b = 0.0;
-  if (p.find_bg) {
-    const double denom = __dmul_rn(s_u, sxx);
-    const double det = __dsub_rn(denom, __dmul_rn(sx, sx));
-    const bool degen = xx_zero || det <= __dmul_rn(1e-6, denom);
-    if (degen) {
-      b = __ddiv_rn(__dsub_rn(s_uy, __dmul_rn(a_nobg, sx)), s_u);
-    } else {
-      a = __ddiv_rn(__dsub_rn(__dmul_rn(s_u, sxy), __dmul_rn(sx, s_uy)),
-                    det);
-      b = __ddiv_rn(__dsub_rn(s_uy, __dmul_rn(a, sx)), s_u);
-    }
-    if (p.pos_bg && b < 0.0) {
-      a = a_nobg;
-      b = 0.0;
-    }
-  }
-  *a_out = (float)a;
-  *b_out = (float)b;
-}
-
-__device__ __forceinline__ bool better(float c, int k, float best_c,
-                                       int best_k) {
-  return c < best_c || (c == best_c && k < best_k);
-}
-
 __global__ void __launch_bounds__(MC_MAX_THREADS)
 mc_chunk_kernel(const ChunkParams p) {
   extern __shared__ float smem[];
@@ -285,7 +254,8 @@ mc_chunk_kernel(const ChunkParams p) {
         sxy += (double)__fmul_rn(ux, s_y[i]);
       }
       float a, b;
-      solve_scale_bg(sx, sxx, sxy, p, &a, &b);
+      mc_solve_scale_bg(sx, sxx, sxy, p.s_u, p.s_uy, p.find_bg, p.pos_bg,
+                        &a, &b);
       double srr = 0.0;
       for (int i = 0; i < nq; ++i) {
         const float x = __fadd_rn(s_base[i], rows[(size_t)i * K + k]);
@@ -294,7 +264,7 @@ mc_chunk_kernel(const ChunkParams p) {
       }
       float chi = (float)(srr / (double)p.n_fit);
       if (isnan(chi)) chi = INFINITY;
-      if (better(chi, k, my_chi, my_k)) {
+      if (mc_better(chi, k, my_chi, my_k)) {
         my_chi = chi;
         my_k = k;
         my_a = a;
@@ -311,7 +281,7 @@ mc_chunk_kernel(const ChunkParams p) {
     for (int off = 16; off > 0; off >>= 1) {
       const float oc = __shfl_down_sync(0xffffffffu, red_c, off);
       const int oi = __shfl_down_sync(0xffffffffu, red_i, off);
-      if (better(oc, oi, red_c, red_i)) {
+      if (mc_better(oc, oi, red_c, red_i)) {
         red_c = oc;
         red_i = oi;
       }
@@ -325,7 +295,7 @@ mc_chunk_kernel(const ChunkParams p) {
       float c = red_chi[0];
       int kb = red_k[0];
       for (int w = 1; w < nthr / 32; ++w)
-        if (better(red_chi[w], red_k[w], c, kb)) {
+        if (mc_better(red_chi[w], red_k[w], c, kb)) {
           c = red_chi[w];
           kb = red_k[w];
         }

@@ -1,0 +1,43 @@
+// Device functions shared by the MC chunk kernels (mc_chunk.cu,
+// mc_prefetch.cu): the closed-form scale/background solve and the
+// best-of-K tie rule.  Rounding follows the plain PyTorch versions
+// (ops/mc_kernel.py, fitcore.solve_scale_bg): float64 arithmetic with
+// explicit _rn intrinsics so nvcc does not contract into FMAs, results
+// rounded to float32.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// closed-form weighted 2x2 solve of fitcore.solve_scale_bg, float64, with
+// its scale-invariant degeneracy guards
+__device__ __forceinline__ void mc_solve_scale_bg(
+    double sx, double sxx, double sxy, double s_u, double s_uy, int find_bg,
+    int pos_bg, float* a_out, float* b_out) {
+  const bool xx_zero = sxx <= 0.0;
+  const double a_nobg = xx_zero ? 0.0 : __ddiv_rn(sxy, sxx);
+  double a = a_nobg, b = 0.0;
+  if (find_bg) {
+    const double denom = __dmul_rn(s_u, sxx);
+    const double det = __dsub_rn(denom, __dmul_rn(sx, sx));
+    const bool degen = xx_zero || det <= __dmul_rn(1e-6, denom);
+    if (degen) {
+      b = __ddiv_rn(__dsub_rn(s_uy, __dmul_rn(a_nobg, sx)), s_u);
+    } else {
+      a = __ddiv_rn(__dsub_rn(__dmul_rn(s_u, sxy), __dmul_rn(sx, s_uy)),
+                    det);
+      b = __ddiv_rn(__dsub_rn(s_uy, __dmul_rn(a, sx)), s_u);
+    }
+    if (pos_bg && b < 0.0) {
+      a = a_nobg;
+      b = 0.0;
+    }
+  }
+  *a_out = (float)a;
+  *b_out = (float)b;
+}
+
+// best-of-K order: lowest chi2 wins, the lowest k on ties
+__device__ __forceinline__ bool mc_better(float c, int k, float best_c,
+                                          int best_k) {
+  return c < best_c || (c == best_c && k < best_k);
+}

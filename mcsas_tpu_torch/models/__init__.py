@@ -1,22 +1,23 @@
 # -*- coding: utf-8 -*-
 """Model bank of the PyTorch port: the registry of ported models.
 
-Only Sphere is ported so far; the other reference models keep their names
-here so that asking for one gives a clear error instead of an unknown
-model.
+Sphere and CylindersIsotropic are ported so far; the other reference
+models keep their names here so that asking for one gives a clear error
+instead of an unknown model.
 """
 from __future__ import annotations
 
 from .base import BoundModel, ParamSpec, SASModel
+from .cylinders import CylindersIsotropic
 from .sphere import Sphere
 
-MODELS = (Sphere,)
+MODELS = (Sphere, CylindersIsotropic)
 
 REGISTRY = {m.name: m for m in MODELS}
 
 # reference models that the JAX package has and this package does not yet
 _NOT_PORTED = (
-    "CylindersIsotropic", "EllipsoidsIsotropic", "EllipsoidalCoreShell",
+    "EllipsoidsIsotropic", "EllipsoidalCoreShell",
     "SphericalCoreShell", "GaussianChain", "LMADenseSphere", "Kholodenko",
     "CylindersIsotropicAspect", "CylindersRadiallyIsotropic",
     "CylindersRadiallyIsotropicTilted",
@@ -36,4 +37,4 @@ def get_model(name: str) -> SASModel:
 
 
 __all__ = ["SASModel", "BoundModel", "ParamSpec", "MODELS", "REGISTRY",
-           "get_model", "Sphere"]
+           "get_model", "Sphere", "CylindersIsotropic"]

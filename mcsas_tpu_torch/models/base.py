@@ -82,11 +82,11 @@ class SASModel:
     # optional reduced-precision form factor for the float32 MC hot loop
     # (e.g. a coarser quadrature); float64 analysis always uses ``ff``
     ff_fast: Optional[Callable] = None
-    # optional scale-invariant table builder (ops/tables.py):
-    # factory(bound, q_lo, q_hi, dtype) -> ff_fn or None.  When set, the
-    # float32 MC loop replaces the model's quadrature with a bilinear
-    # texture lookup on a per-engine invariant table (fit-grade tier,
-    # like ff_fast); float64 analysis always uses ``ff``
+    # optional parameter-table builder (ops/tables.py):
+    # factory(bound, q_grid, dtype, device) -> (table_fn, ParamTable) or
+    # None.  When set, the float32 MC loop replaces the model's quadrature
+    # with a multilinear blend of rows baked on the fit grid (fit-grade
+    # tier, like ff_fast); float64 analysis always uses ``ff``
     ff_table_factory: Optional[Callable] = None
     # optional anisotropic kernel ff2d(q, psi, p) for 2D (q, ψ) fitting
     # (DataConfig.fit_2d); ``ff`` remains the azimuthal average used for

@@ -1,27 +1,38 @@
 # -*- coding: utf-8 -*-
-"""The fused MC chunk: a whole chunk of accept/reject steps per launch.
+"""The MC chunk kernels: a whole chunk of accept/reject steps per launch.
 
-Three pieces, the Hopper counterpart of the JAX package's fused Pallas
-kernel (mcsas_tpu/ops/mc_kernel.py, ``build_chunk_fn``):
+Two kernels, the Hopper counterparts of the JAX package's Pallas kernels
+(mcsas_tpu/ops/mc_kernel.py):
 
-* :func:`chunk_reference` — the plain PyTorch version, batched over
-  (R, K, Nq), in the operation order of the JAX scan path
-  (mcsas_tpu/core/engine.py::McSASEngine._step).  The CPU tests hold it
-  against the JAX package, and the kernel is held against it on the card.
-* ``csrc/mc_chunk.cu`` — the CUDA C++ kernel (sm_90a), built with nvcc at
-  first use into ``build/kernels/`` and bound with ctypes.
-* :func:`run_chunk` — the wrapper: it checks its arguments, launches the
-  kernel for CUDA tensors, runs the plain version for CPU tensors, and
-  counts kernel launches in ``run_chunk.launches``.
+* K1, the fused chunk (``build_chunk_fn``): proposals, candidate rows,
+  solve and accept all in the kernel.  Plain version
+  :func:`chunk_reference`, kernel ``csrc/mc_chunk.cu``, wrapper
+  :func:`run_chunk`.
+* K2, the prefetch chunk (``build_prefetch_chunk_fn``), for the
+  parameter-table tier: one segment's candidates (S, R, K, P) and their
+  rows (S, R, K, Nq) are drawn and evaluated before the launch (the row
+  blend is plain PyTorch on the device, as the JAX package leaves it to
+  XLA); the kernel runs the solve/accept sequence on them.  Plain
+  version :func:`prefetch_reference`, kernel ``csrc/mc_prefetch.cu``,
+  wrapper :func:`run_prefetch_chunk`.
+
+Both plain versions are batched over (R, K, Nq) in the operation order of
+the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
+:func:`_step`.  The CPU tests hold them against the JAX package, and each
+kernel is held against its plain version on the card.  The kernels are
+built with nvcc at first use into ``build/kernels/`` (one library per
+source, built in parallel) and bound with ctypes; each wrapper checks its
+arguments, launches its kernel for CUDA tensors, runs the plain version
+for CPU tensors, and counts kernel launches in ``<wrapper>.launches``.
 
 One chunk, per repetition: ft is rebuilt from the bank (float64 sum), then
-every step draws K candidates for the slot at the shared cursor ri (the
+every step takes K candidates for the slot at the shared cursor ri (the
 last ``k_local`` as local moves around the slot's current value),
 evaluates their rows, solves each candidate's scale/background with
 float64 sums, picks the first minimum χ² (NaN counts as +inf), accepts it
 iff the repetition is active and χ² improves, and advances ri mod N.
 
-Proposals come either injected, as an (S, R, K, P) tensor in the JAX
+K1's proposals come either injected, as an (S, R, K, P) tensor in the JAX
 contract (global columns in SI, local columns unit uniforms), or — kernel
 only — from the in-kernel Philox4x32-10 stream described by
 :func:`philox_proposals`.
@@ -45,8 +56,13 @@ from ..core.fitcore import FitConstants, solve_scale_bg
 from ..core.rng import DECADES, local_candidates
 from ..models.sphere import Sphere
 
-MAX_P = 8                      # active parameters the kernel takes
+MAX_P = 8                      # active parameters the kernels take
+# HBM cap for one prefetch segment's staged candidate rows (the JAX
+# package's _PREFETCH_HBM_BUDGET)
+PREFETCH_ROW_BYTES = 64 * 2 ** 20
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
+KERNELS = ("mc_chunk", "mc_prefetch")     # one csrc/<name>.cu each
+_HEADERS = ("mc_common.cuh",)             # included by every kernel
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
               / "build" / "kernels")
@@ -97,79 +113,156 @@ def model_id(model) -> int:
 
 
 def supports(engine) -> bool:
-    """True when the fused kernel can run this engine's configuration."""
+    """True when the fused kernel K1 can run this engine's configuration."""
     return (engine.bound.model is Sphere
             and engine.dtype == torch.float32
             and 1 <= engine.bound.n_active <= MAX_P)
 
 
-# ------------------------------------------------------- plain version
+def supports_prefetch(engine) -> bool:
+    """True when the prefetch kernel K2 can run this engine: the
+    parameter-table tier in float32 (local moves included — see
+    :func:`segment_candidates`)."""
+    return (engine.uses_table
+            and engine.dtype == torch.float32
+            and 1 <= engine.bound.n_active <= MAX_P)
+
+
+def prefetch_seg_steps(engine) -> int:
+    """Steps per prefetch segment: bounded by the HBM cap for the staged
+    (S, R, K, Nq) rows and by the configured chunk size; with local moves
+    also by ``num_contribs``, so that a segment visits distinct slots
+    (the JAX package's rule, without its lane padding)."""
+    cfg = engine.cfg
+    per_step = (int(cfg.num_reps) * int(cfg.candidates_per_step)
+                * int(engine.consts.n) * 4)
+    cap = int(cfg.chunk_steps)
+    if engine._k_local():
+        cap = min(cap, int(cfg.num_contribs))
+    return max(1, min(cap, PREFETCH_ROW_BYTES // max(per_step, 1)))
+
+
+# ------------------------------------------------------ plain versions
+
+_TRACE_KEYS = ("choice", "chi", "conval", "slot")
+
+
+def _step(state, ri_s: int, consts: FitConstants, spec: ChunkSpec,
+          cands: torch.Tensor, rows: torch.Tensor, trace: Optional[dict]):
+    """One accept/reject step of every repetition at slot *ri_s*, on
+    candidates (R, K, P) and their rows (R, K, Nq); state updated in
+    place.  Shared by both plain versions."""
+    r_idx = torch.arange(state.rset.shape[0], device=state.rset.device)
+    active = (state.conval > spec.crit) & (state.n_iter < spec.max_iter)
+    old = state.ibank[:, ri_s, :]
+    x = (state.ft - old)[:, None, :] + rows
+    sol = solve_scale_bg(x, consts, spec.find_bg, spec.pos_bg)
+    chi = torch.where(torch.isnan(sol.chisqr),
+                      torch.full_like(sol.chisqr, float("inf")),
+                      sol.chisqr)
+    best = torch.argmin(chi, dim=1)                           # first min
+    best_chi = chi[r_idx, best]
+    accept = active & (best_chi < state.conval)
+    if trace is not None:
+        trace["choice"].append(torch.where(accept, best.to(torch.int32), -1))
+        trace["chi"].append(chi)
+        trace["conval"].append(state.conval.clone())
+    acc = accept[:, None]
+    state.rset[:, ri_s, :] = torch.where(acc, cands[r_idx, best],
+                                         state.rset[:, ri_s, :])
+    state.ibank[:, ri_s, :] = torch.where(acc, rows[r_idx, best], old)
+    state.ft.copy_(torch.where(acc, x[r_idx, best], state.ft))
+    state.scale.copy_(torch.where(accept, sol.scale[r_idx, best],
+                                  state.scale))
+    state.background.copy_(torch.where(
+        accept, sol.background[r_idx, best], state.background))
+    state.conval.copy_(torch.where(accept, best_chi, state.conval))
+    state.n_iter += spec.k_cand * active.to(torch.int32)
+    state.n_moves += accept.to(torch.int32)
+    if trace is not None:
+        trace["slot"].append(state.rset[:, ri_s, :].clone())
+
+
+def _run_steps(state, ri: int, n_steps: int, step, trace: Optional[dict]):
+    """Refreshes ft from the bank (float64 sum: bounds the float32 drift
+    to one chunk), then runs ``step(s, slot)`` for s < n_steps; returns
+    ``(state, cursor)``.  With a *trace* dict it also records, per step,
+    the chosen candidate (``choice`` (S, R) int32, -1 where nothing was
+    accepted), every candidate's χ² (``chi`` (S, R, K)), χ² before the
+    step (``conval`` (S, R)) and the slot's parameters after it
+    (``slot`` (S, R, P)) — what a comparison needs to find the first flip
+    and judge a near-tie."""
+    n = state.rset.shape[1]
+    if trace is not None:
+        trace.update({key: [] for key in _TRACE_KEYS})
+    state.ft.copy_(state.ibank.double().sum(dim=1))
+    for s in range(n_steps):
+        step(s, (ri + s) % n)
+    if trace is not None:
+        for key in _TRACE_KEYS:
+            trace[key] = torch.stack(trace[key]) if trace[key] else None
+    return state, (ri + n_steps) % n
+
 
 def chunk_reference(state, ri: int, consts: FitConstants, spec: ChunkSpec,
                     proposals: torch.Tensor, trace: Optional[dict] = None):
-    """Plain PyTorch chunk: ``proposals.shape[0]`` steps, state updated in
-    place.  Returns ``(state, cursor)``.
-
-    With a *trace* dict it also records, per step, the chosen candidate
-    (``choice`` (S, R) int32, -1 where nothing was accepted), every
-    candidate's χ² (``chi`` (S, R, K)), χ² before the step (``conval``
-    (S, R)) and the slot's parameters after it (``slot`` (S, R, P)) —
-    what a comparison needs to find the first flip and judge a near-tie.
-    """
-    n_steps = int(proposals.shape[0])
-    n = spec.n_contribs
+    """Plain PyTorch version of K1: ``proposals.shape[0]`` steps, each
+    turning its local columns into moves around the slot's current value
+    and evaluating its rows; state updated in place.  Returns
+    ``(state, cursor)``; *trace* as in :func:`_run_steps`."""
     k_global = spec.k_global
-    r_idx = torch.arange(state.rset.shape[0], device=state.rset.device)
     lo, hi = spec.bounds(state.rset.dtype, state.rset.device)
-    crit = spec.crit
-    keys = ("choice", "chi", "conval", "slot")
-    if trace is not None:
-        trace.update({key: [] for key in keys})
 
-    # refresh totals from the bank: bounds float32 drift per chunk
-    state.ft.copy_(state.ibank.double().sum(dim=1))
-    for s in range(n_steps):
-        ri_s = (ri + s) % n
-        active = (state.conval > crit) & (state.n_iter < spec.max_iter)
+    def step(s, ri_s):
         cands = proposals[s]                                  # (R, K, P)
         if spec.k_local:
             local = local_candidates(state.rset[:, ri_s, :],
                                      cands[:, k_global:, :], lo, hi,
                                      spec.local_scale)
             cands = torch.cat([cands[:, :k_global, :], local], dim=1)
-        rows = spec.kern.row(cands)                           # (R, K, Nq)
-        old = state.ibank[:, ri_s, :]
-        x = (state.ft - old)[:, None, :] + rows
-        sol = solve_scale_bg(x, consts, spec.find_bg, spec.pos_bg)
-        chi = torch.where(torch.isnan(sol.chisqr),
-                          torch.full_like(sol.chisqr, float("inf")),
-                          sol.chisqr)
-        best = torch.argmin(chi, dim=1)                       # first min
-        best_chi = chi[r_idx, best]
-        accept = active & (best_chi < state.conval)
-        if trace is not None:
-            trace["choice"].append(torch.where(
-                accept, best.to(torch.int32), -1))
-            trace["chi"].append(chi)
-            trace["conval"].append(state.conval.clone())
-        acc = accept[:, None]
-        state.rset[:, ri_s, :] = torch.where(acc, cands[r_idx, best],
-                                             state.rset[:, ri_s, :])
-        state.ibank[:, ri_s, :] = torch.where(acc, rows[r_idx, best], old)
-        state.ft.copy_(torch.where(acc, x[r_idx, best], state.ft))
-        state.scale.copy_(torch.where(accept, sol.scale[r_idx, best],
-                                      state.scale))
-        state.background.copy_(torch.where(
-            accept, sol.background[r_idx, best], state.background))
-        state.conval.copy_(torch.where(accept, best_chi, state.conval))
-        state.n_iter += spec.k_cand * active.to(torch.int32)
-        state.n_moves += accept.to(torch.int32)
-        if trace is not None:
-            trace["slot"].append(state.rset[:, ri_s, :].clone())
-    if trace is not None:
-        for key in keys:
-            trace[key] = torch.stack(trace[key]) if trace[key] else None
-    return state, (ri + n_steps) % n
+        _step(state, ri_s, consts, spec, cands, spec.kern.row(cands),
+              trace)
+
+    return _run_steps(state, ri, int(proposals.shape[0]), step, trace)
+
+
+def prefetch_reference(state, ri: int, consts: FitConstants,
+                       spec: ChunkSpec, rows: torch.Tensor,
+                       cands: torch.Tensor, trace: Optional[dict] = None):
+    """Plain PyTorch version of K2: one segment of ``rows.shape[0]``
+    steps on given candidates (S, R, K, P) and their rows (S, R, K, Nq);
+    state updated in place.  Returns ``(state, cursor)``; *trace* as in
+    :func:`_run_steps`."""
+    def step(s, ri_s):
+        _step(state, ri_s, consts, spec, cands[s], rows[s], trace)
+
+    return _run_steps(state, ri, int(rows.shape[0]), step, trace)
+
+
+def segment_candidates(state, ri: int, spec: ChunkSpec,
+                       proposals: torch.Tensor) -> torch.Tensor:
+    """The candidates (S, R, K, P) of one prefetch segment starting at
+    cursor *ri*: global columns as drawn, local columns (unit uniforms)
+    turned into moves around each step's slot value at segment start.  A
+    segment of at most N steps visits distinct slots, so that value is
+    the slot's value at its step (JAX: mc_kernel.py:771-798)."""
+    if not spec.k_local:
+        return proposals
+    n_steps, n = int(proposals.shape[0]), spec.n_contribs
+    if n_steps > n:
+        # a correctness precondition, not a debug check: second visits
+        # would move around a stale segment-start value
+        raise ValueError(f"local moves need distinct slots per segment: "
+                         f"{n_steps} steps > num_contribs={n}")
+    dev = state.rset.device
+    slots = (ri + torch.arange(n_steps, device=dev)) % n
+    cur = state.rset[:, slots, :].transpose(0, 1)             # (S, R, P)
+    lo, hi = spec.bounds(state.rset.dtype, dev)
+    k_global = spec.k_global
+    local = local_candidates(cur, proposals[:, :, k_global:, :], lo, hi,
+                             spec.local_scale)
+    return torch.cat([proposals[:, :, :k_global, :], local],
+                     dim=2).contiguous()
 
 
 def decision_margin(chi: torch.Tensor, conval: torch.Tensor) -> torch.Tensor:
@@ -267,6 +360,23 @@ class _ChunkParams(ctypes.Structure):
         + [("seed", ctypes.c_uint32)])
 
 
+class _PrefetchParams(ctypes.Structure):
+    """Mirror of ``PrefetchParams`` in csrc/mc_prefetch.cu (same field
+    order)."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "y", "u", "rset", "ibank", "ft", "scale", "background",
+            "conval", "n_iter", "n_moves", "rows", "cands", "trace")]
+        + [("s_u", ctypes.c_double), ("s_uy", ctypes.c_double),
+           ("crit", ctypes.c_float)]
+        + [(name, ctypes.c_int32) for name in (
+            "n_reps", "n_contribs", "nq", "n_params", "k_cand", "n_steps",
+            "ri0", "max_iter", "n_fit", "find_bg", "pos_bg", "device")])
+
+
+_PARAMS = {"mc_chunk": _ChunkParams, "mc_prefetch": _PrefetchParams}
+
+
 @dataclass(frozen=True)
 class KernelBuild:
     path: pathlib.Path
@@ -287,57 +397,97 @@ def _nvcc() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
                        "/usr/local/cuda/bin): cannot build the CUDA chunk "
-                       "kernel")
+                       "kernels")
 
 
-def build_library() -> KernelBuild:
-    """Compiles csrc/mc_chunk.cu into build/kernels/, keyed by a hash of
-    the source and the flags; reuses an existing build.  Raises with
-    nvcc's output when the build fails."""
-    src = _CSRC / "mc_chunk.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    path = _BUILD_DIR / f"mc_chunk_{digest[:16]}.so"
-    if path.exists():
-        return KernelBuild(path=path, seconds=0.0, log="")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode} "
-                           f"building {src}:\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, path)
-    return KernelBuild(path=path, seconds=seconds,
-                       log=proc.stderr + proc.stdout)
+def _library_path(name: str) -> pathlib.Path:
+    """build/kernels/<name>_<hash>.so, the hash covering the kernel's
+    source, every shared header and the flags."""
+    digest = hashlib.sha256()
+    for path in (_CSRC / f"{name}.cu", *(_CSRC / h for h in _HEADERS)):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _library():
-    """The loaded kernel library (built at first use)."""
-    build = build_library()
+def build_libraries(names=KERNELS) -> dict:
+    """Compiles csrc/<name>.cu into build/kernels/ for each name missing
+    there, one nvcc process per source, all started together; reuses
+    existing builds.  Returns {name: KernelBuild}.  Waits for every nvcc
+    it started, then raises with nvcc's output if any build failed."""
+    builds, running = {}, {}
+    for name in names:
+        path = _library_path(name)
+        if path.exists():
+            builds[name] = KernelBuild(path=path, seconds=0.0, log="")
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+             str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (path, tmp, time.perf_counter(), proc)
+    failed = []
+    for name, (path, tmp, t0, proc) in running.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with exit code {proc.returncode} "
+                          f"building csrc/{name}.cu:\n{err}{out}")
+            continue
+        os.replace(tmp, path)
+        builds[name] = KernelBuild(path=path,
+                                   seconds=time.perf_counter() - t0,
+                                   log=err + out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return builds
+
+
+def _library(name: str):
+    """The loaded library of kernel *name* (built at first use)."""
+    build = build_libraries((name,))[name]
     lib = _LOADED.get(build.path)
     if lib is None:
         lib = ctypes.CDLL(str(build.path))
-        lib.mc_chunk_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.mc_chunk_launch.restype = ctypes.c_int
-        lib.mc_chunk_params_size.argtypes = []
-        lib.mc_chunk_params_size.restype = ctypes.c_int
-        lib.mc_chunk_error_string.argtypes = [ctypes.c_int]
-        lib.mc_chunk_error_string.restype = ctypes.c_char_p
-        size = lib.mc_chunk_params_size()
-        if size != ctypes.sizeof(_ChunkParams):
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        size_fn = getattr(lib, f"{name}_params_size")
+        size_fn.argtypes = []
+        size_fn.restype = ctypes.c_int
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        want = ctypes.sizeof(_PARAMS[name])
+        if size_fn() != want:
             raise RuntimeError(
-                f"ChunkParams layout mismatch: C {size} bytes, ctypes "
-                f"{ctypes.sizeof(_ChunkParams)} bytes")
+                f"{name} parameter layout mismatch: C {size_fn()} bytes, "
+                f"ctypes {want} bytes")
         _LOADED[build.path] = lib
     return lib
 
 
+def _launch(name: str, prm, device: torch.device):
+    """Launches kernel *name* with *prm* on the current stream of
+    *device*; raises on a refused launch."""
+    lib = _library(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, f"{name}_launch")(ctypes.byref(prm),
+                                        ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 # ---------------------------------------------------------- the wrapper
 
-def _check(state, consts: FitConstants, spec: ChunkSpec, proposals):
+def _check(state, consts: FitConstants, spec: ChunkSpec, proposals,
+           what: str = "proposals"):
     dev = state.rset.device
     r, n, p = state.rset.shape
     nq = consts.n
@@ -368,7 +518,7 @@ def _check(state, consts: FitConstants, spec: ChunkSpec, proposals):
                 or proposals.dim() != 4
                 or tuple(proposals.shape[1:]) != (r, k, p)
                 or not proposals.is_contiguous()):
-            raise ValueError(f"proposals: want contiguous float32 "
+            raise ValueError(f"{what}: want contiguous float32 "
                              f"(S, {r}, {k}, {p}) on {dev}, got "
                              f"{proposals.dtype} {tuple(proposals.shape)} "
                              f"on {proposals.device}")
@@ -407,7 +557,6 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
                          f"{spec.k_local} local")
     r, n, p = state.rset.shape
     nq, k = consts.n, spec.k_cand
-    lib = _library()
     rows = torch.empty((r, nq, k), dtype=torch.float32, device=dev)
     choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
               if trace is not None else None)
@@ -429,18 +578,11 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
         k_global=spec.k_global, n_steps=n_steps, ri0=ri % n,
         max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
         model_id=model_id(spec.model), find_bg=int(spec.find_bg),
-        pos_bg=int(spec.pos_bg),
-        device=(dev.index if dev.index is not None
-                else torch.cuda.current_device()),
+        pos_bg=int(spec.pos_bg), device=_device_index(dev),
         seed=(seed or 0) & 0xFFFFFFFF)
     for ip, ((lo, hi), g) in enumerate(zip(spec.ranges, spec.generators)):
         prm.lo[ip], prm.hi[ip], prm.gen[ip] = lo, hi, _GEN_CODES[g]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mc_chunk_launch(ctypes.byref(prm), ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = lib.mc_chunk_error_string(rc).decode()
-        raise RuntimeError(f"mc_chunk launch failed: CUDA error {rc} "
-                           f"({msg})")
+    _launch("mc_chunk", prm, dev)
     run_chunk.launches += 1
     if trace is not None:
         trace["choice"] = choice
@@ -448,3 +590,58 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
 
 
 run_chunk.launches = 0
+
+
+def run_prefetch_chunk(state, ri: int, consts: FitConstants,
+                       spec: ChunkSpec, rows: torch.Tensor,
+                       cands: torch.Tensor, trace: Optional[dict] = None):
+    """Runs one prefetch segment on the state's device, updating it in
+    place; returns ``(state, cursor)``.
+
+    *rows* (S, R, K, Nq) and *cands* (S, R, K, P) are one segment's
+    candidate rows and candidates (:func:`segment_candidates`).  CUDA
+    tensors launch K2 (counted in ``run_prefetch_chunk.launches``); CPU
+    tensors run :func:`prefetch_reference`.  With a *trace* dict the
+    chosen candidate per step lands in ``trace["choice"]`` (S, R) int32,
+    -1 where nothing was accepted."""
+    _check(state, consts, spec, cands, "cands")
+    dev = state.rset.device
+    r, n, p = state.rset.shape
+    want = (int(cands.shape[0]), r, spec.k_cand, consts.n)
+    if (rows.device != dev or rows.dtype != torch.float32
+            or tuple(rows.shape) != want or not rows.is_contiguous()):
+        raise ValueError(f"rows: want contiguous float32 {want} on {dev}, "
+                         f"got {rows.dtype} {tuple(rows.shape)} on "
+                         f"{rows.device}")
+    if dev.type == "cpu":
+        return prefetch_reference(state, ri, consts, spec, rows, cands,
+                                  trace)
+    if dev.type != "cuda":
+        raise ValueError(f"no prefetch chunk implementation for device "
+                         f"{dev}")
+    n_steps = int(rows.shape[0])
+    choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
+              if trace is not None else None)
+    prm = _PrefetchParams(
+        y=consts.y.data_ptr(), u=consts.u.data_ptr(),
+        rset=state.rset.data_ptr(), ibank=state.ibank.data_ptr(),
+        ft=state.ft.data_ptr(), scale=state.scale.data_ptr(),
+        background=state.background.data_ptr(),
+        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
+        n_moves=state.n_moves.data_ptr(), rows=rows.data_ptr(),
+        cands=cands.data_ptr(),
+        trace=(choice.data_ptr() if choice is not None else None),
+        s_u=consts.s_u, s_uy=consts.s_uy, crit=spec.crit,
+        n_reps=r, n_contribs=n, nq=consts.n, n_params=p, k_cand=spec.k_cand,
+        n_steps=n_steps, ri0=ri % n,
+        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
+        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
+        device=_device_index(dev))
+    _launch("mc_prefetch", prm, dev)
+    run_prefetch_chunk.launches += 1
+    if trace is not None:
+        trace["choice"] = choice
+    return state, (ri + n_steps) % n
+
+
+run_prefetch_chunk.launches = 0

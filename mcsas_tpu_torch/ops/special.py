@@ -9,6 +9,7 @@ kernel (csrc/mc_chunk.cu, ``sphere_ff``) repeats the float32 branch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +31,62 @@ def sphere_ff(x: torch.Tensor) -> torch.Tensor:
     series = 1.0 + x2 * (-1.0 / 10.0 + x2 * (
         1.0 / 280.0 + x2 * (-1.0 / 15120.0)))
     return torch.where(small, series, closed)
+
+
+def sinc_sin(x: torch.Tensor) -> torch.Tensor:
+    """sin(x)/x with the x→0 limit handled."""
+    small = x.abs() < _small_threshold(x)
+    xs = torch.where(small, torch.ones_like(x), x)
+    x2 = x * x
+    series = 1.0 + x2 * (-1.0 / 6.0 + x2 * (1.0 / 120.0))
+    return torch.where(small, series, torch.sin(xs) / xs)
+
+
+# --- cylindrical Bessel J1 -------------------------------------------------
+# Rational approximations after Abramowitz & Stegun 9.4.4 / 9.4.6,
+# |error| < 1.3e-8 relative to J1 (the JAX package's coefficients).
+
+_J1_SMALL = np.array([
+    0.5, -0.56249985, 0.21093573, -0.03954289, 0.00443319, -0.00031761,
+    0.00001109])
+_J1_F = np.array([
+    0.79788456, 0.00000156, 0.01659667, 0.00017105, -0.00249511,
+    0.00113653, -0.00020033])
+_J1_THETA = np.array([
+    -2.35619449, 0.12499612, 0.00005650, -0.00637879, 0.00074348,
+    0.00079824, -0.00029166])
+
+
+def _poly(coeffs: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """Horner evaluation; the coefficients are rounded to t's dtype first,
+    as the JAX package rounds its numpy coefficient arrays."""
+    c = [float(v) for v in np.asarray(coeffs).astype(
+        np.float32 if t.dtype == torch.float32 else np.float64)]
+    acc = torch.zeros_like(t) + c[-1]
+    for v in c[-2::-1]:
+        acc = acc * t + v
+    return acc
+
+
+def bessel_j1(x: torch.Tensor) -> torch.Tensor:
+    """Cylindrical Bessel function of the first kind, order 1."""
+    sign = torch.sign(x)
+    ax = x.abs()
+    small = ax <= 3.0
+    # |x| <= 3: J1(x)/x as polynomial in (x/3)^2
+    t_small = (ax / 3.0) ** 2
+    j_small = ax * _poly(_J1_SMALL, t_small)
+    # |x| > 3: amplitude/phase form
+    ax_big = torch.where(small, torch.full_like(ax, 3.0), ax)
+    t_big = 3.0 / ax_big
+    f1 = _poly(_J1_F, t_big)
+    theta1 = ax_big + _poly(_J1_THETA, t_big)
+    j_big = f1 * torch.cos(theta1) / torch.sqrt(ax_big)
+    return sign * torch.where(small, j_small, j_big)
+
+
+def j1_over_x(x: torch.Tensor) -> torch.Tensor:
+    """J1(x)/x with the x→0 limit 1/2 handled exactly."""
+    tiny = x.abs() < 1e-6
+    xs = torch.where(tiny, torch.ones_like(x), x)
+    return torch.where(tiny, 0.5 - x * x / 16.0, bessel_j1(xs) / xs)

@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
-"""PyTorch port on the card: the CUDA chunk kernel against its plain
-PyTorch version.  Marked ``cuda``; every test skips without a CUDA device
+"""PyTorch port on the card: the CUDA chunk kernels K1 (mc_chunk) and K2
+(mc_prefetch) against their plain PyTorch versions, and the engine's
+routing to them.  Marked ``cuda``; every test skips without a CUDA device
 (decided inside the fixture).  On a machine with a card and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -22,6 +23,7 @@ from mcsas_tpu_torch.ops import mc_kernel  # noqa: E402
 pytestmark = pytest.mark.cuda
 DATA = (pathlib.Path(__file__).resolve().parent.parent / "testdata"
         / "sasfit_sphere-10-1.dat")
+CYL_BIND = dict(active=("radius",), active_ranges={"radius": (1e-10, 5e-8)})
 
 
 @pytest.fixture(scope="module")
@@ -118,3 +120,118 @@ def test_kernel_refuses_bad_input(engine):
                             n_steps=4)
     with pytest.raises(ValueError, match="seed"):
         mc_kernel.run_chunk(state, 0, engine.consts, engine.spec)
+
+
+# ------------------------------------------------------------------ K2
+
+def _cylinder_engine(**kw):
+    cfg = dict(num_contribs=64, num_reps=3, chunk_steps=60,
+               candidates_per_step=48, seed=5, max_iterations=1_000_000,
+               table_ff="on")
+    cfg.update(kw)
+    return McSASEngine(load(DATA),
+                       get_model("CylindersIsotropic").bind(**CYL_BIND),
+                       McSASConfig(**cfg), device="cuda")
+
+
+@pytest.fixture(scope="module")
+def cylinder():
+    """Table engines on the card (64-row tables), without and with local
+    moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
+        mp.delenv("MCSAS_TPU_TABLE_CACHE_DIR", raising=False)
+        yield {"global": _cylinder_engine(),
+               "local": _cylinder_engine(local_moves=0.5)}
+
+
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_prefetch_kernel_matches_plain_version(cylinder, mode):
+    """One segment on the same candidates and rows: identical decisions
+    until a near-tie (relative χ² gap ≤ 1e-6); where no flip occurs, the
+    same state.  With the rows given there are no transcendentals and
+    the kernel repeats the plain version's float32 operations, so ft
+    agrees to 1e-6 and χ² to 1e-5 relative."""
+    eng = cylinder[mode]
+    assert eng.uses_table and eng.runs_cuda_kernel and eng.seg_steps == 60
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    cands = mc_kernel.segment_candidates(
+        state, 9, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    rows = eng.kern.row(cands)
+    ks, kt = state.clone(), {}
+    before = mc_kernel.run_prefetch_chunk.launches
+    _, ri = mc_kernel.run_prefetch_chunk(ks, 9, eng.consts, eng.spec, rows,
+                                         cands, trace=kt)
+    assert mc_kernel.run_prefetch_chunk.launches == before + 1
+    assert ri == 69 % 64
+    ts, tt = state.clone(), {}
+    mc_kernel.prefetch_reference(ts, 9, eng.consts, eng.spec, rows, cands,
+                                 trace=tt)
+    torch.cuda.synchronize()
+    kc, tc = kt["choice"].cpu().numpy(), tt["choice"].cpu().numpy()
+    assert (kc >= 0).any()
+    for r in range(kc.shape[1]):
+        diff = np.nonzero(kc[:, r] != tc[:, r])[0]
+        if len(diff):
+            s = diff[0]
+            margin = float(mc_kernel.decision_margin(tt["chi"][s, r],
+                                                     tt["conval"][s, r]))
+            assert margin <= 1e-6, (r, s, margin)
+            continue
+        np.testing.assert_allclose(ks.rset[r].cpu(), ts.rset[r].cpu(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(ks.conval[r].cpu(), ts.conval[r].cpu(),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(ks.ft[r].cpu(), ts.ft[r].cpu(),
+                                   rtol=1e-6, atol=1e-6 * float(
+                                       ts.ft[r].abs().max()))
+        np.testing.assert_array_equal(ks.ibank[r].cpu(), ts.ibank[r].cpu())
+        assert int(ks.n_moves[r]) == int(ts.n_moves[r])
+        assert int(ks.n_iter[r]) == int(ts.n_iter[r])
+
+
+def test_prefetch_kernel_refuses_bad_input(cylinder):
+    eng = cylinder["global"]
+    state = eng._init_batch()
+    cands = eng._draw_chunk_proposals(8)
+    rows = eng.kern.row(cands)
+    with pytest.raises(ValueError, match="rows"):
+        mc_kernel.run_prefetch_chunk(state, 0, eng.consts, eng.spec,
+                                     rows.double(), cands)
+    with pytest.raises(ValueError, match="rows"):
+        mc_kernel.run_prefetch_chunk(state, 0, eng.consts, eng.spec,
+                                     rows[:, :, :5].contiguous(), cands)
+    with pytest.raises(ValueError, match="rows"):
+        mc_kernel.run_prefetch_chunk(state, 0, eng.consts, eng.spec,
+                                     rows.cpu(), cands)
+    with pytest.raises(ValueError, match="cands"):
+        mc_kernel.run_prefetch_chunk(state, 0, eng.consts, eng.spec, rows,
+                                     cands.cpu())
+    bad = state.clone()
+    bad.conval = bad.conval.double()
+    with pytest.raises(ValueError, match="conval"):
+        mc_kernel.run_prefetch_chunk(bad, 0, eng.consts, eng.spec, rows,
+                                     cands)
+
+
+def test_table_engine_routes_to_the_prefetch_kernel(cylinder):
+    """A table engine on the card launches K2 (and never K1); only
+    use_pallas='off' runs the plain version there."""
+    eng = cylinder["global"]
+    k1 = mc_kernel.run_chunk.launches
+    k2 = mc_kernel.run_prefetch_chunk.launches
+    small = eng.cfg.replace(max_iterations=48 * 150, max_retries=0)
+    res = McSASEngine(eng.data, eng.bound, small, device="cuda").run()
+    assert res.used_table and res.used_prefetch and res.used_pallas
+    assert mc_kernel.run_prefetch_chunk.launches > k2
+    assert mc_kernel.run_chunk.launches == k1
+    off = McSASEngine(eng.data, eng.bound, small.replace(use_pallas="off"),
+                      device="cuda")
+    assert off.uses_table and not off.runs_cuda_kernel
+    k2 = mc_kernel.run_prefetch_chunk.launches
+    res = off.run()
+    assert res.used_table and not res.used_prefetch and not res.used_pallas
+    assert mc_kernel.run_prefetch_chunk.launches == k2

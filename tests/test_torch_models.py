@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
-"""PyTorch port: special functions, the Sphere model, the model registry
-and the proposal generators, held against the JAX package on the same
-numpy inputs."""
+"""PyTorch port: special functions, the Sphere and CylindersIsotropic
+models, the model registry and the proposal generators, held against the
+JAX package on the same numpy inputs."""
 import math
 
 import numpy as np
@@ -94,16 +94,79 @@ def test_sphere_model_matches_jax(fn):
     assert np.max(np.abs(ours - ref) / scale) <= 1e-12
 
 
+_CYL_FUNCS = ("sinc_sin", "bessel_j1", "j1_over_x")
+
+
+@pytest.mark.parametrize("fn", _CYL_FUNCS)
+def test_cylinder_special_float64_matches_jax(fn):
+    # tolerance: 1e-13 relative to max(|ref|, 1e-3) — the same series,
+    # polynomials and closed forms in float64; only libm's sin/cos/sqrt
+    # differ in the last ulp
+    x = _x_grid(np.float64)
+    ours = getattr(special, fn)(torch.as_tensor(x)).numpy()
+    ref = np.asarray(getattr(jax_special, fn)(jnp.asarray(x)))
+    assert np.max(np.abs(ours - ref) / np.maximum(np.abs(ref), 1e-3)) \
+        <= 1e-13
+
+
+@pytest.mark.parametrize("fn", _CYL_FUNCS)
+def test_cylinder_special_float32_within_jax_error(fn):
+    # tolerance: as for sphere_ff — the port's float32 error against the
+    # float64 truth is at most twice JAX's own float32 error, plus one
+    # float32 ulp of slack (the polynomial coefficients are rounded to
+    # float32 on both sides)
+    x32 = _x_grid(np.float32)
+    truth = np.asarray(getattr(jax_special, fn)(
+        jnp.asarray(x32.astype(np.float64))))
+    ours = getattr(special, fn)(torch.as_tensor(x32)).numpy()
+    ref = np.asarray(getattr(jax_special, fn)(jnp.asarray(x32)))
+    assert ours.dtype == np.float32
+    scale = np.maximum(np.abs(truth), 1e-3)
+    err_ours = np.max(np.abs(ours - truth) / scale)
+    err_jax = np.max(np.abs(ref - truth) / scale)
+    assert err_ours <= 2.0 * err_jax + 6e-8, (err_ours, err_jax)
+
+
+@pytest.mark.parametrize("fn", ["ff", "volume", "absvolume"])
+@pytest.mark.parametrize("use_aspect", [1.0, 0.0])
+def test_cylinder_model_matches_jax(fn, use_aspect):
+    # tolerance: 1e-12 relative (float64, same formulas and the same
+    # intDiv=100 trapezoid; the quadrature sums in another order)
+    rs = np.random.default_rng(8)
+    radii = rs.uniform(1e-9, 3e-7, 24)
+    q = np.geomspace(1e7, 2e9, 60)
+    kw = dict(active=("radius",),
+              fixed={"useAspect": use_aspect, "length": 80e-9})
+    ours_b = get_model("CylindersIsotropic").bind(**kw)
+    ref_b = jax_get_model("CylindersIsotropic").bind(**kw)
+    assert ours_b.ranges == ref_b.ranges and ours_b.fixed == ref_b.fixed
+    pv = radii[:, None]
+    if fn == "ff":
+        ours = ours_b.ff(torch.as_tensor(q),
+                         torch.as_tensor(pv[:, None, :])).numpy()
+        ref = np.stack([np.asarray(ref_b.ff(jnp.asarray(q), jnp.asarray(p)))
+                        for p in pv])
+    else:
+        ours = np.asarray(getattr(ours_b, fn)(torch.as_tensor(pv)),
+                          np.float64).reshape(-1)
+        ref = np.asarray([float(getattr(ref_b, fn)(jnp.asarray(p)))
+                          for p in pv])
+    scale = np.maximum(np.abs(ref), 1e-3 * np.max(np.abs(ref)))
+    assert np.max(np.abs(ours - ref) / scale) <= 1e-12
+
+
 def test_reference_volume_matches_jax():
-    ours = get_model("Sphere").bind().reference_volume()
-    ref = jax_get_model("Sphere").bind().reference_volume()
-    assert ours == pytest.approx(ref, rel=1e-15)
+    for name in ("Sphere", "CylindersIsotropic"):
+        ours = get_model(name).bind().reference_volume()
+        ref = jax_get_model(name).bind().reference_volume()
+        assert ours == pytest.approx(ref, rel=1e-15)
 
 
 def test_registry_names_unported_models():
     assert get_model("Sphere").name == "Sphere"
+    assert get_model("CylindersIsotropic").name == "CylindersIsotropic"
     with pytest.raises(KeyError, match="later PR"):
-        get_model("CylindersIsotropic")
+        get_model("EllipsoidsIsotropic")
     with pytest.raises(KeyError, match="unknown model"):
         get_model("NoSuchModel")
 
