@@ -7,8 +7,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises and the script exits nonzero):
   1. device: the card's name and power limit (nvidia-smi) and the
      torch/CUDA versions; fails when torch.cuda.is_available() is False;
-  2. build: compiles csrc/mc_chunk.cu (K1) and csrc/mc_prefetch.cu (K2)
-     with nvcc for sm_90a, one nvcc each, started together (timed);
+  2. build: compiles csrc/mc_chunk.cu (K1), csrc/mc_prefetch.cu (K2) and
+     csrc/mc_probe.cu (K3) with nvcc for sm_90a, one nvcc each, started
+     together (timed; ptxas registers and spills printed);
   3. K1 vs plain version: one 256-step chunk at the headline shape
      (R=10, N=300, K=128, local moves 0.5) on injected proposals — the
      accept decisions must be identical, or first differ at a near-tie
@@ -33,7 +34,22 @@ Phases (any failure raises and the script exits nonzero):
   7. the cylinder main path: ``fit()`` of that row on device="cuda" —
      10/10 converged, max χ² ≤ 1, K2's launch counter above 0 and K1's
      at 0, two runs of one seed equal, the vol-weighted mean radius
-     within 10 % of the golden 10 nm; the warm wall time of five fits.
+     within 10 % of the golden 10 nm; the warm wall time of five fits;
+  8. K1 of LMADenseSphere, GaussianChain and SphericalCoreShell against
+     its plain version at each suite row's shape (mcsas_tpu_torch/tools/
+     suite.py): 256 steps with the row's active set and 64 with a second
+     one, each on injected proposals and on the Philox stream (accepted
+     proposals checked against the host stream in every column); K1 and
+     the plain version timed on one 1024-step chunk;
+  9. the suite rows' main paths: ``fit()`` of each row on device="cuda"
+     (300 × 10, chunk 1024, seed 2026) — 10/10 converged, max χ² ≤ 1,
+     only K1 of the row's model launched, two runs of one seed equal,
+     finite results, the vol-weighted mean of each parameter that
+     generated the data within 10 % of its value; total_iters,
+     proposals/s, the median warm wall of 3 fits;
+ 10. K3, the latency probe: its full rung bit for bit against K1 for
+     every model, then every rung of every model (tools/kern_probe.py),
+     one line each.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -178,6 +194,41 @@ def check_pair(name, mc_kernel, pair, steps, state0, n_reps):
     return window, err, ks, kt
 
 
+def check_philox_stream(name, eng, state0, host, ps, pt, need=True):
+    """Every proposal the kernel accepted in Philox mode (state *ps*,
+    trace *pt*, from *state0*) equals the host model of the stream
+    *host*, in every parameter column: global columns exactly, local
+    moves to 1e-6 relative (exp on the host).  The chunk must be at most
+    N steps long, so that each slot is visited once.  With *need*, a
+    chunk that accepted nothing fails."""
+    lo, hi = (np.asarray(v, np.float32) for v in zip(*eng.bound.ranges))
+    rset = ps.rset.cpu().numpy()
+    choice = pt["choice"].cpu().numpy()
+    cur0 = state0.rset.cpu().numpy()
+    k_glob = eng.spec.k_global
+    checked = 0
+    for s, r in zip(*np.nonzero(choice >= 0)):
+        k = int(choice[s, r])
+        slot = s % eng.cfg.num_contribs
+        got = rset[r, slot]
+        if k < k_glob:
+            want = host[s, r, k]
+            ok = np.array_equal(got, want)
+        else:
+            f = np.exp((2.0 * host[s, r, k] - 1.0) * eng.cfg.local_scale)
+            want = np.clip(cur0[r, slot] * f, lo, hi)
+            ok = np.all(np.abs(got - want) <= 1e-6 * np.abs(want))
+        if not ok:
+            raise AssertionError(f"[{name}] step {s} rep {r} k={k}: kernel "
+                                 f"accepted {got!r}, host stream {want!r}")
+        checked += 1
+    if need and not checked:
+        raise AssertionError(f"[{name}] the kernel accepted nothing")
+    print(f"[{name}] {checked} accepted proposals equal the host model of "
+          f"the stream in all {rset.shape[2]} parameter column(s); reps "
+          f"draw distinct streams", flush=True)
+
+
 def time_chunk(torch, fn, reps):
     """Mean milliseconds of fn() over *reps* runs, with CUDA events, after
     one warm-up run."""
@@ -253,6 +304,290 @@ def fit_phases(torch, engine_cls, histogram_all, data, bound, cfg, card):
               flush=True)
 
 
+# the work of a chunk kernel, for its bound (PERF.md §6): the
+# operations per candidate and q point -- the row of each model (every
+# +, -, *, /, sqrt, sin, cos, exp and pow counted as one, so a lower
+# bound) and the two passes of the solve (the float64 adds priced at the
+# float32 rate, which keeps the bound a lower one)
+ROW_OPS = {"Sphere": 12, "LMADenseSphere": 55, "GaussianChain": 14,
+           "SphericalCoreShell": 25}
+SOLVE_OPS = 14
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, ditto
+# the second active set of each suite row: what the row fits, fixed
+SECOND_ACTIVE = {"gaussian-chain": ("bp",),
+                 "core-shell-sphere": ("radius",),
+                 "lma-dense-sphere": ("radius",)}
+# total_iters of the JAX package's TPU round (BENCHMARKS.md:51-61): counts
+JAX_TOTAL_ITERS = {"gaussian-chain": 1_619_200,
+                   "core-shell-sphere": 17_836_544,
+                   "lma-dense-sphere": 3_389_056}
+STATE_FIELDS = ("rset", "ibank", "ft", "scale", "background", "conval",
+                "n_iter", "n_moves")
+
+
+def reset_counts(mc_kernel):
+    """Every kernel wrapper's launch count to 0."""
+    mc_kernel.run_chunk.launches = 0
+    mc_kernel.run_chunk.model_launches = {}
+    mc_kernel.run_prefetch_chunk.launches = 0
+    mc_kernel.run_probe.launches = 0
+
+
+def bound_ms(n_bytes, n_ops):
+    """(ms, what bounds it): the least time the card could take to move
+    *n_bytes* and do *n_ops* float32 operations."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _state_bytes(state):
+    return sum(getattr(state, f).numel() * getattr(state, f).element_size()
+               for f in STATE_FIELDS)
+
+
+def k1_bound(eng, state0, state1, injected=None):
+    """bound_ms of the K1 chunk that took *state0* to *state1*: the state
+    read and written once, q/y/u and any *injected* proposals read once;
+    the rows and solves of the steps each repetition ran (its n_iter
+    grows by K per step it ran)."""
+    k, nq = eng.spec.k_cand, eng.consts.n
+    steps = int((state1.n_iter - state0.n_iter).sum()) // k
+    n_bytes = 2 * _state_bytes(state0) + 3 * nq * 4
+    if injected is not None:
+        n_bytes += injected.numel() * 4
+    ops = steps * k * nq * (ROW_OPS[eng.bound.model.name] + SOLVE_OPS)
+    return bound_ms(n_bytes, ops)
+
+
+def k2_bound(eng, state0, state1, rows, cands):
+    """bound_ms of the K2 segment that took *state0* to *state1*: rows,
+    candidates, y/u and the state read once, the state written once; the
+    solves of the steps each repetition ran."""
+    k, nq = eng.spec.k_cand, eng.consts.n
+    steps = int((state1.n_iter - state0.n_iter).sum()) // k
+    n_bytes = (2 * _state_bytes(state0) + 2 * nq * 4
+               + (rows.numel() + cands.numel()) * 4)
+    return bound_ms(n_bytes, steps * k * nq * SOLVE_OPS)
+
+
+def compare_on(torch, mc_kernel, name, eng, state0, steps, seed,
+               need=True):
+    """K1 against its plain version over *steps* steps from *state0*, on
+    the engine's own proposals and on the Philox stream *seed* (its
+    accepted proposals checked against the host stream; with *need* it
+    must have accepted some).  Returns the compared windows and the
+    largest |delta chi2|."""
+    def pair(props, phx=None):
+        ks, kt = state0.clone(), {}
+        if phx is None:
+            mc_kernel.run_chunk(ks, 0, eng.consts, eng.spec,
+                                proposals=props, trace=kt)
+        else:
+            mc_kernel.run_chunk(ks, 0, eng.consts, eng.spec, seed=phx,
+                                n_steps=props.shape[0], trace=kt)
+        ts, tt = state0.clone(), {}
+        mc_kernel.chunk_reference(ts, 0, eng.consts, eng.spec, props,
+                                  trace=tt)
+        torch.cuda.synchronize()
+        return ks, kt, ts, tt
+
+    r = eng.cfg.num_reps
+    props = eng._draw_chunk_proposals(n_steps=steps)
+    win_i, err_i, _, _ = check_pair(f"{name} injected", mc_kernel,
+                                    lambda n: pair(props[:n]), steps,
+                                    state0, r)
+    host = mc_kernel.philox_proposals(eng.spec, seed, r, steps,
+                                      device="cuda")
+    hp = torch.as_tensor(host, device="cuda")
+    win_p, err_p, ps, pt = check_pair(f"{name} philox", mc_kernel,
+                                      lambda n: pair(hp[:n], seed), steps,
+                                      state0, r)
+    check_philox_stream(f"{name} philox", eng, state0, host, ps, pt, need)
+    return [win_i, win_p], max(err_i, err_p)
+
+
+def check_k1_row(torch, mc_kernel, engine_cls, row, card):
+    """K1 of one suite row's model against its plain version: 256 steps
+    at the row's shape (R=10, N=300, its K and local moves) and 64 steps
+    with the second active set, each on injected proposals and on the
+    Philox stream; then K1 and the plain version timed on one 1024-step
+    chunk (the row's chunk) with CUDA events.  Returns the kernel line's
+    numbers."""
+    data = row.load()
+    cfg = row.config()
+    windows, errs = [], []
+    for label, active, steps in (("suite", None, 256),
+                                 ("second", SECOND_ACTIVE[row.name], 64)):
+        eng = engine_cls(data, row.bound(data, active), cfg, device="cuda")
+        if not eng.runs_cuda_kernel:
+            raise AssertionError(f"{row.name}: the engine does not use K1")
+        eng.gen.manual_seed(1)
+        state0 = eng._init_batch()
+        name = f"{row.model} {label} {'+'.join(eng.bound.active)}"
+        if eng.spec.model_layout[2] is not None:
+            name += " (fixed volume)"
+        # GaussianChain with bp alone active: every row has the shape of
+        # the fixed rg, the fitted scale absorbs bp, and chi2 moves only
+        # by rounding, so that set may accept nothing
+        win, err = compare_on(torch, mc_kernel, name, eng, state0, steps,
+                              20261016 + steps, need=label == "suite")
+        windows += win
+        errs.append(err)
+        if label == "suite":
+            suite_eng, suite_state0 = eng, state0
+    eng, state0 = suite_eng, suite_state0
+    work = state0.clone()
+    props = eng._draw_chunk_proposals(n_steps=cfg.chunk_steps)
+
+    def kernel():
+        mc_kernel.run_chunk(work.copy_(state0), 0, eng.consts, eng.spec,
+                            seed=7, n_steps=cfg.chunk_steps)
+
+    def plain():
+        mc_kernel.chunk_reference(work.copy_(state0), 0, eng.consts,
+                                  eng.spec, props)
+
+    ms = time_chunk(torch, kernel, 5)
+    b_ms, b_by = k1_bound(eng, state0, work)
+    plain_ms = time_chunk(torch, plain, 1)
+    print(f"[time] {row.model}: {cfg.chunk_steps}-step chunk at R=10 "
+          f"N=300 K={eng.spec.k_cand} Nq={eng.consts.n} (reset copy "
+          f"included), {card}: kernel Philox {ms:.3f} ms "
+          f"({ms * 1e3 / cfg.chunk_steps:.2f} us per step), plain PyTorch "
+          f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, compared=windows)
+
+
+def fit_row(torch, mc_kernel, fit, row, card, profiling):
+    """The suite row's full-width fit on the card: one cold fit, then
+    three timed warm ones, the launch counts taken over the first of
+    them (with *profiling*, one more under torch.profiler).  Gates: 10/10
+    converged, max chi2 <= 1, K1 launched for the row's model and nothing
+    else, the cold and warm runs of one seed equal, finite values of the
+    expected shape.  Returns the model's K1 launches."""
+    data = row.load()
+    bound = row.bound(data)
+    cfg = row.config()
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(data, bound, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    first = fit(data, bound, cfg, device="cuda")
+    reset_counts(mc_kernel)
+    res, wall = timed()
+    launches = mc_kernel.run_chunk.model_launches.get(row.model, 0)
+    others = (mc_kernel.run_chunk.launches - launches
+              + mc_kernel.run_prefetch_chunk.launches)
+    walls = [wall] + [timed()[1] for _ in range(2)]
+    e = res.engine
+    for r_ in (first, res):
+        if not (r_.engine.converged.all() and r_.engine.conval.max() <= 1.0):
+            raise AssertionError(
+                f"[fit {row.name}] {int(r_.engine.converged.sum())}/10 "
+                f"converged, max chi2 {r_.engine.conval.max()}")
+    if launches <= 0 or others or not e.used_pallas or e.used_table:
+        raise AssertionError(f"[fit {row.name}] {launches} K1 launches of "
+                             f"{row.model}, {others} other launches")
+    if not np.array_equal(first.engine.contribs, e.contribs):
+        raise AssertionError(f"[fit {row.name}] two runs of one seed "
+                             "differ")
+    p = bound.n_active
+    if not (e.contribs.shape == (10, 300, p)
+            and np.isfinite(e.contribs).all()
+            and np.isfinite(res.fractions.measval).all()
+            and res.fractions.measval.shape == (10, data.count)):
+        raise AssertionError(f"[fit {row.name}] wrong shape or non-finite "
+                             "values")
+    means = {h.spec.param: float(h.moments.mean[0]) for h in res.histograms
+             if h.spec.yweight == "vol"}
+    if set(means) != set(bound.active) or not all(
+            np.isfinite(v) for v in means.values()):
+        raise AssertionError(f"[fit {row.name}] vol-weighted means {means}")
+    # the data's generating parameters (q read in nm⁻¹): within 10 %
+    for name, want in row.truth.items():
+        if not abs(means[name] - want) <= 0.1 * want:
+            raise AssertionError(f"[fit {row.name}] vol-weighted mean "
+                                 f"{name} {means[name]!r}, generating "
+                                 f"value {want!r}")
+    print(f"[fit {row.name}] 10/10 converged, max chi2 "
+          f"{e.conval.max():.4f}, {launches} K1 launches, total_iters "
+          f"{e.total_iters} (the JAX package's TPU round: "
+          f"{JAX_TOTAL_ITERS[row.name]:,}, a count), "
+          f"{e.total_iters / e.elapsed:.4g} proposals/s, warm walls "
+          f"{walls}, median {float(np.median(walls)):.4f} s; vol-weighted "
+          f"means {means} (generating values {row.truth}, within 10 %); "
+          f"on {card}", flush=True)
+    if profiling:
+        profile_fit(torch, lambda: fit(data, bound, cfg, device="cuda"),
+                    card, row.name, "mc_chunk")
+    return launches
+
+
+def probe_phase(torch, mc_kernel, card):
+    """K3: its full rung bit for bit against K1 on the same injected
+    proposals, for each model (256 steps at the headline shape); then
+    every rung of every model through the probe's runner, 2048 steps per
+    launch, its launches counted over that run; and the plain version of
+    the Sphere full rung timed on the same 2048 steps.  Returns the
+    kernel line's numbers."""
+    from mcsas_tpu_torch.tools import kern_probe
+    err = 0.0
+    for m in mc_kernel.K1_MODELS:
+        eng = kern_probe.probe_engine(m.name)
+        eng.gen.manual_seed(4)
+        state0 = eng._init_batch()
+        props = eng._draw_chunk_proposals(n_steps=256)
+        a, b = state0.clone(), state0.clone()
+        mc_kernel.run_chunk(a, 0, eng.consts, eng.spec, proposals=props)
+        mc_kernel.run_probe(b, 0, eng.consts, eng.spec, "full",
+                            proposals=props)
+        torch.cuda.synchronize()
+        for f in STATE_FIELDS:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"[probe] full rung of {m.name} "
+                                     f"differs from K1 in {f}")
+        err = max(err, float((a.conval - b.conval).abs().max()))
+        if not (a.n_moves > 0).all():
+            raise AssertionError(f"[probe] {m.name}: K1 accepted nothing")
+    print(f"[probe] full rung equal to K1 bit for bit in every state field "
+          f"over 256 injected steps, all {len(mc_kernel.K1_MODELS)} models",
+          flush=True)
+    print(f"[probe] the rungs, one JSON line each, on {card}:", flush=True)
+    reset_counts(mc_kernel)
+    recs = kern_probe.run(launches=3)
+    launches = mc_kernel.run_probe.launches
+    if launches != len(recs) * 4:
+        raise AssertionError(f"[probe] {launches} launches for "
+                             f"{len(recs)} rungs")
+    full = next(r for r in recs
+                if r["level"] == "full" and r["model"] == "Sphere")
+    eng = kern_probe.probe_engine("Sphere")
+    eng.gen.manual_seed(1)
+    state0 = eng._init_batch()
+    work = state0.clone()
+    props = eng._draw_chunk_proposals(n_steps=kern_probe.CHUNK)
+
+    def plain():
+        mc_kernel.chunk_reference(work.copy_(state0), 0, eng.consts,
+                                  eng.spec, props)
+
+    plain_ms = time_chunk(torch, plain, 1)
+    # the work of one full-rung launch, from a run of K1 on that state
+    mc_kernel.run_chunk(work.copy_(state0), 0, eng.consts, eng.spec,
+                        seed=kern_probe.SEED, n_steps=kern_probe.CHUNK)
+    torch.cuda.synchronize()
+    b_ms, b_by = k1_bound(eng, state0, work)
+    return dict(launches=launches, max_abs_err=err,
+                ms=full["ms_per_launch"], plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, rungs=recs)
+
+
 def main():
     import torch
     profiling = "--profile" in sys.argv[1:]
@@ -284,7 +619,8 @@ def main():
         mc_kernel._library(name)
         print(f"[build] {build.path.name}: nvcc {build.seconds:.2f} s",
               flush=True)
-    print(f"[build] both kernels in {build_wall:.2f} s wall", flush=True)
+    print(f"[build] {len(builds)} kernels in {build_wall:.2f} s wall",
+          flush=True)
 
     # ---- phase 3: kernel against the plain version, injected proposals
     cfg = headline_config(McSASConfig)
@@ -321,7 +657,8 @@ def main():
 
     # ---- phase 4: Philox mode
     seed = 20261016
-    host = mc_kernel.philox_proposals(eng.spec, seed, cfg.num_reps, 256)
+    host = mc_kernel.philox_proposals(eng.spec, seed, cfg.num_reps, 256,
+                                      device="cuda")
     if np.array_equal(host[:, 0], host[:, 1]):
         raise AssertionError("repetitions 0 and 1 share a Philox stream")
     win_phx, err_phx, ps, pt = check(
@@ -332,54 +669,27 @@ def main():
         raise AssertionError("Philox chunk left the active range")
     if not ((ps.conval < state0.conval).all() and (ps.n_moves > 0).all()):
         raise AssertionError("Philox chunk did not descend in every rep")
-    choice = pt["choice"].cpu().numpy()
-    cur0 = state0.rset.cpu().numpy()
-    k_glob = eng.spec.k_global
-    checked = 0
-    for s, r in zip(*np.nonzero(choice >= 0)):
-        k = int(choice[s, r])
-        slot = s % cfg.num_contribs          # 256 < N: one visit per slot
-        got = rset[r, slot, 0]
-        if k < k_glob:
-            want = host[s, r, k, 0]
-            ok = got == want
-        else:
-            f = np.exp((2.0 * host[s, r, k, 0] - 1.0) * cfg.local_scale)
-            want = np.clip(cur0[r, slot, 0] * f, lo, hi)
-            ok = abs(got - want) <= 1e-6 * abs(want)
-        if not ok:
-            raise AssertionError(f"Philox step {s} rep {r} k={k}: kernel "
-                                 f"accepted {got!r}, host stream {want!r}")
-        checked += 1
-    print(f"[philox] {checked} accepted proposals equal the host model of "
-          f"the stream; reps draw distinct streams", flush=True)
+    check_philox_stream("philox", eng, state0, host, ps, pt)
 
     # per-chunk times at the main path's chunk (2048 steps), CUDA events
     props_full = eng._draw_chunk_proposals()
     steps = cfg.chunk_steps
     work = state0.clone()
 
-    def reset():
-        for name in ("rset", "ibank", "ft", "scale", "background",
-                     "conval", "n_iter", "n_moves"):
-            getattr(work, name).copy_(getattr(state0, name))
-
     def kernel_philox():
-        reset()
-        mc_kernel.run_chunk(work, 0, eng.consts, eng.spec, seed=seed,
-                            n_steps=steps)
+        mc_kernel.run_chunk(work.copy_(state0), 0, eng.consts, eng.spec,
+                            seed=seed, n_steps=steps)
 
     def kernel_injected():
-        reset()
-        mc_kernel.run_chunk(work, 0, eng.consts, eng.spec,
+        mc_kernel.run_chunk(work.copy_(state0), 0, eng.consts, eng.spec,
                             proposals=props_full)
 
     def plain():
-        reset()
-        mc_kernel.chunk_reference(work, 0, eng.consts, eng.spec,
-                                  props_full)
+        mc_kernel.chunk_reference(work.copy_(state0), 0, eng.consts,
+                                  eng.spec, props_full)
 
     ms_philox = time_chunk(torch, kernel_philox, 5)
+    k1_bound_ms, k1_bound_by = k1_bound(eng, state0, work)
     ms_injected = time_chunk(torch, kernel_injected, 5)
     ms_plain = time_chunk(torch, plain, 2)
     print(f"[time] {steps}-step chunk at R=10 N=300 K=128 Nq={data.count} "
@@ -396,12 +706,13 @@ def main():
         return out, time.perf_counter() - t0
 
     first = fit(DATA, "Sphere", cfg, device="cuda")       # cold
-    mc_kernel.run_chunk.launches = 0
-    mc_kernel.run_prefetch_chunk.launches = 0
+    reset_counts(mc_kernel)
     res, wall = timed_fit()
     launches = mc_kernel.run_chunk.launches
-    if mc_kernel.run_prefetch_chunk.launches:
-        raise AssertionError("the Sphere main path launched K2")
+    if (mc_kernel.run_prefetch_chunk.launches
+            or mc_kernel.run_chunk.model_launches != {"Sphere": launches}):
+        raise AssertionError("the Sphere main path launched another "
+                             "kernel")
     walls = [wall] + [timed_fit()[1] for _ in range(4)]
     e = res.engine
     for r_ in (first, res):
@@ -465,7 +776,7 @@ def main():
     if table.values.shape != (4096, golden.count):
         raise AssertionError(f"table shape {tuple(table.values.shape)}")
     tables_memo = len(tables._TABLE_CACHE)
-    k2_windows, k2_errs, k2_ms, k2_plain_ms = [], [], [], []
+    k2_windows, k2_errs, k2_ms, k2_plain_ms, k2_bounds = [], [], [], [], []
     for local in (0.0, 0.5):
         ceng = McSASEngine(golden, cyl_bound,
                            cyl_cfg.replace(local_moves=local),
@@ -502,23 +813,18 @@ def main():
         k2_errs.append(err)
         cwork = cstate0.clone()
 
-        def reset(cwork=cwork, cstate0=cstate0):
-            for f in ("rset", "ibank", "ft", "scale", "background",
-                      "conval", "n_iter", "n_moves"):
-                getattr(cwork, f).copy_(getattr(cstate0, f))
+        def k2(ceng=ceng, cwork=cwork, cstate0=cstate0, cands=cands,
+               rows=rows):
+            mc_kernel.run_prefetch_chunk(cwork.copy_(cstate0), 0,
+                                         ceng.consts, ceng.spec, rows, cands)
 
-        def k2(ceng=ceng, cwork=cwork, cands=cands, rows=rows, reset=reset):
-            reset()
-            mc_kernel.run_prefetch_chunk(cwork, 0, ceng.consts, ceng.spec,
-                                         rows, cands)
-
-        def k2_plain(ceng=ceng, cwork=cwork, cands=cands, rows=rows,
-                     reset=reset):
-            reset()
-            mc_kernel.prefetch_reference(cwork, 0, ceng.consts, ceng.spec,
-                                         rows, cands)
+        def k2_plain(ceng=ceng, cwork=cwork, cstate0=cstate0, cands=cands,
+                     rows=rows):
+            mc_kernel.prefetch_reference(cwork.copy_(cstate0), 0,
+                                         ceng.consts, ceng.spec, rows, cands)
 
         k2_ms.append(time_chunk(torch, k2, 10))
+        k2_bounds.append(k2_bound(ceng, cstate0, cwork, rows, cands))
         k2_plain_ms.append(time_chunk(torch, k2_plain, 2))
         print(f"[time] {name}: 131-step segment at R=10 N=300 K=128 "
               f"Nq={golden.count} (reset copy included), {card}: kernel "
@@ -551,8 +857,7 @@ def main():
         return out, time.perf_counter() - t0
 
     cfirst = cyl_fit()
-    mc_kernel.run_chunk.launches = 0
-    mc_kernel.run_prefetch_chunk.launches = 0
+    reset_counts(mc_kernel)
     cres, cwall = timed_cyl_fit()
     k2_launches = mc_kernel.run_prefetch_chunk.launches
     k1_during = mc_kernel.run_chunk.launches
@@ -595,20 +900,57 @@ def main():
         fit_phases(torch, McSASEngine, histogram_all, golden, cyl_bound,
                    cyl_cfg, card)
 
+    # ---- phase 8: K1 of the elementwise models against its plain version
+    from mcsas_tpu_torch.tools.suite import ROWS
+    rows_k1 = {name: check_k1_row(torch, mc_kernel, McSASEngine, row, card)
+               for name, row in ROWS.items()}
+
+    # ---- phase 9: the suite rows' main paths
+    for name, row in ROWS.items():
+        rows_k1[name]["launches"] = fit_row(torch, mc_kernel, fit, row, card,
+                                            profiling)
+
+    # ---- phase 10: K3, the latency probe
+    probe = probe_phase(torch, mc_kernel, card)
+
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
-    # window each covers (printed in "compared")
-    print(json.dumps({"kernels": [{
-        "name": "mc_chunk", "route": "cuda",
+    # windows each covers (printed in "compared"); library_ms: no single
+    # PyTorch call computes an MC chunk
+    kernels = [{
+        "name": "mc_chunk[Sphere]", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_chunk.cu",
         "replaces": "mcsas_tpu/ops/mc_kernel.py:410", "launches": launches,
         "max_abs_err": max(err_inj, err_phx), "ms": ms_philox,
-        "plain_ms": ms_plain, "compared": [win_inj, win_phx]}, {
+        "plain_ms": ms_plain, "bound_ms": k1_bound_ms,
+        "bound_by": k1_bound_by, "library_ms": None,
+        "compared": [win_inj, win_phx]}]
+    for name, row in ROWS.items():
+        k = rows_k1[name]
+        kernels.append({
+            "name": f"mc_chunk[{row.model}]", "route": "cuda",
+            "source": "mcsas_tpu_torch/csrc/mc_chunk.cu",
+            "replaces": "mcsas_tpu/ops/mc_kernel.py:410",
+            "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "compared": k["compared"]})
+    kernels.append({
         "name": "mc_prefetch", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",
         "replaces": "mcsas_tpu/ops/mc_kernel.py:719",
         "launches": k2_launches, "max_abs_err": max(k2_errs),
         "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
-        "compared": k2_windows}]}))
+        "bound_ms": k2_bounds[0][0], "bound_by": k2_bounds[0][1],
+        "library_ms": None, "compared": k2_windows})
+    kernels.append({
+        "name": "mc_probe", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/mc_probe.cu",
+        "replaces": "tools/kern_probe.py:124",
+        "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

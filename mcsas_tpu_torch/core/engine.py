@@ -75,6 +75,13 @@ class RepState:
         return RepState(**{f.name: getattr(self, f.name).clone()
                            for f in fields(self)})
 
+    def copy_(self, src: "RepState") -> "RepState":
+        """Copies *src* into this state's tensors in place, allocating
+        nothing (a timing loop restores its start state this way)."""
+        for f in fields(self):
+            getattr(self, f.name).copy_(getattr(src, f.name))
+        return self
+
     def merge(self, fresh: "RepState", mask: torch.Tensor) -> "RepState":
         """Rows of *fresh* where *mask* (R,) is True, else this state's
         (retry semantics: reference mcsas.py:217-246 re-runs mcFit)."""
@@ -200,10 +207,16 @@ class IntensityKernel:
     table: Optional[ParamTable] = None
     table_fn: Optional[Callable] = None   # (table, pdict) -> (..., Nq)
 
+    def weight(self, pd: dict):
+        """w = (v·inv_v_ref)^comp2 / i_ref of a parameter dict: a tensor,
+        or a Python float (float64) when the volume depends on no active
+        parameter."""
+        return ((self.bound.model.volume(pd) * self.inv_v_ref) ** self.comp2
+                * self.inv_i_ref)
+
     def row(self, pvec: torch.Tensor) -> torch.Tensor:
         pd = self.bound.pdict(pvec[..., None, :])     # entries (..., 1)
-        w = ((self.bound.model.volume(pd) * self.inv_v_ref) ** self.comp2
-             * self.inv_i_ref)
+        w = self.weight(pd)
         # normalize at AMPLITUDE level, (ffv·√w)² rather than ffv²·w: raw
         # |ff|² alone can underflow float32 (and 1/i_ref alone overflow
         # it), while the amplitude-scaled product is O(1) by construction
@@ -334,8 +347,10 @@ class McSASEngine:
             raise ValueError(
                 f"use_pallas={mode!r} on {self.device.type} but this "
                 "model/config is not eligible for a chunk kernel (K1: "
-                "Sphere, float32; K2: the parameter-table tier, float32); "
-                "pass use_pallas='off' for the plain PyTorch chunk")
+                "Sphere, LMADenseSphere, GaussianChain or "
+                "SphericalCoreShell, unsmeared, float32; K2: the "
+                "parameter-table tier, float32); pass use_pallas='off' for "
+                "the plain PyTorch chunk")
         return on_card
 
     def _k_local(self) -> int:

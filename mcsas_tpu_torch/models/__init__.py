@@ -1,24 +1,27 @@
 # -*- coding: utf-8 -*-
 """Model bank of the PyTorch port: the registry of ported models.
 
-Sphere and CylindersIsotropic are ported so far; the other reference
-models keep their names here so that asking for one gives a clear error
-instead of an unknown model.
+Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell and
+CylindersIsotropic are ported so far; the other reference models keep
+their names here so that asking for one gives a clear error instead of an
+unknown model.
 """
 from __future__ import annotations
 
 from .base import BoundModel, ParamSpec, SASModel
+from .chains import GaussianChain
 from .cylinders import CylindersIsotropic
-from .sphere import Sphere
+from .ellipsoids import SphericalCoreShell
+from .sphere import LMADenseSphere, Sphere
 
-MODELS = (Sphere, CylindersIsotropic)
+MODELS = (Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell,
+          CylindersIsotropic)
 
 REGISTRY = {m.name: m for m in MODELS}
 
 # reference models that the JAX package has and this package does not yet
 _NOT_PORTED = (
-    "EllipsoidsIsotropic", "EllipsoidalCoreShell",
-    "SphericalCoreShell", "GaussianChain", "LMADenseSphere", "Kholodenko",
+    "EllipsoidsIsotropic", "EllipsoidalCoreShell", "Kholodenko",
     "CylindersIsotropicAspect", "CylindersRadiallyIsotropic",
     "CylindersRadiallyIsotropicTilted",
 )
@@ -37,4 +40,5 @@ def get_model(name: str) -> SASModel:
 
 
 __all__ = ["SASModel", "BoundModel", "ParamSpec", "MODELS", "REGISTRY",
-           "get_model", "Sphere", "CylindersIsotropic"]
+           "get_model", "Sphere", "LMADenseSphere", "GaussianChain",
+           "SphericalCoreShell", "CylindersIsotropic"]

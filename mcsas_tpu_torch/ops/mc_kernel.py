@@ -1,12 +1,14 @@
 # -*- coding: utf-8 -*-
 """The MC chunk kernels: a whole chunk of accept/reject steps per launch.
 
-Two kernels, the Hopper counterparts of the JAX package's Pallas kernels
-(mcsas_tpu/ops/mc_kernel.py):
+Three kernels, the Hopper counterparts of the JAX package's Pallas
+kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
 
 * K1, the fused chunk (``build_chunk_fn``): proposals, candidate rows,
-  solve and accept all in the kernel.  Plain version
-  :func:`chunk_reference`, kernel ``csrc/mc_chunk.cu``, wrapper
+  solve and accept all in the kernel, for the elementwise models with a
+  device function (:data:`K1_MODELS`).  Plain version
+  :func:`chunk_reference`, kernel ``csrc/mc_chunk.cu`` (the step loop in
+  ``csrc/mc_chunk.cuh``, the models in ``csrc/mc_models.cuh``), wrapper
   :func:`run_chunk`.
 * K2, the prefetch chunk (``build_prefetch_chunk_fn``), for the
   parameter-table tier: one segment's candidates (S, R, K, P) and their
@@ -15,6 +17,10 @@ Two kernels, the Hopper counterparts of the JAX package's Pallas kernels
   XLA); the kernel runs the solve/accept sequence on them.  Plain
   version :func:`prefetch_reference`, kernel ``csrc/mc_prefetch.cu``,
   wrapper :func:`run_prefetch_chunk`.
+* K3, the latency probe (``tools/kern_probe.py::build``): K1's step cut
+  short at a rung (:data:`PROBE_LEVELS`), ``csrc/mc_probe.cu``, wrapper
+  :func:`run_probe`, runner ``tools/kern_probe.py``.  No PyTorch function
+  computes a cut step: its ``full`` rung is K1 and is held against it.
 
 Both plain versions are batched over (R, K, Nq) in the operation order of
 the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
@@ -23,7 +29,8 @@ kernel is held against its plain version on the card.  The kernels are
 built with nvcc at first use into ``build/kernels/`` (one library per
 source, built in parallel) and bound with ctypes; each wrapper checks its
 arguments, launches its kernel for CUDA tensors, runs the plain version
-for CPU tensors, and counts kernel launches in ``<wrapper>.launches``.
+for CPU tensors, and counts kernel launches in ``<wrapper>.launches``
+(``run_chunk.model_launches`` also by model name).
 
 One chunk, per repetition: ft is rebuilt from the bank (float64 sum), then
 every step takes K candidates for the slot at the shared cursor ri (the
@@ -40,6 +47,7 @@ only — from the in-kernel Philox4x32-10 stream described by
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -54,15 +62,23 @@ import torch
 
 from ..core.fitcore import FitConstants, solve_scale_bg
 from ..core.rng import DECADES, local_candidates
-from ..models.sphere import Sphere
+from ..models.chains import GaussianChain
+from ..models.ellipsoids import SphericalCoreShell
+from ..models.sphere import LMADenseSphere, Sphere, lma_standoff
 
 MAX_P = 8                      # active parameters the kernels take
+MAX_MODEL_P = 8                # parameters of a K1 model, fixed included
+# the models with a K1 device function, by model id (csrc/mc_models.cuh)
+K1_MODELS = (Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell)
+# K3's rungs, in the order of MC_LV_* in csrc/mc_chunk.cuh
+PROBE_LEVELS = ("loop", "rng", "ff", "solve", "solve_mom", "full")
 # HBM cap for one prefetch segment's staged candidate rows (the JAX
 # package's _PREFETCH_HBM_BUDGET)
 PREFETCH_ROW_BYTES = 64 * 2 ** 20
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
-KERNELS = ("mc_chunk", "mc_prefetch")     # one csrc/<name>.cu each
-_HEADERS = ("mc_common.cuh",)             # included by every kernel
+KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe")  # csrc/<name>.cu each
+# the shared headers; every kernel's build hash covers all of them
+_HEADERS = ("mc_common.cuh", "mc_models.cuh", "mc_chunk.cuh")
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
               / "build" / "kernels")
@@ -102,19 +118,52 @@ class ChunkSpec:
                           device=device)
         return lo, hi
 
+    @functools.cached_property
+    def model_layout(self):
+        """What K1 needs to rebuild ``BoundModel.pdict`` per candidate:
+        ``(pfix, pcol, sw_fixed)``.  For each model parameter in
+        declaration order, ``pcol`` is its active column or -1 and
+        ``pfix`` its fixed value (float64).  LMADenseSphere's automatic
+        standoff (mf = -1) with a fixed volume fraction is folded here, as
+        the plain version computes it in Python.  ``sw_fixed`` is √w as
+        the rows use it when the volume depends on no active parameter
+        (w a Python float, rounded to float32, then the float32 square
+        root), else None."""
+        bound = self.kern.bound
+        fixed = dict(bound.fixed)
+        if bound.model is LMADenseSphere and "volFrac" in fixed:
+            fixed["mf"] = lma_standoff(fixed["mf"], fixed["volFrac"])
+        names = bound.model.param_names
+        pcol = tuple(bound.active.index(n) if n in bound.active else -1
+                     for n in names)
+        pfix = tuple(0.0 if n in bound.active else float(fixed[n])
+                     for n in names)
+        w = self.kern.weight(bound.pdict(
+            torch.ones(bound.n_active, dtype=torch.float64)))
+        sw = (None if isinstance(w, torch.Tensor)
+              else float(np.sqrt(np.float32(w))))
+        return pfix, pcol, sw
+
 
 def model_id(model) -> int:
-    """The kernel's integer id of a model; only Sphere has a device
-    function so far."""
-    if model is Sphere:
-        return 0
+    """The kernel's integer id of a model (csrc/mc_models.cuh)."""
+    for i, m in enumerate(K1_MODELS):
+        if m is model:
+            return i
     raise ValueError(f"the CUDA chunk kernel has no device function for "
-                     f"model {getattr(model, 'name', model)!r}")
+                     f"model {getattr(model, 'name', model)!r} (K1 runs "
+                     f"{', '.join(m.name for m in K1_MODELS)})")
 
 
 def supports(engine) -> bool:
-    """True when the fused kernel K1 can run this engine's configuration."""
-    return (engine.bound.model is Sphere
+    """True when the fused kernel K1 can run this engine's configuration
+    (the JAX package's eligibility, mcsas_tpu/ops/mc_kernel.py:38-44, for
+    the models with a device function): unsmeared, float32, 1 ≤ P ≤
+    MAX_P."""
+    model = engine.bound.model
+    return (any(model is m for m in K1_MODELS)
+            and len(model.params) <= MAX_MODEL_P
+            and not (engine.data.uses_smearing and model.can_smear)
             and engine.dtype == torch.float32
             and 1 <= engine.bound.n_active <= MAX_P)
 
@@ -311,14 +360,18 @@ def philox4x32(counter, key, rounds: int = 10) -> np.ndarray:
 
 
 def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
-                     n_steps: int) -> np.ndarray:
+                     n_steps: int, device=None) -> np.ndarray:
     """The proposals the kernel draws in Philox mode, as an (S, R, K, P)
     float32 array in the injected contract.
 
     Key (seed, rep), counter (step, k, parameter, 0); the top 24 bits of
     output word 0 make the unit uniform u.  Global columns become
-    lo + g(u)·(hi − lo) with g the generator's transform; local columns
-    keep u."""
+    lo + g(u)·(hi − lo) with g the generator's transform
+    (10^(u·N) − 1)/10^N for logdecN; local columns keep u.  The kernel
+    takes 10^x with CUDA's powf: with a CUDA *device* the transform runs
+    there (PyTorch's float32 pow on the card is that powf), which
+    reproduces the stream bit for bit; numpy's powf on the host may
+    differ from it in the last ulp."""
     k, p = spec.k_cand, len(spec.ranges)
     s_ix, r_ix, k_ix, p_ix = np.meshgrid(
         np.arange(n_steps), np.arange(n_reps), np.arange(k), np.arange(p),
@@ -331,9 +384,15 @@ def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
     for ip, (g, (lo, hi)) in enumerate(zip(spec.generators, spec.ranges)):
         ug = u[..., :spec.k_global, ip]
         if g in DECADES:
-            dec = np.float32(DECADES[g])
-            ug = ((np.float32(10.0) ** (ug * dec) - np.float32(1.0))
-                  / np.float32(10.0 ** DECADES[g]))
+            x = ug * np.float32(DECADES[g])
+            top = np.float32(10.0 ** DECADES[g])
+            if device is None:
+                ug = (np.float32(10.0) ** x - np.float32(1.0)) / top
+            else:
+                xt = torch.as_tensor(x, device=device)
+                p10 = torch.pow(torch.full_like(xt, 10.0), xt)
+                ug = torch.div(p10 - 1.0,
+                               torch.full_like(xt, float(top))).cpu().numpy()
         lo32, hi32 = np.float32(lo), np.float32(hi)
         out[..., :spec.k_global, ip] = ug * (hi32 - lo32) + lo32
     return out
@@ -342,21 +401,24 @@ def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
 # -------------------------------------------------- build and binding
 
 class _ChunkParams(ctypes.Structure):
-    """Mirror of ``ChunkParams`` in csrc/mc_chunk.cu (same field order)."""
+    """Mirror of ``ChunkParams`` in csrc/mc_chunk.cuh (same field
+    order)."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "q", "y", "u", "rset", "ibank", "ft", "scale", "background",
             "conval", "n_iter", "n_moves", "rows", "proposals", "trace")]
-        + [("s_u", ctypes.c_double), ("s_uy", ctypes.c_double),
+        + [(name, ctypes.c_double) for name in ("s_u", "s_uy", "comp2")]
+        + [("pfix", ctypes.c_double * MAX_MODEL_P),
            ("lo", ctypes.c_float * MAX_P), ("hi", ctypes.c_float * MAX_P)]
         + [(name, ctypes.c_float) for name in (
-            "crit", "local_scale", "inv_v_ref", "comp2", "inv_i_ref",
-            "row_clamp")]
-        + [("gen", ctypes.c_int32 * MAX_P)]
+            "crit", "local_scale", "inv_v_ref", "inv_i_ref", "row_clamp",
+            "sw_fixed")]
+        + [("gen", ctypes.c_int32 * MAX_P),
+           ("pcol", ctypes.c_int32 * MAX_MODEL_P)]
         + [(name, ctypes.c_int32) for name in (
-            "n_reps", "n_contribs", "nq", "n_params", "k_cand", "k_global",
-            "n_steps", "ri0", "max_iter", "n_fit", "model_id", "find_bg",
-            "pos_bg", "device")]
+            "n_reps", "n_contribs", "nq", "n_params", "n_model_params",
+            "k_cand", "k_global", "n_steps", "ri0", "max_iter", "n_fit",
+            "model_id", "vol_fixed", "find_bg", "pos_bg", "device")]
         + [("seed", ctypes.c_uint32)])
 
 
@@ -374,7 +436,11 @@ class _PrefetchParams(ctypes.Structure):
             "ri0", "max_iter", "n_fit", "find_bg", "pos_bg", "device")])
 
 
-_PARAMS = {"mc_chunk": _ChunkParams, "mc_prefetch": _PrefetchParams}
+_PARAMS = {"mc_chunk": _ChunkParams, "mc_prefetch": _PrefetchParams,
+           "mc_probe": _ChunkParams}
+# the arguments of <name>_launch after the parameter struct and before
+# the stream
+_LAUNCH_EXTRA = {"mc_probe": [ctypes.c_int]}
 
 
 @dataclass(frozen=True)
@@ -445,13 +511,17 @@ def build_libraries(names=KERNELS) -> dict:
 
 
 def _library(name: str):
-    """The loaded library of kernel *name* (built at first use)."""
-    build = build_libraries((name,))[name]
-    lib = _LOADED.get(build.path)
+    """The loaded library of kernel *name*, resolved once per process:
+    the first call builds it if build/kernels/ lacks the build of the
+    present sources (:func:`build_libraries`) and loads it; later calls
+    neither hash nor stat the sources."""
+    lib = _LOADED.get(name)
     if lib is None:
+        build = build_libraries((name,))[name]
         lib = ctypes.CDLL(str(build.path))
         launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        launch.argtypes = ([ctypes.c_void_p] + _LAUNCH_EXTRA.get(name, [])
+                           + [ctypes.c_void_p])
         launch.restype = ctypes.c_int
         size_fn = getattr(lib, f"{name}_params_size")
         size_fn.argtypes = []
@@ -464,16 +534,16 @@ def _library(name: str):
             raise RuntimeError(
                 f"{name} parameter layout mismatch: C {size_fn()} bytes, "
                 f"ctypes {want} bytes")
-        _LOADED[build.path] = lib
+        _LOADED[name] = lib
     return lib
 
 
-def _launch(name: str, prm, device: torch.device):
-    """Launches kernel *name* with *prm* on the current stream of
-    *device*; raises on a refused launch."""
+def _launch(name: str, prm, device: torch.device, *extra):
+    """Launches kernel *name* with *prm* (and the ints *extra*) on the
+    current stream of *device*; raises on a refused launch."""
     lib = _library(name)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"{name}_launch")(ctypes.byref(prm),
+    rc = getattr(lib, f"{name}_launch")(ctypes.byref(prm), *extra,
                                         ctypes.c_void_p(stream))
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
@@ -524,6 +594,58 @@ def _check(state, consts: FitConstants, spec: ChunkSpec, proposals,
                              f"on {proposals.device}")
 
 
+def _chunk_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
+                  proposals, seed, n_steps: int, rows: torch.Tensor,
+                  choice) -> _ChunkParams:
+    """The kernel's parameter struct for one chunk (K1 and K3)."""
+    r, n, p = state.rset.shape
+    pfix, pcol, sw = spec.model_layout
+    kern = spec.kern
+    prm = _ChunkParams(
+        q=kern.grid.data_ptr(), y=consts.y.data_ptr(),
+        u=consts.u.data_ptr(), rset=state.rset.data_ptr(),
+        ibank=state.ibank.data_ptr(), ft=state.ft.data_ptr(),
+        scale=state.scale.data_ptr(),
+        background=state.background.data_ptr(),
+        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
+        n_moves=state.n_moves.data_ptr(), rows=rows.data_ptr(),
+        proposals=(proposals.data_ptr() if proposals is not None else None),
+        trace=(choice.data_ptr() if choice is not None else None),
+        s_u=consts.s_u, s_uy=consts.s_uy, comp2=kern.comp2,
+        crit=spec.crit, local_scale=spec.local_scale,
+        inv_v_ref=kern.inv_v_ref, inv_i_ref=kern.inv_i_ref,
+        row_clamp=kern.row_clamp, sw_fixed=sw or 0.0,
+        n_reps=r, n_contribs=n, nq=consts.n, n_params=p,
+        n_model_params=len(pcol), k_cand=spec.k_cand,
+        k_global=spec.k_global, n_steps=n_steps, ri0=ri % n,
+        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
+        model_id=model_id(spec.model), vol_fixed=int(sw is not None),
+        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
+        device=_device_index(state.rset.device),
+        seed=(seed or 0) & 0xFFFFFFFF)
+    for ip, ((lo, hi), g) in enumerate(zip(spec.ranges, spec.generators)):
+        prm.lo[ip], prm.hi[ip], prm.gen[ip] = lo, hi, _GEN_CODES[g]
+    for j, (v, c) in enumerate(zip(pfix, pcol)):
+        prm.pfix[j], prm.pcol[j] = v, c
+    return prm
+
+
+def _chunk_steps(state, consts, spec, proposals, seed, n_steps):
+    """Checks a K1/K3 call and returns its step count."""
+    _check(state, consts, spec, proposals)
+    if proposals is not None:
+        if n_steps is not None and n_steps != proposals.shape[0]:
+            raise ValueError("n_steps disagrees with proposals.shape[0]")
+        n_steps = int(proposals.shape[0])
+    if state.rset.device.type == "cuda":
+        if proposals is None and (seed is None or n_steps is None):
+            raise ValueError("the Philox mode needs seed and n_steps")
+        if spec.k_cand < 1 or not 0 <= spec.k_local <= spec.k_cand:
+            raise ValueError(f"invalid candidate split: K={spec.k_cand}, "
+                             f"{spec.k_local} local")
+    return n_steps
+
+
 def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
               proposals: Optional[torch.Tensor] = None,
               seed: Optional[int] = None, n_steps: Optional[int] = None,
@@ -537,11 +659,7 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
     *proposals*.  With a *trace* dict the chosen candidate per step lands
     in ``trace["choice"]`` (S, R) int32, -1 where nothing was accepted.
     """
-    _check(state, consts, spec, proposals)
-    if proposals is not None:
-        if n_steps is not None and n_steps != proposals.shape[0]:
-            raise ValueError("n_steps disagrees with proposals.shape[0]")
-        n_steps = int(proposals.shape[0])
+    n_steps = _chunk_steps(state, consts, spec, proposals, seed, n_steps)
     dev = state.rset.device
     if dev.type == "cpu":
         if proposals is None:
@@ -550,46 +668,64 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
         return chunk_reference(state, ri, consts, spec, proposals, trace)
     if dev.type != "cuda":
         raise ValueError(f"no chunk implementation for device {dev}")
-    if proposals is None and (seed is None or n_steps is None):
-        raise ValueError("the Philox mode needs seed and n_steps")
-    if spec.k_cand < 1 or not 0 <= spec.k_local <= spec.k_cand:
-        raise ValueError(f"invalid candidate split: K={spec.k_cand}, "
-                         f"{spec.k_local} local")
-    r, n, p = state.rset.shape
-    nq, k = consts.n, spec.k_cand
-    rows = torch.empty((r, nq, k), dtype=torch.float32, device=dev)
+    r, n, _ = state.rset.shape
+    rows = torch.empty((r, consts.n, spec.k_cand), dtype=torch.float32,
+                       device=dev)
     choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
               if trace is not None else None)
-    prm = _ChunkParams(
-        q=spec.kern.grid.data_ptr(), y=consts.y.data_ptr(),
-        u=consts.u.data_ptr(), rset=state.rset.data_ptr(),
-        ibank=state.ibank.data_ptr(), ft=state.ft.data_ptr(),
-        scale=state.scale.data_ptr(),
-        background=state.background.data_ptr(),
-        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
-        n_moves=state.n_moves.data_ptr(), rows=rows.data_ptr(),
-        proposals=(proposals.data_ptr() if proposals is not None else None),
-        trace=(choice.data_ptr() if choice is not None else None),
-        s_u=consts.s_u, s_uy=consts.s_uy,
-        crit=spec.crit, local_scale=spec.local_scale,
-        inv_v_ref=spec.kern.inv_v_ref, comp2=spec.kern.comp2,
-        inv_i_ref=spec.kern.inv_i_ref, row_clamp=spec.kern.row_clamp,
-        n_reps=r, n_contribs=n, nq=nq, n_params=p, k_cand=k,
-        k_global=spec.k_global, n_steps=n_steps, ri0=ri % n,
-        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
-        model_id=model_id(spec.model), find_bg=int(spec.find_bg),
-        pos_bg=int(spec.pos_bg), device=_device_index(dev),
-        seed=(seed or 0) & 0xFFFFFFFF)
-    for ip, ((lo, hi), g) in enumerate(zip(spec.ranges, spec.generators)):
-        prm.lo[ip], prm.hi[ip], prm.gen[ip] = lo, hi, _GEN_CODES[g]
+    prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
+                        rows, choice)
     _launch("mc_chunk", prm, dev)
     run_chunk.launches += 1
+    name = spec.model.name
+    run_chunk.model_launches[name] = run_chunk.model_launches.get(name,
+                                                                  0) + 1
     if trace is not None:
         trace["choice"] = choice
     return state, (ri + n_steps) % n
 
 
 run_chunk.launches = 0
+run_chunk.model_launches = {}
+
+
+def run_probe(state, ri: int, consts: FitConstants, spec: ChunkSpec,
+              level: str, proposals: Optional[torch.Tensor] = None,
+              seed: Optional[int] = None, n_steps: Optional[int] = None):
+    """Runs one chunk of K1 cut at the rung *level* (:data:`PROBE_LEVELS`)
+    on the state's device; returns ``(state, cursor, sink)``, *sink* the
+    (R, threads) floats a rung below ``full`` leaves behind (None for
+    ``full``).  Only ``full`` changes the state, as :func:`run_chunk`
+    does.  Arguments as for :func:`run_chunk`; CUDA tensors launch K3
+    (counted in ``run_probe.launches``).  On CPU tensors ``full`` runs
+    :func:`chunk_reference`; a shorter rung has no plain version and
+    raises."""
+    if level not in PROBE_LEVELS:
+        raise ValueError(f"unknown probe level {level!r}; one of "
+                         f"{PROBE_LEVELS}")
+    n_steps = _chunk_steps(state, consts, spec, proposals, seed, n_steps)
+    dev = state.rset.device
+    if dev.type == "cpu":
+        if level != "full" or proposals is None:
+            raise ValueError(f"the probe's {level!r} rung measures the CUDA "
+                             "kernel; only 'full' on injected proposals "
+                             "has a plain version")
+        return (*chunk_reference(state, ri, consts, spec, proposals), None)
+    if dev.type != "cuda":
+        raise ValueError(f"no probe implementation for device {dev}")
+    r, n, _ = state.rset.shape
+    rows = torch.empty((r, consts.n, spec.k_cand), dtype=torch.float32,
+                       device=dev)
+    prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
+                        rows, None)
+    _launch("mc_probe", prm, dev, PROBE_LEVELS.index(level))
+    run_probe.launches += 1
+    threads = min(-(-spec.k_cand // 32) * 32, 256, consts.n * spec.k_cand)
+    sink = None if level == "full" else rows.reshape(r, -1)[:, :threads]
+    return state, (ri + n_steps) % n, sink
+
+
+run_probe.launches = 0
 
 
 def run_prefetch_chunk(state, ri: int, consts: FitConstants,

@@ -33,6 +33,22 @@ def sphere_ff(x: torch.Tensor) -> torch.Tensor:
     return torch.where(small, series, closed)
 
 
+def ipow(x, n: int):
+    """x**n for an integer n ≥ 1 by binary exponentiation, in the order
+    of JAX's ``lax.integer_pow`` (what ``jnp.power`` does for an integer
+    exponent): x² = x·x, x³ = x·x², x⁴ = x²·x², x⁶ = x²·x⁴.  Works on
+    Python floats (float64) and tensors alike; the CUDA kernel
+    (csrc/mc_models.cuh) multiplies in the same order."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
 def sinc_sin(x: torch.Tensor) -> torch.Tensor:
     """sin(x)/x with the x→0 limit handled."""
     small = x.abs() < _small_threshold(x)
@@ -90,3 +106,40 @@ def j1_over_x(x: torch.Tensor) -> torch.Tensor:
     tiny = x.abs() < 1e-6
     xs = torch.where(tiny, torch.ones_like(x), x)
     return torch.where(tiny, 0.5 - x * x / 16.0, bessel_j1(xs) / xs)
+
+
+# --- Percus-Yevick / LMA structure factor ----------------------------------
+
+def py_G_over_A(A: torch.Tensor, alpha, beta, gamma) -> torch.Tensor:
+    """G(A)/A for the LMA-PY hard-sphere structure factor (Kinning &
+    Thomas; reference: src/mcsas/models/lmadensesphere.py:76-86),
+    evaluated as G/A so 24μG/A never divides by zero, with series
+    switches below the cancellation threshold (float32 |A| < 1, float64
+    |A| < 0.2):
+
+    g1/A = (sin A − A cos A)/A³              → 1/3 − A²/30 + A⁴/840 …
+    g2/A = (2A sin A + (2−A²)cos A − 2)/A⁴   → 1/4 − A²/36 + A⁴/960 …
+    g3/A = (−A⁴cos A + 4((3A²−6)cos A + (A³−6A)sin A + 6))/A⁶
+                                             → 1/6 − A²/48 + A⁴/1200 …
+
+    The operation order is the JAX package's; the CUDA kernel's
+    ``py_g_over_a`` repeats the float32 branch."""
+    small = A.abs() < (1.0 if A.dtype == torch.float32 else 0.2)
+    As = torch.where(small, torch.ones_like(A), A)
+    s, c = torch.sin(As), torch.cos(As)
+    a2, a3, a4, a6 = (ipow(As, n) for n in (2, 3, 4, 6))
+    g1 = (s - As * c) / a3
+    g2 = (2.0 * As * s + (2.0 - a2) * c - 2.0) / a4
+    g3 = (-a4 * c + 4.0 * ((3.0 * a2 - 6.0) * c
+                           + (a3 - 6.0 * As) * s + 6.0)) / a6
+    A2 = A * A
+    g1s = 1.0 / 3.0 + A2 * (-1.0 / 30.0 + A2 * (
+        1.0 / 840.0 + A2 * (-1.0 / 45360.0)))
+    g2s = 1.0 / 4.0 + A2 * (-1.0 / 36.0 + A2 * (
+        1.0 / 960.0 + A2 * (-1.0 / 50400.0)))
+    g3s = 1.0 / 6.0 + A2 * (-1.0 / 48.0 + A2 * (
+        1.0 / 1200.0 + A2 * (-1.0 / 60480.0)))
+    g1 = torch.where(small, g1s, g1)
+    g2 = torch.where(small, g2s, g2)
+    g3 = torch.where(small, g3s, g3)
+    return alpha * g1 + beta * g2 + gamma * g3

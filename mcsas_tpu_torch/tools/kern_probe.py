@@ -1,0 +1,126 @@
+# -*- coding: utf-8 -*-
+"""Latency probe of the CUDA chunk kernel K1: where a step's time goes.
+
+The Hopper counterpart of the JAX package's tools/kern_probe.py.  Each
+rung runs K1's real step loop (csrc/mc_chunk.cuh) cut short, in the
+probe kernel K3 (csrc/mc_probe.cu):
+
+  loop       cursor, activity check, ft − bank[ri], barriers
+  rng        + the K proposals (Philox, or read injected) and local moves
+  ff         + the K candidate rows over q into the row scratch
+  solve      + float64 sums, closed-form solve, residual pass, best-of-K
+  solve_mom  solve with χ² from the moments already summed instead of
+             the residual pass: that idea's ceiling, never production
+  full       + accept and state writes: K1 itself
+
+For each model with a K1 device function, on the data of its suite row
+(Sphere: the headline dataset) at the headline shape R=10, N=300, K=128,
+local moves 0.5, each rung times LAUNCHES launches of CHUNK steps from
+one state with CUDA events and prints one JSON line
+``{"level", "model", "us_per_step", "ms_per_launch"}``.  Needs a card:
+
+    python -m mcsas_tpu_torch.tools.kern_probe [--steps N] [--launches N]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+
+import torch
+
+from ..config import McSASConfig
+from ..core.engine import McSASEngine
+from ..data import load
+from ..models import get_model
+from ..ops import mc_kernel
+from .suite import ROWS
+
+CHUNK = 2048
+LAUNCHES = 8
+SEED = 20261016
+_SPHERE_DATA = (pathlib.Path(__file__).resolve().parents[2] / "testdata"
+                / "sasfit_sphere-10-1.dat")
+
+
+def probe_engine(model_name: str, device="cuda") -> McSASEngine:
+    """A headline-shaped engine (R=10, N=300, K=128, local moves 0.5) of
+    *model_name* on its suite row's data and active set.  Its
+    convergence criterion is 0, so that no repetition stops early and
+    every rung runs all its steps."""
+    cfg = McSASConfig(num_contribs=300, num_reps=10,
+                      max_iterations=8_000_000, chunk_steps=CHUNK,
+                      candidates_per_step=128, seed=2026, local_moves=0.5,
+                      convergence_criterion=0.0)
+    if model_name == "Sphere":
+        data = load(_SPHERE_DATA)
+        bound = get_model("Sphere").bind()
+    else:
+        row = next(r for r in ROWS.values() if r.model == model_name)
+        data = row.load()
+        bound = row.bound(data)
+    return McSASEngine(data, bound, cfg, device=device)
+
+
+def time_rung(eng: McSASEngine, state0, level: str, steps: int,
+              launches: int) -> float:
+    """Mean ms of one *steps*-step launch of rung *level* (Philox mode)
+    from *state0*, over *launches* launches after one warm-up, with CUDA
+    events around all of them; the state is restored on the device
+    before every launch (a ~1 MB copy)."""
+    work = state0.clone()
+    sinks = []
+
+    def launch(i):
+        sinks.append(mc_kernel.run_probe(work.copy_(state0), 0, eng.consts,
+                                         eng.spec, level, seed=SEED + i,
+                                         n_steps=steps)[2])
+
+    launch(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(launches):
+        launch(i + 1)
+    stop.record()
+    torch.cuda.synchronize()
+    if any(s is not None and not torch.isfinite(s).all() for s in sinks):
+        raise AssertionError(f"probe rung {level!r} left non-finite values")
+    return start.elapsed_time(stop) / launches
+
+
+def run(models=None, steps: int = CHUNK, launches: int = LAUNCHES,
+        levels=mc_kernel.PROBE_LEVELS):
+    """Probes each model's K1 at every rung; returns the result dicts
+    (one per rung and model) and prints each as a JSON line."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probe measures the CUDA kernel: "
+                           "torch.cuda.is_available() is False")
+    out = []
+    for name in models or [m.name for m in mc_kernel.K1_MODELS]:
+        eng = probe_engine(name)
+        eng.gen.manual_seed(1)
+        state0 = eng._init_batch()
+        for level in levels:
+            ms = time_rung(eng, state0, level, steps, launches)
+            rec = {"level": level, "model": name,
+                   "us_per_step": ms * 1e3 / steps, "ms_per_launch": ms}
+            print(json.dumps(rec), flush=True)
+            out.append(rec)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=CHUNK)
+    ap.add_argument("--launches", type=int, default=LAUNCHES)
+    ap.add_argument("--model", action="append",
+                    help="a model name (repeatable); default: every K1 "
+                         "model")
+    args = ap.parse_args(argv)
+    run(args.model, args.steps, args.launches)
+
+
+if __name__ == "__main__":
+    main()

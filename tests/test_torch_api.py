@@ -94,6 +94,10 @@ def test_port_never_imports_jax(tmp_path, refdata):
         "import sys\n"
         "import mcsas_tpu_torch as mt\n"
         "import mcsas_tpu_torch.ops.tables, mcsas_tpu_torch.models.cylinders\n"
+        "import mcsas_tpu_torch.models.chains\n"
+        "import mcsas_tpu_torch.models.ellipsoids\n"
+        "import mcsas_tpu_torch.tools.kern_probe\n"
+        "import mcsas_tpu_torch.tools.suite\n"
         "cfg = mt.McSASConfig(num_contribs=20, num_reps=1, chunk_steps=20,"
         " max_iterations=400, max_retries=0, candidates_per_step=4)\n"
         f"r = mt.fit({str(refdata / 'sasfit_sphere-10-1.dat')!r}, "

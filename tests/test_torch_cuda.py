@@ -1,8 +1,10 @@
 # -*- coding: utf-8 -*-
-"""PyTorch port on the card: the CUDA chunk kernels K1 (mc_chunk) and K2
-(mc_prefetch) against their plain PyTorch versions, and the engine's
-routing to them.  Marked ``cuda``; every test skips without a CUDA device
-(decided inside the fixture).  On a machine with a card and without JAX:
+"""PyTorch port on the card: the CUDA chunk kernels K1 (mc_chunk, every
+model with a device function) and K2 (mc_prefetch) against their plain
+PyTorch versions, the latency probe K3 (mc_probe) against K1, and the
+engine's routing to them.  Marked ``cuda``; every test skips without a
+CUDA device (decided inside the fixture).  On a machine with a card and
+without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -235,3 +237,115 @@ def test_table_engine_routes_to_the_prefetch_kernel(cylinder):
     res = off.run()
     assert res.used_table and not res.used_prefetch and not res.used_pallas
     assert mc_kernel.run_prefetch_chunk.launches == k2
+
+
+# ------------------------------------- K1 of the other elementwise models
+
+_ROW_OF = {"LMADenseSphere": "lma-dense-sphere",
+           "GaussianChain": "gaussian-chain",
+           "SphericalCoreShell": "core-shell-sphere"}
+
+
+@pytest.fixture(scope="module")
+def elementwise():
+    """Engines on the card for each suite row's model, data and active
+    set at a small shape: N=64, R=3, K=48, the row's local moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from mcsas_tpu_torch.tools.suite import ROWS
+    out = {}
+    for name, row_name in _ROW_OF.items():
+        row = ROWS[row_name]
+        d = row.load()
+        cfg = row.config(num_contribs=64, num_reps=3, chunk_steps=128,
+                         candidates_per_step=48, max_iterations=1_000_000)
+        out[name] = McSASEngine(d, row.bound(d), cfg, device="cuda")
+    return out
+
+
+@pytest.mark.parametrize("mode", ["injected", "philox"])
+@pytest.mark.parametrize("name", sorted(_ROW_OF))
+def test_model_kernel_matches_plain_version(elementwise, name, mode):
+    """K1 of each model against its plain version over 100 steps, on the
+    engine's proposals or on the Philox stream (the plain version fed the
+    host model of that stream): identical decisions until a near-tie
+    (relative χ² gap ≤ 1e-6); where no flip occurs, the same state."""
+    eng = elementwise[name]
+    assert eng.runs_cuda_kernel and mc_kernel.supports(eng)
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    if mode == "injected":
+        props = eng._draw_chunk_proposals(n_steps=100)
+        kw = dict(proposals=props)
+    else:
+        props = torch.as_tensor(mc_kernel.philox_proposals(
+            eng.spec, 31, 3, 100, device="cuda"), device="cuda")
+        kw = dict(seed=31, n_steps=100)
+    ks, kt = state.clone(), {}
+    before = mc_kernel.run_chunk.model_launches.get(name, 0)
+    mc_kernel.run_chunk(ks, 0, eng.consts, eng.spec, trace=kt, **kw)
+    assert mc_kernel.run_chunk.model_launches[name] == before + 1
+    ts, tt = state.clone(), {}
+    mc_kernel.chunk_reference(ts, 0, eng.consts, eng.spec, props, trace=tt)
+    torch.cuda.synchronize()
+    kc, tc = kt["choice"].cpu().numpy(), tt["choice"].cpu().numpy()
+    assert (kc >= 0).any()
+    for r in range(kc.shape[1]):
+        diff = np.nonzero(kc[:, r] != tc[:, r])[0]
+        if len(diff):
+            s = diff[0]
+            margin = float(mc_kernel.decision_margin(tt["chi"][s, r],
+                                                     tt["conval"][s, r]))
+            assert margin <= 1e-6, (r, s, margin)
+            continue
+        np.testing.assert_array_equal(ks.rset[r].cpu(), ts.rset[r].cpu())
+        np.testing.assert_array_equal(ks.conval[r].cpu(), ts.conval[r].cpu())
+        np.testing.assert_array_equal(ks.ibank[r].cpu(), ts.ibank[r].cpu())
+        assert int(ks.n_moves[r]) == int(ts.n_moves[r])
+
+
+@pytest.mark.parametrize("name", ["Sphere"] + sorted(_ROW_OF))
+def test_probe_full_rung_equals_the_kernel(elementwise, engine, name):
+    """K3's full rung is K1 compiled again: bit for bit the same state
+    on the same proposals; a shorter rung changes no state and leaves
+    finite values."""
+    eng = engine if name == "Sphere" else elementwise[name]
+    eng.gen.manual_seed(4)
+    state = eng._init_batch()
+    props = eng._draw_chunk_proposals(n_steps=64)
+    a, b = state.clone(), state.clone()
+    mc_kernel.run_chunk(a, 0, eng.consts, eng.spec, proposals=props)
+    before = mc_kernel.run_probe.launches
+    _, ri, sink = mc_kernel.run_probe(b, 0, eng.consts, eng.spec, "full",
+                                      proposals=props)
+    assert mc_kernel.run_probe.launches == before + 1 and sink is None
+    assert ri == 64 % eng.cfg.num_contribs
+    torch.cuda.synchronize()
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for level in mc_kernel.PROBE_LEVELS[:-1]:
+        c = state.clone()
+        _, _, sink = mc_kernel.run_probe(c, 0, eng.consts, eng.spec, level,
+                                         seed=5, n_steps=32)
+        torch.cuda.synchronize()
+        assert torch.isfinite(sink).all(), level
+        assert torch.equal(c.rset, state.rset) and torch.equal(
+            c.conval, state.conval), level
+
+
+def test_engines_route_each_model_to_the_kernel(elementwise):
+    """Every K1 model's engine on the card launches K1 under the default
+    use_pallas='auto', never K2 or the plain chunk; a float64 config
+    raises there."""
+    for name, eng in elementwise.items():
+        k1 = mc_kernel.run_chunk.model_launches.get(name, 0)
+        k2 = mc_kernel.run_prefetch_chunk.launches
+        small = eng.cfg.replace(max_iterations=48 * 256, max_retries=0)
+        res = McSASEngine(eng.data, eng.bound, small, device="cuda").run()
+        assert res.used_pallas and not res.used_table, name
+        assert mc_kernel.run_chunk.model_launches[name] > k1, name
+        assert mc_kernel.run_prefetch_chunk.launches == k2, name
+        with pytest.raises(ValueError, match="eligible"):
+            McSASEngine(eng.data, eng.bound, small.replace(dtype="float64"),
+                        device="cuda")
