@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits nonzero):
      torch/CUDA versions; fails when torch.cuda.is_available() is False;
   2. build: compiles csrc/mc_chunk.cu (K1), csrc/mc_prefetch.cu (K2) and
      csrc/mc_probe.cu (K3) with nvcc for sm_90a, one nvcc each, started
-     together (timed; ptxas registers and spills printed);
+     together (timed; ptxas registers and spills printed); K1's launch
+     shape for each model (lanes per candidate, threads per block,
+     registers, spills) is printed where its engine is first built;
   3. K1 vs plain version: one 256-step chunk at the headline shape
      (R=10, N=300, K=128, local moves 0.5) on injected proposals — the
      accept decisions must be identical, or first differ at a near-tie
@@ -40,7 +42,11 @@ Phases (any failure raises and the script exits nonzero):
      suite.py): 256 steps with the row's active set and 64 with a second
      one, each on injected proposals and on the Philox stream (accepted
      proposals checked against the host stream in every column); K1 and
-     the plain version timed on one 1024-step chunk;
+     the plain version timed on one 1024-step chunk; then K1 of all four
+     models at the ragged shapes of its lane groups (RAGGED: K below, at
+     and above the groups in flight, grids of 5 and 200 points, one
+     repetition, a bank of one slot), 64 steps each, both proposal
+     modes;
   9. the suite rows' main paths: ``fit()`` of each row on device="cuda"
      (300 × 10, chunk 1024, seed 2026) — 10/10 converged, max χ² ≤ 1,
      only K1 of the row's model launched, two runs of one seed equal,
@@ -49,6 +55,7 @@ Phases (any failure raises and the script exits nonzero):
      proposals/s, the median warm wall of 3 fits;
  10. K3, the latency probe: its full rung bit for bit against K1 for
      every model, then every rung of every model (tools/kern_probe.py),
+     the ff and solve rungs also at 8, 16 and 32 lanes per candidate,
      one line each.
 
 With ``--profile`` it also runs one more fit of each path under
@@ -324,6 +331,43 @@ JAX_TOTAL_ITERS = {"gaussian-chain": 1_619_200,
                    "lma-dense-sphere": 3_389_056}
 STATE_FIELDS = ("rset", "ibank", "ft", "scale", "background", "conval",
                 "n_iter", "n_moves")
+# K1's ragged shapes, (repetitions, K, fit-grid bins, contributions): K
+# below, at and above the 128 groups of 8 lanes a block holds, grids
+# smaller than a group and longer than the 104 points a group keeps in
+# registers, one repetition, and a bank of one slot
+RAGGED = {"r1-k8-bins5": (1, 8, 5, 64),
+          "r2-k64-bins100": (2, 64, 100, 64),
+          "r2-k200-bins200": (2, 200, 200, 64),
+          "r2-k8-bins100-n1": (2, 8, 100, 1)}
+
+
+def ptxas_spills(log):
+    """{kernel's mangled name: its ptxas line of stack frame and spills}
+    from an nvcc -Xptxas -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            out[name] = line.strip()
+            name = None
+    return out
+
+
+def print_k1_shape(mc_kernel, eng, state, spills, card):
+    """K1's launch shape for an engine: lanes per candidate, threads per
+    block, registers and local memory per thread, and ptxas's spills of
+    the instantiation that runs.  Returns the shape."""
+    shape = mc_kernel.launch_shape(state, eng.consts, eng.spec)
+    mid = mc_kernel.model_id(eng.bound.model)
+    name = (f"_Z15mc_chunk_kernelILi{mid}ELi5ELi{shape['group']}"
+            f"EEv11ChunkParams")
+    print(f"[shape] K1 {eng.bound.model.name} at K={eng.spec.k_cand} "
+          f"Nq={eng.consts.n}: {shape['group']} lanes per candidate, "
+          f"{shape['threads']} threads per block, {shape['registers']} "
+          f"registers and {shape['local_bytes']} B local memory per thread;"
+          f" ptxas: {spills.get(name, 'not found')}; {card}", flush=True)
+    return shape
 
 
 def reset_counts(mc_kernel):
@@ -374,10 +418,10 @@ def k2_bound(eng, state0, state1, rows, cands):
 def compare_on(torch, mc_kernel, name, eng, state0, steps, seed,
                need=True):
     """K1 against its plain version over *steps* steps from *state0*, on
-    the engine's own proposals and on the Philox stream *seed* (its
-    accepted proposals checked against the host stream; with *need* it
-    must have accepted some).  Returns the compared windows and the
-    largest |delta chi2|."""
+    the engine's own proposals and on the Philox stream *seed* (where the
+    chunk visits each slot at most once, its accepted proposals checked
+    against the host stream; with *need* it must have accepted some).
+    Returns the compared windows and the largest |delta chi2|."""
     def pair(props, phx=None):
         ks, kt = state0.clone(), {}
         if phx is None:
@@ -403,11 +447,13 @@ def compare_on(torch, mc_kernel, name, eng, state0, steps, seed,
     win_p, err_p, ps, pt = check_pair(f"{name} philox", mc_kernel,
                                       lambda n: pair(hp[:n], seed), steps,
                                       state0, r)
-    check_philox_stream(f"{name} philox", eng, state0, host, ps, pt, need)
+    if steps <= eng.cfg.num_contribs:
+        check_philox_stream(f"{name} philox", eng, state0, host, ps, pt,
+                            need)
     return [win_i, win_p], max(err_i, err_p)
 
 
-def check_k1_row(torch, mc_kernel, engine_cls, row, card):
+def check_k1_row(torch, mc_kernel, engine_cls, row, spills, card):
     """K1 of one suite row's model against its plain version: 256 steps
     at the row's shape (R=10, N=300, its K and local moves) and 64 steps
     with the second active set, each on injected proposals and on the
@@ -436,6 +482,7 @@ def check_k1_row(torch, mc_kernel, engine_cls, row, card):
         errs.append(err)
         if label == "suite":
             suite_eng, suite_state0 = eng, state0
+            shape = print_k1_shape(mc_kernel, eng, state0, spills, card)
     eng, state0 = suite_eng, suite_state0
     work = state0.clone()
     props = eng._draw_chunk_proposals(n_steps=cfg.chunk_steps)
@@ -457,7 +504,44 @@ def check_k1_row(torch, mc_kernel, engine_cls, row, card):
           f"({ms * 1e3 / cfg.chunk_steps:.2f} us per step), plain PyTorch "
           f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, compared=windows)
+                bound_ms=b_ms, bound_by=b_by, compared=windows, shape=shape)
+
+
+def check_k1_ragged(torch, mc_kernel, engine_cls, load, mcsas_config,
+                    data_config, get_model, spills, card):
+    """K1 of every model against its plain version at the RAGGED shapes,
+    64 steps each, on injected proposals and on the Philox stream (each
+    model on its suite row's data and active set, Sphere on the headline
+    data, the grid rebinned to the shape's bins).  Returns the compared
+    windows and the largest |delta chi2| of each model."""
+    from mcsas_tpu_torch.tools.suite import ROWS
+    windows, errs = [], {}
+    for model in mc_kernel.K1_MODELS:
+        row = next((r for r in ROWS.values() if r.model == model.name),
+                   None)
+        for label, (reps, k, n_bin, n) in RAGGED.items():
+            if row is None:
+                data = load(DATA, config=data_config(n_bin=n_bin))
+                bound = get_model("Sphere").bind()
+                cfg = headline_config(mcsas_config)
+            else:
+                data = row.load()
+                data = data.with_config(data.config.replace(n_bin=n_bin))
+                bound = row.bound(data)
+                cfg = row.config()
+            cfg = cfg.replace(num_contribs=n, num_reps=reps,
+                              candidates_per_step=k)
+            eng = engine_cls(data, bound, cfg, device="cuda")
+            eng.gen.manual_seed(5)
+            state0 = eng._init_batch()
+            shape = print_k1_shape(mc_kernel, eng, state0, spills, card)
+            name = (f"{model.name} {label} ({shape['group']} lanes x "
+                    f"{shape['threads'] // shape['group']} groups)")
+            win, err = compare_on(torch, mc_kernel, name, eng, state0, 64,
+                                  20261017, need=False)
+            windows += win
+            errs[model.name] = max(errs.get(model.name, 0.0), err)
+    return windows, errs
 
 
 def fit_row(torch, mc_kernel, fit, row, card, profiling):
@@ -604,6 +688,7 @@ def main():
     from mcsas_tpu_torch import fit, load
     from mcsas_tpu_torch.config import McSASConfig
     from mcsas_tpu_torch.core.engine import McSASEngine
+    from mcsas_tpu_torch.data import DataConfig
     from mcsas_tpu_torch.models import get_model
     from mcsas_tpu_torch.ops import mc_kernel
     from mcsas_tpu_torch.post.histogram import HistogramSpec, histogram_all
@@ -621,6 +706,7 @@ def main():
               flush=True)
     print(f"[build] {len(builds)} kernels in {build_wall:.2f} s wall",
           flush=True)
+    spills = ptxas_spills(builds["mc_chunk"].log)
 
     # ---- phase 3: kernel against the plain version, injected proposals
     cfg = headline_config(McSASConfig)
@@ -630,6 +716,7 @@ def main():
         raise AssertionError("the headline engine does not use the kernel")
     eng.gen.manual_seed(1)
     state0 = eng._init_batch()
+    k1_shape = print_k1_shape(mc_kernel, eng, state0, spills, card)
 
     def pair(props, seed=None):
         """One chunk of the kernel (injected *props*, or Philox *seed*)
@@ -902,8 +989,15 @@ def main():
 
     # ---- phase 8: K1 of the elementwise models against its plain version
     from mcsas_tpu_torch.tools.suite import ROWS
-    rows_k1 = {name: check_k1_row(torch, mc_kernel, McSASEngine, row, card)
+    rows_k1 = {name: check_k1_row(torch, mc_kernel, McSASEngine, row,
+                                  spills, card)
                for name, row in ROWS.items()}
+    ragged_windows, ragged_errs = check_k1_ragged(
+        torch, mc_kernel, McSASEngine, load, McSASConfig, DataConfig,
+        get_model, spills, card)
+    print(f"[ragged] K1 against its plain version at {len(RAGGED)} ragged "
+          f"shapes x {len(mc_kernel.K1_MODELS)} models x 2 proposal modes:"
+          f" max |chi2 kernel - plain| by model {ragged_errs}", flush=True)
 
     # ---- phase 9: the suite rows' main paths
     for name, row in ROWS.items():
@@ -912,28 +1006,45 @@ def main():
 
     # ---- phase 10: K3, the latency probe
     probe = probe_phase(torch, mc_kernel, card)
+    for m in mc_kernel.K1_MODELS:
+        by_g = {(r["level"], r["group"]): r["us_per_step"]
+                for r in probe["rungs"]
+                if r["model"] == m.name and not r["k1_shape"]}
+        print(f"[probe] {m.name}, us per step by lanes per candidate: ff "
+              + ", ".join(f"{g}: {by_g[('ff', g)]:.3f}"
+                          for g in mc_kernel.PROBE_GROUPS)
+              + "; solve "
+              + ", ".join(f"{g}: {by_g[('solve', g)]:.3f}"
+                          for g in mc_kernel.PROBE_GROUPS)
+              + f"; {card}", flush=True)
 
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
     # PyTorch call computes an MC chunk
+    # K1's ragged-shape windows are listed with each model's own
+    ragged = {m.name: [w for w in ragged_windows
+                       if w["mode"].startswith(f"{m.name} ")]
+              for m in mc_kernel.K1_MODELS}
     kernels = [{
         "name": "mc_chunk[Sphere]", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_chunk.cu",
         "replaces": "mcsas_tpu/ops/mc_kernel.py:410", "launches": launches,
-        "max_abs_err": max(err_inj, err_phx), "ms": ms_philox,
-        "plain_ms": ms_plain, "bound_ms": k1_bound_ms,
-        "bound_by": k1_bound_by, "library_ms": None,
-        "compared": [win_inj, win_phx]}]
+        "max_abs_err": max(err_inj, err_phx, ragged_errs["Sphere"]),
+        "ms": ms_philox, "plain_ms": ms_plain, "bound_ms": k1_bound_ms,
+        "bound_by": k1_bound_by, "library_ms": None, "shape": k1_shape,
+        "compared": [win_inj, win_phx] + ragged["Sphere"]}]
     for name, row in ROWS.items():
         k = rows_k1[name]
         kernels.append({
             "name": f"mc_chunk[{row.model}]", "route": "cuda",
             "source": "mcsas_tpu_torch/csrc/mc_chunk.cu",
             "replaces": "mcsas_tpu/ops/mc_kernel.py:410",
-            "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+            "launches": k["launches"],
+            "max_abs_err": max(k["max_abs_err"], ragged_errs[row.model]),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "compared": k["compared"]})
+            "library_ms": None, "shape": k["shape"],
+            "compared": k["compared"] + ragged[row.model]})
     kernels.append({
         "name": "mc_prefetch", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",

@@ -21,5 +21,14 @@ extern "C" int mc_chunk_launch(const ChunkParams* hp, void* stream) {
   const ChunkParams p = *hp;
   const int err = mc_chunk_check(p);
   if (err != (int)cudaSuccess) return err;
-  return mc_chunk_launch_level<MC_LV_FULL>(p, (cudaStream_t)stream);
+  return mc_chunk_run_level<MC_LV_FULL>(p, (cudaStream_t)stream, nullptr);
+}
+
+// The launch shape of that chunk into out[4]: lanes per candidate,
+// threads per block, registers and local memory bytes per thread.
+extern "C" int mc_chunk_shape(const ChunkParams* hp, int* out) {
+  const ChunkParams p = *hp;
+  const int err = mc_chunk_check(p);
+  if (err != (int)cudaSuccess) return err;
+  return mc_chunk_run_level<MC_LV_FULL>(p, nullptr, out);
 }

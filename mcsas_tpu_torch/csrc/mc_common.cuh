@@ -1,7 +1,8 @@
 // Device functions shared by the MC chunk kernels (mc_chunk.cu,
-// mc_prefetch.cu): the closed-form scale/background solve and the
-// best-of-K tie rule.  Rounding follows the plain PyTorch versions
-// (ops/mc_kernel.py, fitcore.solve_scale_bg): float64 arithmetic with
+// mc_prefetch.cu): the closed-form scale/background solve, the best-of-K
+// tie rule and the sum over a group of lanes.  Rounding follows the plain
+// PyTorch versions (ops/mc_kernel.py, fitcore.solve_scale_bg): float64
+// arithmetic with
 // explicit _rn intrinsics so nvcc does not contract into FMAs, results
 // rounded to float32.
 #pragma once
@@ -40,4 +41,25 @@ __device__ __forceinline__ void mc_solve_scale_bg(
 __device__ __forceinline__ bool mc_better(float c, int k, float best_c,
                                           int best_k) {
   return c < best_c || (c == best_c && k < best_k);
+}
+
+// The lanes of this thread's group: kG (a power of two <= 32) aligned
+// lanes of its warp.
+template <int kG>
+__device__ __forceinline__ unsigned mc_group_mask() {
+  if (kG == 32) return 0xffffffffu;
+  return ((1u << kG) - 1u) << ((threadIdx.x & 31) & ~(kG - 1));
+}
+
+// The float64 sum of v over the kG lanes of a group (mask: the group's
+// lanes, all of which call it), in a fixed order: a butterfly tree over
+// the lane offsets kG/2, ..., 2, 1.  For kG = 8 every lane gets
+// ((v0 + v4) + (v2 + v6)) + ((v1 + v5) + (v3 + v7)), bit for bit the same
+// in each lane, since IEEE addition is commutative.
+template <int kG>
+__device__ __forceinline__ double mc_group_sum(double v, unsigned mask) {
+#pragma unroll
+  for (int off = kG / 2; off > 0; off >>= 1)
+    v = __dadd_rn(v, __shfl_xor_sync(mask, v, off, kG));
+  return v;
 }

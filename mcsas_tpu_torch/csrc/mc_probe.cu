@@ -11,7 +11,9 @@
 //
 // What bounds it: as K1, latency; it moves the same few bytes per step.
 // A rung below FULL changes no state: it leaves one float per thread of
-// what it computed in the row scratch, so the compiler keeps its work.
+// what it computed in a sink (R, threads), so the compiler keeps its work.
+// The ff and solve rungs also run at 8, 16 and 32 lanes per candidate, to
+// compare K1's group widths.
 // Wrapper: ops/mc_kernel.py, run_probe; runner: tools/kern_probe.py.
 
 #include "mc_chunk.cuh"
@@ -24,23 +26,73 @@ extern "C" const char* mc_probe_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches one chunk cut at `level` (MC_LV_*) on `stream`; returns a
-// cudaError_t code (0: launched).  The loop and proposal rungs do not
-// evaluate the model and run as model 0.
-extern "C" int mc_probe_launch(const ChunkParams* hp, int level,
-                               void* stream) {
+// <kModel, kLevel> at group width kG: launch (out == null) or shape
+template <int kModel, int kLevel, int kG>
+static int mc_probe_one(const ChunkParams& p, cudaStream_t st, int* out) {
+  return out ? mc_chunk_shape_one<kModel, kLevel, kG>(p, out)
+             : mc_chunk_launch_one<kModel, kLevel, kG>(p, st);
+}
+
+// rung kLevel of model kModel at `group` lanes per candidate (0: K1's)
+template <int kModel, int kLevel>
+static int mc_probe_group(const ChunkParams& p, int group, cudaStream_t st,
+                          int* out) {
+  switch (group) {
+    case 0: return mc_chunk_run_model<kModel, kLevel>(p, st, out);
+    case 8: return mc_probe_one<kModel, kLevel, 8>(p, st, out);
+    case 16: return mc_probe_one<kModel, kLevel, 16>(p, st, out);
+    case 32: return mc_probe_one<kModel, kLevel, 32>(p, st, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the switch on model_id for a rung that runs at every group width
+template <int kLevel>
+static int mc_probe_level(const ChunkParams& p, int group, cudaStream_t st,
+                          int* out) {
+  switch (p.model_id) {
+    case 0: return mc_probe_group<0, kLevel>(p, group, st, out);
+    case 1: return mc_probe_group<1, kLevel>(p, group, st, out);
+    case 2: return mc_probe_group<2, kLevel>(p, group, st, out);
+    case 3: return mc_probe_group<3, kLevel>(p, group, st, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One chunk cut at `level` (MC_LV_*) with `group` lanes per candidate (0:
+// K1's own width; 8, 16 or 32 for the ff and solve rungs): launched on
+// `stream` when out is null, else its launch shape into out[4] as
+// mc_chunk_shape gives it.  The loop and proposal rungs do not evaluate
+// the model and run as model 0.
+static int mc_probe_run(const ChunkParams* hp, int level, int group,
+                        cudaStream_t st, int* out) {
   const ChunkParams p = *hp;
   const int err = mc_chunk_check(p);
   if (err != (int)cudaSuccess) return err;
-  const cudaStream_t st = (cudaStream_t)stream;
+  if (group != 0 && level != MC_LV_FF && level != MC_LV_SOLVE)
+    return (int)cudaErrorInvalidValue;
   switch (level) {
-    case MC_LV_LOOP: return mc_chunk_launch_one<0, MC_LV_LOOP>(p, st);
-    case MC_LV_RNG: return mc_chunk_launch_one<0, MC_LV_RNG>(p, st);
-    case MC_LV_FF: return mc_chunk_launch_level<MC_LV_FF>(p, st);
-    case MC_LV_SOLVE: return mc_chunk_launch_level<MC_LV_SOLVE>(p, st);
+    case MC_LV_LOOP: return mc_chunk_run_model<0, MC_LV_LOOP>(p, st, out);
+    case MC_LV_RNG: return mc_chunk_run_model<0, MC_LV_RNG>(p, st, out);
+    case MC_LV_FF: return mc_probe_level<MC_LV_FF>(p, group, st, out);
+    case MC_LV_SOLVE: return mc_probe_level<MC_LV_SOLVE>(p, group, st, out);
     case MC_LV_SOLVE_MOM:
-      return mc_chunk_launch_level<MC_LV_SOLVE_MOM>(p, st);
-    case MC_LV_FULL: return mc_chunk_launch_level<MC_LV_FULL>(p, st);
+      return mc_chunk_run_level<MC_LV_SOLVE_MOM>(p, st, out);
+    case MC_LV_FULL: return mc_chunk_run_level<MC_LV_FULL>(p, st, out);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Launches one chunk cut at `level` on `stream`; returns a cudaError_t
+// code (0: launched).
+extern "C" int mc_probe_launch(const ChunkParams* hp, int level, int group,
+                               void* stream) {
+  return mc_probe_run(hp, level, group, (cudaStream_t)stream, nullptr);
+}
+
+// That chunk's launch shape into out[4]: lanes per candidate, threads per
+// block, registers and local memory bytes per thread.
+extern "C" int mc_probe_shape(const ChunkParams* hp, int level, int group,
+                              int* out) {
+  return mc_probe_run(hp, level, group, nullptr, out);
 }

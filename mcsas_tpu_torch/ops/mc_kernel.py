@@ -18,9 +18,11 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   version :func:`prefetch_reference`, kernel ``csrc/mc_prefetch.cu``,
   wrapper :func:`run_prefetch_chunk`.
 * K3, the latency probe (``tools/kern_probe.py::build``): K1's step cut
-  short at a rung (:data:`PROBE_LEVELS`), ``csrc/mc_probe.cu``, wrapper
-  :func:`run_probe`, runner ``tools/kern_probe.py``.  No PyTorch function
-  computes a cut step: its ``full`` rung is K1 and is held against it.
+  short at a rung (:data:`PROBE_LEVELS`), its ``ff`` and ``solve`` rungs
+  also at each group width of :data:`PROBE_GROUPS`, ``csrc/mc_probe.cu``,
+  wrapper :func:`run_probe`, runner ``tools/kern_probe.py``.  No PyTorch
+  function computes a cut step: its ``full`` rung is K1 and is held
+  against it.
 
 Both plain versions are batched over (R, K, Nq) in the operation order of
 the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
@@ -72,6 +74,8 @@ MAX_MODEL_P = 8                # parameters of a K1 model, fixed included
 K1_MODELS = (Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell)
 # K3's rungs, in the order of MC_LV_* in csrc/mc_chunk.cuh
 PROBE_LEVELS = ("loop", "rng", "ff", "solve", "solve_mom", "full")
+# lanes per candidate K3's ff and solve rungs run at besides K1's own
+PROBE_GROUPS = (8, 16, 32)
 # HBM cap for one prefetch segment's staged candidate rows (the JAX
 # package's _PREFETCH_HBM_BUDGET)
 PREFETCH_ROW_BYTES = 64 * 2 ** 20
@@ -406,7 +410,7 @@ class _ChunkParams(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "q", "y", "u", "rset", "ibank", "ft", "scale", "background",
-            "conval", "n_iter", "n_moves", "rows", "proposals", "trace")]
+            "conval", "n_iter", "n_moves", "sink", "proposals", "trace")]
         + [(name, ctypes.c_double) for name in ("s_u", "s_uy", "comp2")]
         + [("pfix", ctypes.c_double * MAX_MODEL_P),
            ("lo", ctypes.c_float * MAX_P), ("hi", ctypes.c_float * MAX_P)]
@@ -438,9 +442,9 @@ class _PrefetchParams(ctypes.Structure):
 
 _PARAMS = {"mc_chunk": _ChunkParams, "mc_prefetch": _PrefetchParams,
            "mc_probe": _ChunkParams}
-# the arguments of <name>_launch after the parameter struct and before
-# the stream
-_LAUNCH_EXTRA = {"mc_probe": [ctypes.c_int]}
+# the arguments of <name>_launch and <name>_shape after the parameter
+# struct: K3's rung and group width
+_LAUNCH_EXTRA = {"mc_probe": [ctypes.c_int, ctypes.c_int]}
 
 
 @dataclass(frozen=True)
@@ -523,6 +527,12 @@ def _library(name: str):
         launch.argtypes = ([ctypes.c_void_p] + _LAUNCH_EXTRA.get(name, [])
                            + [ctypes.c_void_p])
         launch.restype = ctypes.c_int
+        if hasattr(lib, f"{name}_shape"):
+            shape = getattr(lib, f"{name}_shape")
+            shape.argtypes = ([ctypes.c_void_p]
+                              + _LAUNCH_EXTRA.get(name, [])
+                              + [ctypes.POINTER(ctypes.c_int)])
+            shape.restype = ctypes.c_int
         size_fn = getattr(lib, f"{name}_params_size")
         size_fn.argtypes = []
         size_fn.restype = ctypes.c_int
@@ -538,16 +548,29 @@ def _library(name: str):
     return lib
 
 
+def _raise_on(lib, name: str, what: str, rc: int):
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} {what} failed: CUDA error {rc} ({msg})")
+
+
 def _launch(name: str, prm, device: torch.device, *extra):
     """Launches kernel *name* with *prm* (and the ints *extra*) on the
     current stream of *device*; raises on a refused launch."""
     lib = _library(name)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"{name}_launch")(ctypes.byref(prm), *extra,
-                                        ctypes.c_void_p(stream))
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    _raise_on(lib, name, "launch", getattr(lib, f"{name}_launch")(
+        ctypes.byref(prm), *extra, ctypes.c_void_p(stream)))
+
+
+def _shape(name: str, prm, *extra) -> dict:
+    """The launch shape of K1 (*name* ``mc_chunk``) or of a K3 rung
+    (``mc_probe``, *extra* its level and group width) for *prm*."""
+    lib = _library(name)
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib, name, "shape query", getattr(lib, f"{name}_shape")(
+        ctypes.byref(prm), *extra, out))
+    return dict(zip(("group", "threads", "registers", "local_bytes"), out))
 
 
 def _device_index(dev: torch.device) -> int:
@@ -595,8 +618,8 @@ def _check(state, consts: FitConstants, spec: ChunkSpec, proposals,
 
 
 def _chunk_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
-                  proposals, seed, n_steps: int, rows: torch.Tensor,
-                  choice) -> _ChunkParams:
+                  proposals, seed, n_steps: int, sink=None,
+                  choice=None) -> _ChunkParams:
     """The kernel's parameter struct for one chunk (K1 and K3)."""
     r, n, p = state.rset.shape
     pfix, pcol, sw = spec.model_layout
@@ -608,7 +631,8 @@ def _chunk_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
         scale=state.scale.data_ptr(),
         background=state.background.data_ptr(),
         conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
-        n_moves=state.n_moves.data_ptr(), rows=rows.data_ptr(),
+        n_moves=state.n_moves.data_ptr(),
+        sink=(sink.data_ptr() if sink is not None else None),
         proposals=(proposals.data_ptr() if proposals is not None else None),
         trace=(choice.data_ptr() if choice is not None else None),
         s_u=consts.s_u, s_uy=consts.s_uy, comp2=kern.comp2,
@@ -669,12 +693,10 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
     if dev.type != "cuda":
         raise ValueError(f"no chunk implementation for device {dev}")
     r, n, _ = state.rset.shape
-    rows = torch.empty((r, consts.n, spec.k_cand), dtype=torch.float32,
-                       device=dev)
     choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
               if trace is not None else None)
     prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
-                        rows, choice)
+                        choice=choice)
     _launch("mc_chunk", prm, dev)
     run_chunk.launches += 1
     name = spec.model.name
@@ -689,20 +711,46 @@ run_chunk.launches = 0
 run_chunk.model_launches = {}
 
 
+def _check_probe(level: str, group: int):
+    if level not in PROBE_LEVELS:
+        raise ValueError(f"unknown probe level {level!r}; one of "
+                         f"{PROBE_LEVELS}")
+    if group and (group not in PROBE_GROUPS or level not in ("ff",
+                                                             "solve")):
+        raise ValueError(f"group width {group}: the ff and solve rungs "
+                         f"run at {PROBE_GROUPS} lanes, every rung at 0 "
+                         f"(K1's own)")
+
+
+def launch_shape(state, consts: FitConstants, spec: ChunkSpec,
+                 level: str = "full", group: int = 0) -> dict:
+    """The launch shape of K1 (``level="full"``, ``group=0``) or of a K3
+    rung for this chunk on the state's CUDA device: ``group`` (lanes per
+    candidate), ``threads`` per block, ``registers`` and ``local_bytes``
+    (local memory, spills included) per thread of the instantiation that
+    runs."""
+    _check_probe(level, group)
+    prm = _chunk_params(state, 0, consts, spec, None, 0, 0)
+    if level == "full" and not group:
+        return _shape("mc_chunk", prm)
+    return _shape("mc_probe", prm, PROBE_LEVELS.index(level), group)
+
+
 def run_probe(state, ri: int, consts: FitConstants, spec: ChunkSpec,
               level: str, proposals: Optional[torch.Tensor] = None,
-              seed: Optional[int] = None, n_steps: Optional[int] = None):
+              seed: Optional[int] = None, n_steps: Optional[int] = None,
+              group: int = 0):
     """Runs one chunk of K1 cut at the rung *level* (:data:`PROBE_LEVELS`)
     on the state's device; returns ``(state, cursor, sink)``, *sink* the
     (R, threads) floats a rung below ``full`` leaves behind (None for
     ``full``).  Only ``full`` changes the state, as :func:`run_chunk`
-    does.  Arguments as for :func:`run_chunk`; CUDA tensors launch K3
-    (counted in ``run_probe.launches``).  On CPU tensors ``full`` runs
+    does.  *group*: lanes per candidate, 0 for K1's own, one of
+    :data:`PROBE_GROUPS` for the ``ff`` and ``solve`` rungs.  Other
+    arguments as for :func:`run_chunk`; CUDA tensors launch K3 (counted
+    in ``run_probe.launches``).  On CPU tensors ``full`` runs
     :func:`chunk_reference`; a shorter rung has no plain version and
     raises."""
-    if level not in PROBE_LEVELS:
-        raise ValueError(f"unknown probe level {level!r}; one of "
-                         f"{PROBE_LEVELS}")
+    _check_probe(level, group)
     n_steps = _chunk_steps(state, consts, spec, proposals, seed, n_steps)
     dev = state.rset.device
     if dev.type == "cpu":
@@ -714,14 +762,14 @@ def run_probe(state, ri: int, consts: FitConstants, spec: ChunkSpec,
     if dev.type != "cuda":
         raise ValueError(f"no probe implementation for device {dev}")
     r, n, _ = state.rset.shape
-    rows = torch.empty((r, consts.n, spec.k_cand), dtype=torch.float32,
-                       device=dev)
+    sink = None
+    if level != "full":
+        threads = launch_shape(state, consts, spec, level, group)["threads"]
+        sink = torch.empty((r, threads), dtype=torch.float32, device=dev)
     prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
-                        rows, None)
-    _launch("mc_probe", prm, dev, PROBE_LEVELS.index(level))
+                        sink=sink)
+    _launch("mc_probe", prm, dev, PROBE_LEVELS.index(level), group)
     run_probe.launches += 1
-    threads = min(-(-spec.k_cand // 32) * 32, 256, consts.n * spec.k_cand)
-    sink = None if level == "full" else rows.reshape(r, -1)[:, :threads]
     return state, (ri + n_steps) % n, sink
 
 

@@ -7,7 +7,7 @@ probe kernel K3 (csrc/mc_probe.cu):
 
   loop       cursor, activity check, ft − bank[ri], barriers
   rng        + the K proposals (Philox, or read injected) and local moves
-  ff         + the K candidate rows over q into the row scratch
+  ff         + the K candidate rows over q, into registers
   solve      + float64 sums, closed-form solve, residual pass, best-of-K
   solve_mom  solve with χ² from the moments already summed instead of
              the residual pass: that idea's ceiling, never production
@@ -16,8 +16,11 @@ probe kernel K3 (csrc/mc_probe.cu):
 For each model with a K1 device function, on the data of its suite row
 (Sphere: the headline dataset) at the headline shape R=10, N=300, K=128,
 local moves 0.5, each rung times LAUNCHES launches of CHUNK steps from
-one state with CUDA events and prints one JSON line
-``{"level", "model", "us_per_step", "ms_per_launch"}``.  Needs a card:
+one state with CUDA events, at K1's own group width and, for the ff and
+solve rungs, at every width of ``mc_kernel.PROBE_GROUPS`` too, and
+prints one JSON line ``{"level", "model", "group", "threads",
+"k1_shape", "us_per_step", "ms_per_launch"}`` (``k1_shape``: the rung
+runs at K1's own group width).  Needs a card:
 
     python -m mcsas_tpu_torch.tools.kern_probe [--steps N] [--launches N]
 """
@@ -63,18 +66,19 @@ def probe_engine(model_name: str, device="cuda") -> McSASEngine:
 
 
 def time_rung(eng: McSASEngine, state0, level: str, steps: int,
-              launches: int) -> float:
-    """Mean ms of one *steps*-step launch of rung *level* (Philox mode)
-    from *state0*, over *launches* launches after one warm-up, with CUDA
-    events around all of them; the state is restored on the device
-    before every launch (a ~1 MB copy)."""
+              launches: int, group: int = 0) -> float:
+    """Mean ms of one *steps*-step launch of rung *level* at *group*
+    lanes per candidate (0: K1's own; Philox mode) from *state0*, over
+    *launches* launches after one warm-up, with CUDA events around all of
+    them; the state is restored on the device before every launch (a
+    ~1 MB copy)."""
     work = state0.clone()
     sinks = []
 
     def launch(i):
         sinks.append(mc_kernel.run_probe(work.copy_(state0), 0, eng.consts,
                                          eng.spec, level, seed=SEED + i,
-                                         n_steps=steps)[2])
+                                         n_steps=steps, group=group)[2])
 
     launch(0)
     torch.cuda.synchronize()
@@ -91,9 +95,10 @@ def time_rung(eng: McSASEngine, state0, level: str, steps: int,
 
 
 def run(models=None, steps: int = CHUNK, launches: int = LAUNCHES,
-        levels=mc_kernel.PROBE_LEVELS):
-    """Probes each model's K1 at every rung; returns the result dicts
-    (one per rung and model) and prints each as a JSON line."""
+        levels=mc_kernel.PROBE_LEVELS, groups=mc_kernel.PROBE_GROUPS):
+    """Probes each model's K1 at every rung, the ff and solve rungs also
+    at each width of *groups*; returns the result dicts (one per rung,
+    width and model) and prints each as a JSON line."""
     if not torch.cuda.is_available():
         raise RuntimeError("the probe measures the CUDA kernel: "
                            "torch.cuda.is_available() is False")
@@ -103,11 +108,17 @@ def run(models=None, steps: int = CHUNK, launches: int = LAUNCHES,
         eng.gen.manual_seed(1)
         state0 = eng._init_batch()
         for level in levels:
-            ms = time_rung(eng, state0, level, steps, launches)
-            rec = {"level": level, "model": name,
-                   "us_per_step": ms * 1e3 / steps, "ms_per_launch": ms}
-            print(json.dumps(rec), flush=True)
-            out.append(rec)
+            widths = (0, *groups) if level in ("ff", "solve") else (0,)
+            for group in widths:
+                ms = time_rung(eng, state0, level, steps, launches, group)
+                shape = mc_kernel.launch_shape(state0, eng.consts, eng.spec,
+                                               level, group)
+                rec = {"level": level, "model": name,
+                       "group": shape["group"], "threads": shape["threads"],
+                       "k1_shape": group == 0,
+                       "us_per_step": ms * 1e3 / steps, "ms_per_launch": ms}
+                print(json.dumps(rec), flush=True)
+                out.append(rec)
     return out
 
 

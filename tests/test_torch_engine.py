@@ -352,6 +352,32 @@ def test_run_chunk_checks_its_arguments(sphere_path):
         mc_kernel.model_id(object())
 
 
+def test_run_probe_checks_its_rung_and_group_width(sphere_path):
+    """K3's full rung on CPU tensors is the plain chunk; a group width
+    other than K1's own runs only the ff and solve rungs, at 8, 16 or 32
+    lanes; the checks come before any kernel is built."""
+    _, te = _engines(sphere_path, candidates_per_step=4)
+    state = te._init_batch()
+    props = te._draw_chunk_proposals(n_steps=5)
+    a, ri, sink = mc_kernel.run_probe(state.clone(), 2, te.consts, te.spec,
+                                      "full", proposals=props)
+    b, _ = mc_kernel.chunk_reference(state.clone(), 2, te.consts, te.spec,
+                                     props)
+    assert ri == 7 and sink is None
+    for k, v in state_to_numpy(a).items():
+        np.testing.assert_array_equal(v, getattr(b, k).numpy())
+    for level, group in (("full", 8), ("rng", 16), ("ff", 4), ("solve", 64),
+                         ("writes", 0)):
+        with pytest.raises(ValueError, match="group width|probe level"):
+            mc_kernel.run_probe(state.clone(), 0, te.consts, te.spec, level,
+                                proposals=props, group=group)
+        with pytest.raises(ValueError, match="group width|probe level"):
+            mc_kernel.launch_shape(state, te.consts, te.spec, level, group)
+    with pytest.raises(ValueError, match="measures the CUDA kernel"):
+        mc_kernel.run_probe(state.clone(), 0, te.consts, te.spec, "ff",
+                            proposals=props, group=8)
+
+
 def test_philox_matches_known_answers():
     # Random123's published known-answer vectors for Philox4x32-10
     cases = [((0, 0, 0, 0), (0, 0),
