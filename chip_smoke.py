@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits nonzero):
      csrc/mc_probe.cu (K3) with nvcc for sm_90a, one nvcc each, started
      together (timed; ptxas registers and spills printed); K1's launch
      shape for each model (lanes per candidate, threads per block,
-     registers, spills) is printed where its engine is first built;
+     registers, spills) is printed where its engine is first built, K2's
+     (with its row source and shared memory) in phase 6;
   3. K1 vs plain version: one 256-step chunk at the headline shape
      (R=10, N=300, K=128, local moves 0.5) on injected proposals — the
      accept decisions must be identical, or first differ at a near-tie
@@ -26,17 +27,23 @@ Phases (any failure raises and the script exits nonzero):
      converged, max χ² ≤ 1, the kernel's launch counter above 0, and the
      result held to the reference McSAS fixture of that dataset; the warm
      wall time of five fits;
-  6. K2 vs plain version: the cylinder suite row of bench.py (the
+  6. K2 vs its plain versions, both entries (rows in: the candidates'
+     rows evaluated before the launch; table in: the row blend inside the
+     kernel, the fit path): the cylinder suite row of bench.py (the
      synthetic cylinder golden, CylindersIsotropic on its 4096-row
      parameter table, R=10, N=300, K=128, Nq=100): one 131-step segment
      from a state initialized on the card, without and with local moves
-     0.5 — decisions identical or first differing at a near-tie, ft =
-     Σ bank, χ² within 1e-5 relative; the table bake, K2 and the plain
-     version timed;
+     0.5 — every decision identical and every bit of the state equal
+     afterwards (the bank holds the rows the kernel blended); then both
+     entries at the ragged shapes K2_RAGGED (K1's, and a table of two
+     axes), 64 steps each, both proposal modes; the table bake, both
+     entries and their plain versions timed;
   7. the cylinder main path: ``fit()`` of that row on device="cuda" —
-     10/10 converged, max χ² ≤ 1, K2's launch counter above 0 and K1's
-     at 0, two runs of one seed equal, the vol-weighted mean radius
-     within 10 % of the golden 10 nm; the warm wall time of five fits;
+     10/10 converged, max χ² ≤ 1, K2's table entry launched, its rows
+     entry and K1 not, two runs of one seed equal, the vol-weighted mean
+     radius within 10 % of the golden 10 nm; one engine run allocates
+     less than a segment's (S, R, K, Nq) rows would take (the table entry
+     stages none); the warm wall time of five fits;
   8. K1 of LMADenseSphere, GaussianChain and SphericalCoreShell against
      its plain version at each suite row's shape (mcsas_tpu_torch/tools/
      suite.py): 256 steps with the row's active set and 64 with a second
@@ -54,14 +61,16 @@ Phases (any failure raises and the script exits nonzero):
      generated the data within 10 % of its value; total_iters,
      proposals/s, the median warm wall of 3 fits;
  10. K3, the latency probe: its full rung bit for bit against K1 for
-     every model, then every rung of every model (tools/kern_probe.py),
-     the ff and solve rungs also at 8, 16 and 32 lanes per candidate,
-     one line each.
+     every model and against both entries of K2, then every rung of
+     every model (tools/kern_probe.py), the ff and solve rungs also at
+     8, 16 and 32 lanes per candidate, and K2's rungs (loop, rows, solve,
+     full) of both entries, one line each.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
-idle share, times K2 on shorter segments and the row lookup beside it,
-and splits three cylinder fits into set-up, MC run and post pass.
+idle share, times both entries of K2 on shorter segments, the table
+entry against the row lookup followed by the rows entry, and splits
+three cylinder fits into set-up, MC run and post pass.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -89,38 +98,13 @@ def headline_config(mcsas_config):
                         local_moves=0.5)
 
 
-def cylinder_config(mcsas_config):
-    """bench.py's suite row 'cylinders-isotropic' (bench.py:162-164,
-    213-222); table_ff 'auto' resolves to on at this budget."""
-    return mcsas_config(num_contribs=300, num_reps=10,
-                        max_iterations=8_000_000, chunk_steps=1024,
-                        candidates_per_step=128, seed=2026, max_retries=1,
-                        convergence_criterion=1.0, local_moves=0.0,
-                        show_incomplete=True)
-
-
-def cylinder_bound(get_model):
-    return get_model("CylindersIsotropic").bind(
-        active=("radius",), active_ranges={"radius": (0.5e-9, 300e-9)})
-
-
 def cylinder_golden():
-    """bench.synth_golden("cylinder") built with the port's float64
-    functions: q = geomspace(0.01, 2, 100) nm⁻¹, I = ff² of the converged
-    n=801 orientation rule at R = 10 nm, aspect 10, normalized to max 1,
-    σ = 0.01·I, no rebinning."""
-    import torch
-    from mcsas_tpu_torch.data import DataConfig, from_raw
-    from mcsas_tpu_torch.models.cylinders import _cyl_iso_ff_ab
-    q_nm = np.geomspace(0.01, 2.0, 100)
-    q = torch.as_tensor(q_nm * 1e9, dtype=torch.float64)
-    r, asp = GOLDEN_RADIUS, 10.0
-    ff = _cyl_iso_ff_ab(q * r, q * (2.0 * r * asp), 801,
-                        torch.float64).numpy()
-    i = ff ** 2
-    i = i / i.max()
-    return from_raw(np.column_stack([q_nm, i, 0.01 * i]),
-                    title="synthetic-cylinder", config=DataConfig(n_bin=0))
+    """The synthetic cylinder golden of bench.py's suite row
+    'cylinders-isotropic' (mcsas_tpu_torch/tools/suite.py)."""
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from mcsas_tpu_torch.tools import suite
+    return suite.cylinder_golden()
 
 
 def card_line():
@@ -375,6 +359,7 @@ def reset_counts(mc_kernel):
     mc_kernel.run_chunk.launches = 0
     mc_kernel.run_chunk.model_launches = {}
     mc_kernel.run_prefetch_chunk.launches = 0
+    mc_kernel.run_prefetch_table_chunk.launches = 0
     mc_kernel.run_probe.launches = 0
 
 
@@ -404,15 +389,126 @@ def k1_bound(eng, state0, state1, injected=None):
     return bound_ms(n_bytes, ops)
 
 
-def k2_bound(eng, state0, state1, rows, cands):
-    """bound_ms of the K2 segment that took *state0* to *state1*: rows,
-    candidates, y/u and the state read once, the state written once; the
-    solves of the steps each repetition ran."""
+def k2_bound(eng, state0, state1, cands, rows=None, sw=None):
+    """bound_ms of the K2 segment that took *state0* to *state1*: the
+    candidates, y/u and the state read once, the state written once, and
+    rows in: the rows read once, the solves of the steps each repetition
+    ran; table in: the table and *sw* read once, and per candidate and q
+    point the blend besides the solve (a multiply-add per corner of the
+    table's 2^A, the amplitude factor, the square and the clamp) — the
+    same work whatever implements it."""
     k, nq = eng.spec.k_cand, eng.consts.n
     steps = int((state1.n_iter - state0.n_iter).sum()) // k
-    n_bytes = (2 * _state_bytes(state0) + 2 * nq * 4
-               + (rows.numel() + cands.numel()) * 4)
-    return bound_ms(n_bytes, steps * k * nq * SOLVE_OPS)
+    n_bytes = 2 * _state_bytes(state0) + 2 * nq * 4 + cands.numel() * 4
+    ops = SOLVE_OPS
+    if rows is not None:
+        n_bytes += rows.numel() * 4
+    else:
+        n_bytes += (eng.kern.table.values.numel() + sw.numel()) * 4
+        ops += 2 ** len(eng.spec.table_layout) + 3
+    return bound_ms(n_bytes, steps * k * nq * ops)
+
+
+# K2's ragged shapes: K1's (K = 200 at 200 bins is also more than two
+# staged blocks of rows may take of the shared memory, so its rows are
+# read from global memory, and its corner rows from the table), and a
+# table of two axes (radius and aspect active)
+K2_RAGGED = dict(RAGGED, **{"r3-k48-bins100-2axes": (3, 48, 100, 64)})
+
+
+def states_equal(torch, name, a, b):
+    """Every field of two states equal bit for bit, or raises."""
+    for f in STATE_FIELDS:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"[{name}] the kernel's {f} differs from "
+                                 "the plain version's")
+
+
+def k2_entries(mc_kernel, eng, cands):
+    """{entry: (kernel(state, ri, n, trace), plain(state, ri, n, trace))}
+    of K2's two entries over the first n steps of *cands*: 'rows' on the
+    rows the engine's lookup gives, 'table' on the table and sqrt(w)."""
+    rows = eng.kern.row(cands)
+    sw = mc_kernel.sqrt_weights(eng.spec, cands)
+    c, sp = eng.consts, eng.spec
+    return rows, sw, {
+        "rows": (
+            lambda st, ri, n, tr=None: mc_kernel.run_prefetch_chunk(
+                st, ri, c, sp, rows[:n], cands[:n], trace=tr),
+            lambda st, ri, n, tr=None: mc_kernel.prefetch_reference(
+                st, ri, c, sp, rows[:n], cands[:n], trace=tr)),
+        "table": (
+            lambda st, ri, n, tr=None: mc_kernel.run_prefetch_table_chunk(
+                st, ri, c, sp, cands[:n], sw[:n], trace=tr),
+            lambda st, ri, n, tr=None: mc_kernel.prefetch_table_reference(
+                st, ri, c, sp, cands[:n], trace=tr))}
+
+
+def check_k2(torch, mc_kernel, name, eng, state0, cands, need=True):
+    """Both entries of K2 against their plain versions over the segment
+    *cands* from *state0*: every decision identical (check_pair), then
+    every bit of the state.  Returns (rows, sw, entries, windows, errs)."""
+    rows, sw, entries = k2_entries(mc_kernel, eng, cands)
+    steps = int(cands.shape[0])
+    windows, errs = [], []
+    for entry, (kernel, plain) in entries.items():
+        def pair(n, kernel=kernel, plain=plain):
+            ks, kt, ts, tt = state0.clone(), {}, state0.clone(), {}
+            kernel(ks, 0, n, kt)
+            plain(ts, 0, n, tt)
+            torch.cuda.synchronize()
+            if n == steps and torch.equal(kt["choice"], tt["choice"]):
+                states_equal(torch, f"{name} {entry} in", ks, ts)
+            return ks, kt, ts, tt
+
+        win, err, ks, _ = check_pair(f"{name} {entry} in", mc_kernel, pair,
+                                     steps, state0, eng.cfg.num_reps)
+        if need and not (ks.n_moves > 0).all():
+            raise AssertionError(f"[{name} {entry} in] a repetition "
+                                 "accepted nothing")
+        windows.append(dict(win, entry=entry))
+        errs.append(err)
+    return rows, sw, entries, windows, errs
+
+
+def check_k2_ragged(torch, mc_kernel, engine_cls, load, data_config,
+                    get_model, cyl_cfg, card):
+    """Both entries of K2 against their plain versions at the K2_RAGGED
+    shapes, 64 steps each (with local moves at most N, a segment visiting
+    each slot once), without and with local moves: the cylinder model on
+    the headline data rebinned to the shape's bins, its table baked at
+    that grid.  Returns the compared windows and the largest |delta
+    chi2|."""
+    windows, worst = [], 0.0
+    for label, (reps, k, n_bin, n) in K2_RAGGED.items():
+        two = label.endswith("2axes")
+        bound = get_model("CylindersIsotropic").bind(
+            active=("radius", "aspect") if two else ("radius",),
+            active_ranges=dict({"radius": (1e-10, 5e-8)},
+                               **({"aspect": (1.0, 30.0)} if two else {})))
+        data = load(DATA, config=data_config(n_bin=n_bin))
+        for local in (0.0, 0.5):
+            eng = engine_cls(data, bound, cyl_cfg.replace(
+                num_contribs=n, num_reps=reps, candidates_per_step=k,
+                local_moves=local), device="cuda")
+            eng.gen.manual_seed(5)
+            state0 = eng._init_batch()
+            steps = min(64, n) if local else 64
+            cands = mc_kernel.segment_candidates(
+                state0, 0, eng.spec, eng._draw_chunk_proposals(steps))
+            rows, _, _, win, errs = check_k2(
+                torch, mc_kernel, f"K2 {label} local_moves={local}", eng,
+                state0, cands, need=False)
+            windows += win
+            worst = max(worst, *errs)
+        for r_ in (rows, None):
+            shape = mc_kernel.prefetch_launch_shape(
+                state0, eng.consts, eng.spec, cands, r_)
+            print(f"[shape] K2 {'rows' if r_ is not None else 'table'} in "
+                  f"at {label} (K={k} Nq={eng.consts.n}, "
+                  f"{len(eng.spec.table_layout)} table axes): {shape}; "
+                  f"{card}", flush=True)
+    return windows, worst
 
 
 def compare_on(torch, mc_kernel, name, eng, state0, steps, seed,
@@ -615,11 +711,12 @@ def fit_row(torch, mc_kernel, fit, row, card, profiling):
 
 def probe_phase(torch, mc_kernel, card):
     """K3: its full rung bit for bit against K1 on the same injected
-    proposals, for each model (256 steps at the headline shape); then
-    every rung of every model through the probe's runner, 2048 steps per
-    launch, its launches counted over that run; and the plain version of
-    the Sphere full rung timed on the same 2048 steps.  Returns the
-    kernel line's numbers."""
+    proposals, for each model (256 steps at the headline shape), and
+    against both entries of K2 (one 131-step segment of the cylinder
+    row); then every rung of every model and of K2's two entries through
+    the probe's runner, its launches counted over that run; and the plain
+    version of the Sphere full rung timed on the same 2048 steps.
+    Returns the kernel line's numbers."""
     from mcsas_tpu_torch.tools import kern_probe
     err = 0.0
     for m in mc_kernel.K1_MODELS:
@@ -642,9 +739,33 @@ def probe_phase(torch, mc_kernel, card):
     print(f"[probe] full rung equal to K1 bit for bit in every state field "
           f"over 256 injected steps, all {len(mc_kernel.K1_MODELS)} models",
           flush=True)
+    from mcsas_tpu_torch.tools import suite
+    from mcsas_tpu_torch.core.engine import McSASEngine
+    eng = McSASEngine(suite.cylinder_golden(), suite.cylinder_bound(),
+                      suite.cylinder_config(local_moves=0.5), device="cuda")
+    eng.gen.manual_seed(4)
+    state0 = eng._init_batch()
+    cands = mc_kernel.segment_candidates(
+        state0, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    rows, sw, entries = k2_entries(mc_kernel, eng, cands)
+    for entry, (kernel, _) in entries.items():
+        a, b = state0.clone(), state0.clone()
+        kernel(a, 0, eng.seg_steps)
+        mc_kernel.run_prefetch_probe(
+            b, 0, eng.consts, eng.spec, "full", cands,
+            rows if entry == "rows" else None,
+            sw if entry == "table" else None)
+        torch.cuda.synchronize()
+        states_equal(torch, f"probe, K2 {entry} in, full rung", a, b)
+        if not (a.n_moves > 0).all():
+            raise AssertionError(f"[probe] K2 {entry} in accepted nothing")
+    del rows, entries
+    print(f"[probe] full rung equal to K2 bit for bit in every state field "
+          f"over one {eng.seg_steps}-step segment, both entries",
+          flush=True)
     print(f"[probe] the rungs, one JSON line each, on {card}:", flush=True)
     reset_counts(mc_kernel)
-    recs = kern_probe.run(launches=3)
+    recs = kern_probe.run(launches=3) + kern_probe.run_prefetch(launches=3)
     launches = mc_kernel.run_probe.launches
     if launches != len(recs) * 4:
         raise AssertionError(f"[probe] {launches} launches for "
@@ -846,11 +967,12 @@ def main():
         profile_fit(torch, lambda: fit(DATA, "Sphere", cfg, device="cuda"),
                     card, "Sphere", "mc_chunk")
 
-    # ---- phase 6: K2 against its plain version, full-width segments
+    # ---- phase 6: both entries of K2 against their plain versions
     from mcsas_tpu_torch.ops import tables
-    golden = cylinder_golden()
-    cyl_cfg = cylinder_config(McSASConfig)
-    cyl_bound = cylinder_bound(get_model)
+    from mcsas_tpu_torch.tools import suite
+    golden = suite.cylinder_golden()
+    cyl_cfg = suite.cylinder_config()
+    cyl_bound = suite.cylinder_bound()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, table = cyl_bound.model.ff_table_factory(
@@ -863,7 +985,8 @@ def main():
     if table.values.shape != (4096, golden.count):
         raise AssertionError(f"table shape {tuple(table.values.shape)}")
     tables_memo = len(tables._TABLE_CACHE)
-    k2_windows, k2_errs, k2_ms, k2_plain_ms, k2_bounds = [], [], [], [], []
+    k2_windows, k2_errs = [], []
+    k2 = {}     # entry -> the kernel line's numbers, without local moves
     for local in (0.0, 0.5):
         ceng = McSASEngine(golden, cyl_bound,
                            cyl_cfg.replace(local_moves=local),
@@ -879,58 +1002,62 @@ def main():
         cstate0 = ceng._init_batch()
         cands = mc_kernel.segment_candidates(
             cstate0, 0, ceng.spec, ceng._draw_chunk_proposals(131))
-        rows = ceng.kern.row(cands)
-
-        def k2_pair(n, ceng=ceng, cstate0=cstate0, cands=cands, rows=rows):
-            ks, kt = cstate0.clone(), {}
-            mc_kernel.run_prefetch_chunk(ks, 0, ceng.consts, ceng.spec,
-                                         rows[:n], cands[:n], trace=kt)
-            ts, tt = cstate0.clone(), {}
-            mc_kernel.prefetch_reference(ts, 0, ceng.consts, ceng.spec,
-                                         rows[:n], cands[:n], trace=tt)
-            torch.cuda.synchronize()
-            return ks, kt, ts, tt
-
         name = f"K2 local_moves={local}"
-        win, err, ks, _ = check_pair(name, mc_kernel, k2_pair, 131,
-                                     cstate0, cyl_cfg.num_reps)
-        if not (ks.n_moves > 0).all():
-            raise AssertionError(f"[{name}] a repetition accepted nothing")
-        k2_windows.append(win)
-        k2_errs.append(err)
+        rows, sw, entries, win, errs = check_k2(torch, mc_kernel, name,
+                                                ceng, cstate0, cands)
+        k2_windows += win
+        k2_errs += errs
         cwork = cstate0.clone()
-
-        def k2(ceng=ceng, cwork=cwork, cstate0=cstate0, cands=cands,
-               rows=rows):
-            mc_kernel.run_prefetch_chunk(cwork.copy_(cstate0), 0,
-                                         ceng.consts, ceng.spec, rows, cands)
-
-        def k2_plain(ceng=ceng, cwork=cwork, cstate0=cstate0, cands=cands,
-                     rows=rows):
-            mc_kernel.prefetch_reference(cwork.copy_(cstate0), 0,
-                                         ceng.consts, ceng.spec, rows, cands)
-
-        k2_ms.append(time_chunk(torch, k2, 10))
-        k2_bounds.append(k2_bound(ceng, cstate0, cwork, rows, cands))
-        k2_plain_ms.append(time_chunk(torch, k2_plain, 2))
-        print(f"[time] {name}: 131-step segment at R=10 N=300 K=128 "
-              f"Nq={golden.count} (reset copy included), {card}: kernel "
-              f"{k2_ms[-1]:.3f} ms, plain PyTorch {k2_plain_ms[-1]:.3f} ms",
-              flush=True)
+        for entry, (kernel, plain) in entries.items():
+            ms = time_chunk(torch, lambda: kernel(cwork.copy_(cstate0), 0,
+                                                  131), 10)
+            b_ms, b_by = k2_bound(ceng, cstate0, cwork, cands,
+                                  rows if entry == "rows" else None, sw)
+            plain_ms = time_chunk(torch, lambda: plain(
+                cwork.copy_(cstate0), 0, 131), 2)
+            shape = mc_kernel.prefetch_launch_shape(
+                cstate0, ceng.consts, ceng.spec, cands,
+                rows if entry == "rows" else None)
+            print(f"[time] {name} {entry} in: 131-step segment at R=10 "
+                  f"N=300 K=128 Nq={golden.count} (reset copy included), "
+                  f"{card}: kernel {ms:.3f} ms ({ms * 1e3 / 131:.2f} us "
+                  f"per step), plain PyTorch {plain_ms:.3f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_by}); shape {shape}", flush=True)
+            if not local:
+                k2[entry] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, shape=shape)
         if profiling and not local:
             # shorter segments split K2's time into a per-launch part
             # (launch, ft rebuild, reset copy) and a per-step part
-            for n in (8, 32):
-                ms = time_chunk(torch, lambda n=n: k2(rows=rows[:n],
-                                                       cands=cands[:n]), 10)
-                print(f"[profile] {name}: {n}-step segment {ms:.4f} ms",
-                      flush=True)
+            for entry, (kernel, _) in entries.items():
+                for n in (8, 32):
+                    ms = time_chunk(torch, lambda: kernel(
+                        cwork.copy_(cstate0), 0, n), 10)
+                    print(f"[profile] {name} {entry} in: {n}-step segment "
+                          f"{ms:.4f} ms", flush=True)
+            # a segment as the fit runs it, outside the draws: sqrt(w) and
+            # the table entry, against the row lookup and the rows entry
+            # (the pair it replaced)
             draw_ms = time_chunk(
                 torch, lambda: ceng._draw_chunk_proposals(131), 10)
+            sw_ms = time_chunk(
+                torch, lambda: mc_kernel.sqrt_weights(ceng.spec, cands), 10)
             row_ms = time_chunk(torch, lambda: ceng.kern.row(cands), 10)
             print(f"[profile] per 131-step segment, outside K2: draw "
-                  f"{draw_ms:.4f} ms, table row lookup {row_ms:.4f} ms",
+                  f"{draw_ms:.4f} ms, sqrt(w) {sw_ms:.4f} ms (table in), "
+                  f"table row lookup {row_ms:.4f} ms (rows in); table in "
+                  f"{sw_ms + k2['table']['ms']:.4f} ms against lookup + "
+                  f"rows in {row_ms + k2['rows']['ms']:.4f} ms; {card}",
                   flush=True)
+        del rows, entries
+    ragged_k2, ragged_k2_err = check_k2_ragged(
+        torch, mc_kernel, McSASEngine, load, DataConfig, get_model, cyl_cfg,
+        card)
+    print(f"[ragged] K2, both entries against their plain versions at "
+          f"{len(K2_RAGGED)} ragged shapes x 2 proposal modes: max |chi2 "
+          f"kernel - plain| {ragged_k2_err!r}", flush=True)
+    k2_windows += ragged_k2
+    k2_errs.append(ragged_k2_err)
 
     # ---- phase 7: the cylinder main path
     def cyl_fit():
@@ -946,7 +1073,8 @@ def main():
     cfirst = cyl_fit()
     reset_counts(mc_kernel)
     cres, cwall = timed_cyl_fit()
-    k2_launches = mc_kernel.run_prefetch_chunk.launches
+    k2_launches = mc_kernel.run_prefetch_table_chunk.launches
+    k2_rows_launches = mc_kernel.run_prefetch_chunk.launches
     k1_during = mc_kernel.run_chunk.launches
     cwalls = [cwall] + [timed_cyl_fit()[1] for _ in range(4)]
     ce = cres.engine
@@ -956,9 +1084,24 @@ def main():
             raise AssertionError(
                 f"cylinder path: {int(r_.engine.converged.sum())}/10 "
                 f"converged, max chi2 {r_.engine.conval.max()}")
-    if k2_launches <= 0 or k1_during != 0:
-        raise AssertionError(f"cylinder path: {k2_launches} K2 launches, "
-                             f"{k1_during} K1 launches")
+    if k2_launches <= 0 or k2_rows_launches or k1_during:
+        raise AssertionError(
+            f"cylinder path: {k2_launches} launches of K2's table entry, "
+            f"{k2_rows_launches} of its rows entry, {k1_during} of K1")
+    # one engine run stages no (S, R, K, Nq) rows: its peak allocation
+    # stays below the size of one segment's
+    staged_bytes = 131 * 10 * 128 * golden.count * 4
+    ceng = McSASEngine(golden, cyl_bound, cyl_cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ceng.run()
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated() - mem0
+    if run_peak >= staged_bytes:
+        raise AssertionError(f"cylinder path: the engine run allocated "
+                             f"{run_peak} B at its peak; a segment's rows "
+                             f"are {staged_bytes} B")
     if not (ce.used_table and ce.used_prefetch and ce.used_pallas):
         raise AssertionError("cylinder path: used_table/used_prefetch not "
                              "both set")
@@ -975,7 +1118,9 @@ def main():
         raise AssertionError(f"cylinder path: vol-weighted mean radius "
                              f"{mean_r!r} m, golden {GOLDEN_RADIUS} m")
     print(f"[fit cylinder] 10/10 converged, max chi2 {ce.conval.max():.4f},"
-          f" {k2_launches} K2 launches, total_iters {ce.total_iters} (the "
+          f" {k2_launches} K2 launches (table in), peak allocation of an "
+          f"engine run {run_peak} B (a segment's rows: {staged_bytes} B), "
+          f"total_iters {ce.total_iters} (the "
           f"JAX package's TPU round: about 4.65M), warm wall {cwall:.4f} s "
           f"(engine {ce.elapsed:.4f} s), "
           f"{ce.total_iters / ce.elapsed:.4g} proposals/s; warm walls of 5"
@@ -1006,6 +1151,13 @@ def main():
 
     # ---- phase 10: K3, the latency probe
     probe = probe_phase(torch, mc_kernel, card)
+    for entry in ("rows", "table"):
+        by_lv = {r["level"]: r["us_per_step"] for r in probe["rungs"]
+                 if r.get("kernel") == "K2" and r["entry"] == entry}
+        print(f"[probe] K2 {entry} in, us per step by rung: "
+              + ", ".join(f"{lv}: {by_lv[lv]:.3f}"
+                          for lv in mc_kernel.PREFETCH_PROBE_LEVELS)
+              + f"; {card}", flush=True)
     for m in mc_kernel.K1_MODELS:
         by_g = {(r["level"], r["group"]): r["us_per_step"]
                 for r in probe["rungs"]
@@ -1020,7 +1172,8 @@ def main():
 
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
-    # PyTorch call computes an MC chunk
+    # PyTorch call computes an MC chunk; mc_prefetch: the numbers of its
+    # table entry, which the fit runs, its rows entry's under "rows_in"
     # K1's ragged-shape windows are listed with each model's own
     ragged = {m.name: [w for w in ragged_windows
                        if w["mode"].startswith(f"{m.name} ")]
@@ -1050,9 +1203,11 @@ def main():
         "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",
         "replaces": "mcsas_tpu/ops/mc_kernel.py:719",
         "launches": k2_launches, "max_abs_err": max(k2_errs),
-        "ms": k2_ms[0], "plain_ms": k2_plain_ms[0],
-        "bound_ms": k2_bounds[0][0], "bound_by": k2_bounds[0][1],
-        "library_ms": None, "compared": k2_windows})
+        "ms": k2["table"]["ms"], "plain_ms": k2["table"]["plain_ms"],
+        "bound_ms": k2["table"]["bound_ms"],
+        "bound_by": k2["table"]["bound_by"], "library_ms": None,
+        "shape": k2["table"]["shape"], "entry": "table in (the fit path)",
+        "rows_in": k2["rows"], "compared": k2_windows})
     kernels.append({
         "name": "mc_probe", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_probe.cu",

@@ -18,9 +18,9 @@ background per iteration.  The recast, shared with the JAX package
 * ``candidates_per_step`` (K) proposals for the same slot are evaluated
   per step and the best improving one is accepted.
 * On the parameter-table tier (quadrature models, float32) a chunk is one
-  prefetch segment: its proposals are drawn and their rows evaluated by
-  the table lookup up front, and the prefetch kernel K2 (or its plain
-  version) runs the steps on them.
+  prefetch segment: its proposals are drawn up front, and the prefetch
+  kernel K2 blends each candidate's row from the table and runs the steps
+  (its plain version evaluates the rows with the table lookup first).
 * Rows are computed with the weight normalized by a host-side float64
   reference volume (w/w_ref), so float32 never touches the ~1e-32 SI
   magnitudes; the fitted scale absorbs the factor exactly.
@@ -214,18 +214,23 @@ class IntensityKernel:
         return ((self.bound.model.volume(pd) * self.inv_v_ref) ** self.comp2
                 * self.inv_i_ref)
 
+    def sqrt_weight(self, pvec: torch.Tensor) -> torch.Tensor:
+        """√w of parameter vectors (..., P): shape (..., 1), or 0-dim
+        when the volume depends on no active parameter."""
+        w = self.weight(self.bound.pdict(pvec[..., None, :]))
+        return torch.sqrt(torch.as_tensor(w, dtype=self.grid.dtype,
+                                          device=self.grid.device))
+
     def row(self, pvec: torch.Tensor) -> torch.Tensor:
-        pd = self.bound.pdict(pvec[..., None, :])     # entries (..., 1)
-        w = self.weight(pd)
         # normalize at AMPLITUDE level, (ffv·√w)² rather than ffv²·w: raw
         # |ff|² alone can underflow float32 (and 1/i_ref alone overflow
         # it), while the amplitude-scaled product is O(1) by construction
-        s = torch.sqrt(torch.as_tensor(w, dtype=self.grid.dtype,
-                                       device=self.grid.device))
+        s = self.sqrt_weight(pvec)
         if self.table is not None:
             ffv = self.table_fn(self.table, self.bound.pdict(pvec))
         else:
-            ffv = self.model_ff(self.grid, pd)
+            ffv = self.model_ff(self.grid,
+                                self.bound.pdict(pvec[..., None, :]))
         fs = ffv * s
         return torch.clamp_max(fs * fs, self.row_clamp)
 
@@ -427,16 +432,18 @@ class McSASEngine:
     def _segment(self, state: RepState, ri: int):
         """One prefetch segment (mcsas_tpu/core/engine.py:404-417 and
         mc_kernel.py:771-818): the whole segment's proposals are drawn,
-        the local ones moved around the segment-start slot values, and
-        every candidate row is evaluated by the table lookup on the
-        device; then one K2 launch (or its plain version) runs the
-        solve/accept sequence."""
+        the local ones moved around the segment-start slot values; then
+        one launch of K2's table entry blends every candidate's row from
+        the table and runs the solve/accept sequence (its plain version
+        evaluates the (S, R, K, Nq) rows with the table lookup first)."""
         cands = mc_kernel.segment_candidates(
             state, ri, self.spec, self._draw_chunk_proposals(self.seg_steps))
-        rows = self.kern.row(cands)                     # (S, R, K, Nq)
-        run = (mc_kernel.run_prefetch_chunk if self.runs_cuda_kernel
-               else mc_kernel.prefetch_reference)
-        return run(state, ri, self.consts, self.spec, rows, cands)
+        if self.runs_cuda_kernel:
+            return mc_kernel.run_prefetch_table_chunk(
+                state, ri, self.consts, self.spec, cands,
+                mc_kernel.sqrt_weights(self.spec, cands))
+        return mc_kernel.prefetch_table_reference(state, ri, self.consts,
+                                                  self.spec, cands)
 
     # --------------------------------------------------------------- run
     def run(self, stop: Optional[Callable[[], bool]] = None,

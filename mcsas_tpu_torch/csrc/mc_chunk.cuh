@@ -214,26 +214,6 @@ __device__ __forceinline__ MCCand<Model> mc_candidate(
   return {Model::setup(pv), mc_sqrt_weight(Model::volume(pv), p)};
 }
 
-// one point's terms of the solve's sums, pt = (q, ft - bank[ri], u, y):
-// x = pt.y + row; u x, u x x and u x y, each rounded to float32, added in
-// float64
-__device__ __forceinline__ void mc_moments(float4 pt, float row, double& sx,
-                                           double& sxx, double& sxy) {
-  const float x = __fadd_rn(pt.y, row);
-  const float ux = __fmul_rn(pt.z, x);
-  sx = __dadd_rn(sx, (double)ux);
-  sxx = __dadd_rn(sxx, (double)__fmul_rn(ux, x));
-  sxy = __dadd_rn(sxy, (double)__fmul_rn(ux, pt.w));
-}
-
-// one point's residual term u (y - a x - b)^2, rounded to float32
-__device__ __forceinline__ double mc_residual(float4 pt, float row, float a,
-                                              float b) {
-  const float x = __fadd_rn(pt.y, row);
-  const float res = __fsub_rn(__fsub_rn(pt.w, __fmul_rn(a, x)), b);
-  return (double)__fmul_rn(__fmul_rn(pt.z, res), res);
-}
-
 template <int kModel, int kLevel, int kG>
 __global__ void __launch_bounds__(MC_BLOCK_THREADS)
 mc_chunk_kernel(const ChunkParams p) {
@@ -388,37 +368,10 @@ mc_chunk_kernel(const ChunkParams p) {
       __syncthreads();
       continue;
     }
-    // best-of-K: shuffles across the groups of a warp (the lanes of a
-    // group agree), one value per warp through smem, and every warp
-    // reduces those values itself
+    // best-of-K over the block (mc_block_best: one barrier)
     float c = my_chi;
     int kb = my_k;
-#pragma unroll
-    for (int off = 16; off >= kG; off >>= 1) {
-      const float oc = __shfl_xor_sync(0xffffffffu, c, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, kb, off);
-      if (mc_better(oc, oi, c, kb)) {
-        c = oc;
-        kb = oi;
-      }
-    }
-    if ((tid & 31) == 0) {
-      red_chi[tid >> 5] = c;
-      red_k[tid >> 5] = kb;
-    }
-    __syncthreads();
-    const int wl = tid & 31;
-    c = wl < n_warps ? red_chi[wl] : INFINITY;
-    kb = wl < n_warps ? red_k[wl] : INT_MAX;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float oc = __shfl_xor_sync(0xffffffffu, c, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, kb, off);
-      if (mc_better(oc, oi, c, kb)) {
-        c = oc;
-        kb = oi;
-      }
-    }
+    mc_block_best<kG>(c, kb, red_chi, red_k, n_warps);
     if (kLevel != MC_LV_FULL) {
       sink = __fadd_rn(sink, c);
       __syncthreads();

@@ -31,7 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MC_MAX_P 8          // active parameters of a chunk
+#include "mc_common.cuh"
+
 #define MC_MAX_MODEL_P 8    // parameters of a model, fixed ones included
 #define MC_N_MODELS 4
 

@@ -1,6 +1,7 @@
 // Latency probe K3 for NVIDIA Hopper (sm_90a): K1's step loop
-// (mc_chunk.cuh) cut short at each rung of the ladder, so that the time a
-// rung adds is the time that part of K1's step costs.
+// (mc_chunk.cuh) and K2's (mc_prefetch.cuh) cut short at each rung of
+// their ladders, so that the time a rung adds is the time that part of
+// the step costs.
 //
 // Replaces: tools/kern_probe.py, build -- the ladder of stripped-down
 // Pallas TPU kernels (loop / prng / ff / solve / solve_mom / writes) that
@@ -13,10 +14,14 @@
 // A rung below FULL changes no state: it leaves one float per thread of
 // what it computed in a sink (R, threads), so the compiler keeps its work.
 // The ff and solve rungs also run at 8, 16 and 32 lanes per candidate, to
-// compare K1's group widths.
-// Wrapper: ops/mc_kernel.py, run_probe; runner: tools/kern_probe.py.
+// compare K1's group widths.  K2's rungs are MC2_LV_LOOP, _ROWS (the rows
+// staged, read or blended, no solve), _SOLVE and _FULL of either entry;
+// its FULL rung is K2 compiled again and is held bit for bit against it.
+// Wrappers: ops/mc_kernel.py, run_probe and run_prefetch_probe; runner:
+// tools/kern_probe.py.
 
 #include "mc_chunk.cuh"
+#include "mc_prefetch.cuh"
 
 extern "C" int mc_probe_params_size(void) {
   return (int)sizeof(ChunkParams);
@@ -95,4 +100,35 @@ extern "C" int mc_probe_launch(const ChunkParams* hp, int level, int group,
 extern "C" int mc_probe_shape(const ChunkParams* hp, int level, int group,
                               int* out) {
   return mc_probe_run(hp, level, group, nullptr, out);
+}
+
+// ---------------------------------------------------------- K2's rungs
+
+extern "C" int mc_probe_prefetch_params_size(void) {
+  return (int)sizeof(PrefetchParams);
+}
+
+// one K2 segment cut at `level` (MC2_LV_*): launch (out == null) or shape
+static int mc_probe_prefetch_run(const PrefetchParams* hp, int level,
+                                 cudaStream_t st, int* out) {
+  switch (level) {
+    case MC2_LV_LOOP: return mc_prefetch_run<MC2_LV_LOOP>(hp, st, out);
+    case MC2_LV_ROWS: return mc_prefetch_run<MC2_LV_ROWS>(hp, st, out);
+    case MC2_LV_SOLVE: return mc_prefetch_run<MC2_LV_SOLVE>(hp, st, out);
+    case MC2_LV_FULL: return mc_prefetch_run<MC2_LV_FULL>(hp, st, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launches one K2 segment cut at `level` on `stream`; returns a
+// cudaError_t code (0: launched).
+extern "C" int mc_probe_prefetch_launch(const PrefetchParams* hp, int level,
+                                        void* stream) {
+  return mc_probe_prefetch_run(hp, level, (cudaStream_t)stream, nullptr);
+}
+
+// That segment's launch shape into out[7] (mc_prefetch_go).
+extern "C" int mc_probe_prefetch_shape(const PrefetchParams* hp, int level,
+                                       int* out) {
+  return mc_probe_prefetch_run(hp, level, nullptr, out);
 }

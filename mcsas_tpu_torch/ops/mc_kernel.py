@@ -11,20 +11,25 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   ``csrc/mc_chunk.cuh``, the models in ``csrc/mc_models.cuh``), wrapper
   :func:`run_chunk`.
 * K2, the prefetch chunk (``build_prefetch_chunk_fn``), for the
-  parameter-table tier: one segment's candidates (S, R, K, P) and their
-  rows (S, R, K, Nq) are drawn and evaluated before the launch (the row
-  blend is plain PyTorch on the device, as the JAX package leaves it to
-  XLA); the kernel runs the solve/accept sequence on them.  Plain
-  version :func:`prefetch_reference`, kernel ``csrc/mc_prefetch.cu``,
-  wrapper :func:`run_prefetch_chunk`.
+  parameter-table tier: one segment's candidates (S, R, K, P) are drawn
+  before the launch and the kernel runs the solve/accept sequence on
+  them.  Two entries of one step loop (``csrc/mc_prefetch.cuh``, built
+  from ``csrc/mc_prefetch.cu``): *rows in*, the TPU kernel's own
+  contract, takes the candidates' rows (S, R, K, Nq) evaluated before
+  the launch (plain version :func:`prefetch_reference`, wrapper
+  :func:`run_prefetch_chunk`); *table in*, the fit path, takes the
+  parameter table and √w per candidate and blends each row in the kernel
+  (plain version :func:`prefetch_table_reference`, wrapper
+  :func:`run_prefetch_table_chunk`).
 * K3, the latency probe (``tools/kern_probe.py::build``): K1's step cut
   short at a rung (:data:`PROBE_LEVELS`), its ``ff`` and ``solve`` rungs
-  also at each group width of :data:`PROBE_GROUPS`, ``csrc/mc_probe.cu``,
-  wrapper :func:`run_probe`, runner ``tools/kern_probe.py``.  No PyTorch
-  function computes a cut step: its ``full`` rung is K1 and is held
-  against it.
+  also at each group width of :data:`PROBE_GROUPS`, and K2's step cut at
+  a rung of :data:`PREFETCH_PROBE_LEVELS`; ``csrc/mc_probe.cu``,
+  wrappers :func:`run_probe` and :func:`run_prefetch_probe`, runner
+  ``tools/kern_probe.py``.  No PyTorch function computes a cut step: a
+  ``full`` rung is K1 or K2 and is held against it.
 
-Both plain versions are batched over (R, K, Nq) in the operation order of
+The plain versions are batched over (R, K, Nq) in the operation order of
 the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
 :func:`_step`.  The CPU tests hold them against the JAX package, and each
 kernel is held against its plain version on the card.  The kernels are
@@ -32,7 +37,8 @@ built with nvcc at first use into ``build/kernels/`` (one library per
 source, built in parallel) and bound with ctypes; each wrapper checks its
 arguments, launches its kernel for CUDA tensors, runs the plain version
 for CPU tensors, and counts kernel launches in ``<wrapper>.launches``
-(``run_chunk.model_launches`` also by model name).
+(``run_chunk.model_launches`` also by model name; K3's two wrappers
+count in ``run_probe.launches``).
 
 One chunk, per repetition: ft is rebuilt from the bank (float64 sum), then
 every step takes K candidates for the slot at the shared cursor ri (the
@@ -76,13 +82,19 @@ K1_MODELS = (Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell)
 PROBE_LEVELS = ("loop", "rng", "ff", "solve", "solve_mom", "full")
 # lanes per candidate K3's ff and solve rungs run at besides K1's own
 PROBE_GROUPS = (8, 16, 32)
-# HBM cap for one prefetch segment's staged candidate rows (the JAX
-# package's _PREFETCH_HBM_BUDGET)
+# K3's rungs of K2, in the order of MC2_LV_* in csrc/mc_prefetch.cuh
+PREFETCH_PROBE_LEVELS = ("loop", "rows", "solve", "full")
+# where K2 takes a candidate's row from (MC2_SRC_* in csrc/mc_prefetch.cuh)
+PREFETCH_SOURCES = ("staged", "direct", "table", "table_ahead")
+MAX_TABLE_AXES = 2             # table axes K2's table entry blends
+# the JAX package's HBM cap for one prefetch segment's staged candidate
+# rows (its _PREFETCH_HBM_BUDGET), kept for the segment length it gives
 PREFETCH_ROW_BYTES = 64 * 2 ** 20
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
 KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe")  # csrc/<name>.cu each
 # the shared headers; every kernel's build hash covers all of them
-_HEADERS = ("mc_common.cuh", "mc_models.cuh", "mc_chunk.cuh")
+_HEADERS = ("mc_common.cuh", "mc_models.cuh", "mc_chunk.cuh",
+            "mc_prefetch.cuh")
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
               / "build" / "kernels")
@@ -148,6 +160,41 @@ class ChunkSpec:
               else float(np.sqrt(np.float32(w))))
         return pfix, pcol, sw
 
+    @functools.cached_property
+    def table_layout(self) -> tuple:
+        """What K2's table entry needs to repeat ``lookup_param_table`` on
+        the engine's table: for each table axis with more than one node,
+        first axis first, ``(col, fixed, l0, dl, n, hi)`` — the active
+        column that feeds it, or -1 and its fixed value; the log of its
+        first node, its log spacing and the clamp's upper end
+        ``n - 1.000001``, each rounded to float32 as the lookup's tensors
+        round them.  Raises for an engine without a table, a lookup that
+        does not name its parameters (``table_fn.tab_params``,
+        ``tables.make_lookup``), or more than :data:`MAX_TABLE_AXES`
+        axes."""
+        kern = self.kern
+        names = getattr(kern.table_fn, "tab_params", None)
+        if kern.table is None or names is None:
+            raise ValueError("K2's table entry needs a parameter table and "
+                             "a lookup made by tables.make_lookup")
+        if len(names) != len(kern.table.axes):
+            raise ValueError(f"the lookup reads {len(names)} parameters, "
+                             f"the table has {len(kern.table.axes)} axes")
+        bound, fixed = kern.bound, dict(kern.bound.fixed)
+        f32 = lambda v: float(np.float32(v))    # noqa: E731
+        axes = []
+        for name, (l0, dl, n) in zip(names, kern.table.axes):
+            if n == 1:
+                continue
+            col = bound.active.index(name) if name in bound.active else -1
+            axes.append((col, 0.0 if col >= 0 else f32(fixed[name]),
+                         f32(l0), f32(dl), int(n), f32(n - 1.000001)))
+        if len(axes) > MAX_TABLE_AXES:
+            raise ValueError(f"K2's table entry blends at most "
+                             f"{MAX_TABLE_AXES} table axes, this table has "
+                             f"{len(axes)}")
+        return tuple(axes)
+
 
 def model_id(model) -> int:
     """The kernel's integer id of a model (csrc/mc_models.cuh)."""
@@ -182,10 +229,14 @@ def supports_prefetch(engine) -> bool:
 
 
 def prefetch_seg_steps(engine) -> int:
-    """Steps per prefetch segment: bounded by the HBM cap for the staged
-    (S, R, K, Nq) rows and by the configured chunk size; with local moves
-    also by ``num_contribs``, so that a segment visits distinct slots
-    (the JAX package's rule, without its lane padding)."""
+    """Steps per prefetch segment: bounded by the configured chunk size
+    and by the JAX package's cap on a segment's (S, R, K, Nq) rows; with
+    local moves also by ``num_contribs``, so that a segment visits
+    distinct slots (the JAX package's rule, without its lane padding).
+    The fit path stages no rows (K2's table entry blends them in the
+    kernel): the cap is the JAX package's segment length, kept so that a
+    fit draws the same proposals and takes the same decisions, not a
+    memory budget."""
     cfg = engine.cfg
     per_step = (int(cfg.num_reps) * int(cfg.candidates_per_step)
                 * int(engine.consts.n) * 4)
@@ -290,6 +341,27 @@ def prefetch_reference(state, ri: int, consts: FitConstants,
         _step(state, ri_s, consts, spec, cands[s], rows[s], trace)
 
     return _run_steps(state, ri, int(rows.shape[0]), step, trace)
+
+
+def prefetch_table_reference(state, ri: int, consts: FitConstants,
+                             spec: ChunkSpec, cands: torch.Tensor,
+                             trace: Optional[dict] = None):
+    """Plain PyTorch version of K2's table entry: the candidates' rows
+    from the engine's table lookup (``spec.kern.row``), then
+    :func:`prefetch_reference` on them; state updated in place.  Returns
+    ``(state, cursor)``."""
+    return prefetch_reference(state, ri, consts, spec, spec.kern.row(cands),
+                              cands, trace)
+
+
+def sqrt_weights(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
+    """√w of the candidates (S, R, K, P) as K2's table entry takes it:
+    contiguous (S, R, K), the engine's own ``IntensityKernel.sqrt_weight``
+    (a volume without an active parameter gives every candidate the same
+    value)."""
+    sw = spec.kern.sqrt_weight(cands)
+    return sw.expand(*cands.shape[:-1], 1).reshape(
+        cands.shape[:-1]).contiguous()
 
 
 def segment_candidates(state, ri: int, spec: ChunkSpec,
@@ -427,24 +499,36 @@ class _ChunkParams(ctypes.Structure):
 
 
 class _PrefetchParams(ctypes.Structure):
-    """Mirror of ``PrefetchParams`` in csrc/mc_prefetch.cu (same field
+    """Mirror of ``PrefetchParams`` in csrc/mc_prefetch.cuh (same field
     order)."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "y", "u", "rset", "ibank", "ft", "scale", "background",
-            "conval", "n_iter", "n_moves", "rows", "cands", "trace")]
+            "conval", "n_iter", "n_moves", "rows", "cands", "table", "sw",
+            "sink", "trace")]
         + [("s_u", ctypes.c_double), ("s_uy", ctypes.c_double),
-           ("crit", ctypes.c_float)]
+           ("crit", ctypes.c_float), ("row_clamp", ctypes.c_float)]
+        + [(name, ctypes.c_float * MAX_TABLE_AXES) for name in (
+            "ax_l0", "ax_dl", "ax_hi", "ax_fixed")]
+        + [(name, ctypes.c_int32 * MAX_TABLE_AXES) for name in (
+            "ax_n", "ax_col")]
         + [(name, ctypes.c_int32) for name in (
-            "n_reps", "n_contribs", "nq", "n_params", "k_cand", "n_steps",
-            "ri0", "max_iter", "n_fit", "find_bg", "pos_bg", "device")])
+            "n_axes", "n_table_rows", "n_reps", "n_contribs", "nq",
+            "n_params", "k_cand", "n_steps", "ri0", "max_iter", "n_fit",
+            "find_bg", "pos_bg", "device")])
 
 
-_PARAMS = {"mc_chunk": _ChunkParams, "mc_prefetch": _PrefetchParams,
-           "mc_probe": _ChunkParams}
-# the arguments of <name>_launch and <name>_shape after the parameter
-# struct: K3's rung and group width
-_LAUNCH_EXTRA = {"mc_probe": [ctypes.c_int, ctypes.c_int]}
+# The C entries, <entry>_launch, <entry>_shape and <entry>_params_size
+# each: (library, parameter struct, int arguments after the struct -- K3's
+# rung and, for K1's rungs, the group width -- and the names of what
+# <entry>_shape reports).
+_K1_SHAPE = ("group", "threads", "registers", "local_bytes")
+_K2_SHAPE = _K1_SHAPE + ("source", "smem_bytes", "ft_parts")
+_ENTRIES = {
+    "mc_chunk": ("mc_chunk", _ChunkParams, 0, _K1_SHAPE),
+    "mc_prefetch": ("mc_prefetch", _PrefetchParams, 0, _K2_SHAPE),
+    "mc_probe": ("mc_probe", _ChunkParams, 2, _K1_SHAPE),
+    "mc_probe_prefetch": ("mc_probe", _PrefetchParams, 1, _K2_SHAPE)}
 
 
 @dataclass(frozen=True)
@@ -523,54 +607,60 @@ def _library(name: str):
     if lib is None:
         build = build_libraries((name,))[name]
         lib = ctypes.CDLL(str(build.path))
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = ([ctypes.c_void_p] + _LAUNCH_EXTRA.get(name, [])
-                           + [ctypes.c_void_p])
-        launch.restype = ctypes.c_int
-        if hasattr(lib, f"{name}_shape"):
-            shape = getattr(lib, f"{name}_shape")
-            shape.argtypes = ([ctypes.c_void_p]
-                              + _LAUNCH_EXTRA.get(name, [])
-                              + [ctypes.POINTER(ctypes.c_int)])
-            shape.restype = ctypes.c_int
-        size_fn = getattr(lib, f"{name}_params_size")
-        size_fn.argtypes = []
-        size_fn.restype = ctypes.c_int
         err_fn = getattr(lib, f"{name}_error_string")
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
-        want = ctypes.sizeof(_PARAMS[name])
-        if size_fn() != want:
-            raise RuntimeError(
-                f"{name} parameter layout mismatch: C {size_fn()} bytes, "
-                f"ctypes {want} bytes")
+        for entry, (of, params, n_extra, _) in _ENTRIES.items():
+            if of != name:
+                continue
+            extra = [ctypes.c_int] * n_extra
+            launch = getattr(lib, f"{entry}_launch")
+            launch.argtypes = [ctypes.c_void_p] + extra + [ctypes.c_void_p]
+            launch.restype = ctypes.c_int
+            shape = getattr(lib, f"{entry}_shape")
+            shape.argtypes = ([ctypes.c_void_p] + extra
+                              + [ctypes.POINTER(ctypes.c_int)])
+            shape.restype = ctypes.c_int
+            size_fn = getattr(lib, f"{entry}_params_size")
+            size_fn.argtypes = []
+            size_fn.restype = ctypes.c_int
+            want = ctypes.sizeof(params)
+            if size_fn() != want:
+                raise RuntimeError(
+                    f"{entry} parameter layout mismatch: C {size_fn()} "
+                    f"bytes, ctypes {want} bytes")
         _LOADED[name] = lib
     return lib
 
 
-def _raise_on(lib, name: str, what: str, rc: int):
+def _call(entry: str, what: str, *args):
+    """Calls the C function ``<entry>_<what>`` of the entry's library;
+    raises on a CUDA error code."""
+    name = _ENTRIES[entry][0]
+    lib = _library(name)
+    rc = getattr(lib, f"{entry}_{what}")(*args)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} {what} failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{entry} {what} failed: CUDA error {rc} ({msg})")
 
 
-def _launch(name: str, prm, device: torch.device, *extra):
-    """Launches kernel *name* with *prm* (and the ints *extra*) on the
-    current stream of *device*; raises on a refused launch."""
-    lib = _library(name)
+def _launch(entry: str, prm, device: torch.device, *extra):
+    """Launches the kernel of C entry *entry* with *prm* (and the ints
+    *extra*) on the current stream of *device*; raises on a refused
+    launch."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    _raise_on(lib, name, "launch", getattr(lib, f"{name}_launch")(
-        ctypes.byref(prm), *extra, ctypes.c_void_p(stream)))
+    _call(entry, "launch", ctypes.byref(prm), *extra,
+          ctypes.c_void_p(stream))
 
 
-def _shape(name: str, prm, *extra) -> dict:
-    """The launch shape of K1 (*name* ``mc_chunk``) or of a K3 rung
-    (``mc_probe``, *extra* its level and group width) for *prm*."""
-    lib = _library(name)
-    out = (ctypes.c_int * 4)()
-    _raise_on(lib, name, "shape query", getattr(lib, f"{name}_shape")(
-        ctypes.byref(prm), *extra, out))
-    return dict(zip(("group", "threads", "registers", "local_bytes"), out))
+def _shape(entry: str, prm, *extra) -> dict:
+    """The launch shape of the kernel that C entry *entry* would launch
+    for *prm* (and the ints *extra*: a K3 rung), by the names in
+    :data:`_ENTRIES`."""
+    names = _ENTRIES[entry][3]
+    out = (ctypes.c_int * len(names))()
+    _call(entry, "shape", ctypes.byref(prm), *extra, out)
+    return dict(zip(names, out))
 
 
 def _device_index(dev: torch.device) -> int:
@@ -776,11 +866,110 @@ def run_probe(state, ri: int, consts: FitConstants, spec: ChunkSpec,
 run_probe.launches = 0
 
 
+def _check_rows(rows, cands, state, consts, spec):
+    dev = state.rset.device
+    want = (int(cands.shape[0]), state.rset.shape[0], spec.k_cand, consts.n)
+    if (rows.device != dev or rows.dtype != torch.float32
+            or tuple(rows.shape) != want or not rows.is_contiguous()):
+        raise ValueError(f"rows: want contiguous float32 {want} on {dev}, "
+                         f"got {rows.dtype} {tuple(rows.shape)} on "
+                         f"{rows.device}")
+
+
+def _check_table(sw, cands, state, consts, spec):
+    """Checks what K2's table entry takes besides the state and the
+    candidates: the table, its axis layout and √w."""
+    dev = state.rset.device
+    table = spec.kern.table
+    if table is None:
+        raise ValueError("table: this engine has no parameter table")
+    vals = table.values
+    if (vals.device != dev or vals.dtype != torch.float32 or vals.dim() != 2
+            or vals.shape[1] != consts.n or not vals.is_contiguous()):
+        raise ValueError(f"table: want contiguous float32 (rows, "
+                         f"{consts.n}) on {dev}, got {vals.dtype} "
+                         f"{tuple(vals.shape)} on {vals.device}")
+    layout = spec.table_layout
+    n_rows = int(np.prod([ax[4] for ax in layout], dtype=np.int64))
+    if n_rows != vals.shape[0] or vals.numel() >= 2 ** 31:
+        raise ValueError(f"table: its axes {[ax[4] for ax in layout]} give "
+                         f"{n_rows} rows, the values have {vals.shape[0]} "
+                         f"(at most 2^31 values in all)")
+    want = tuple(cands.shape[:-1])
+    if (sw.device != dev or sw.dtype != torch.float32
+            or tuple(sw.shape) != want or not sw.is_contiguous()):
+        raise ValueError(f"sw: want contiguous float32 {want} on {dev}, got "
+                         f"{sw.dtype} {tuple(sw.shape)} on {sw.device}")
+
+
+def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
+                     cands, rows=None, sw=None, sink=None,
+                     choice=None) -> _PrefetchParams:
+    """The kernel's parameter struct for one segment (K2 and its K3
+    rungs): rows in with *rows*, else table in with *sw*."""
+    r, n, p = state.rset.shape
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    prm = _PrefetchParams(
+        y=consts.y.data_ptr(), u=consts.u.data_ptr(),
+        rset=state.rset.data_ptr(), ibank=state.ibank.data_ptr(),
+        ft=state.ft.data_ptr(), scale=state.scale.data_ptr(),
+        background=state.background.data_ptr(),
+        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
+        n_moves=state.n_moves.data_ptr(), rows=ptr(rows),
+        cands=cands.data_ptr(), sw=ptr(sw), sink=ptr(sink),
+        trace=ptr(choice), s_u=consts.s_u, s_uy=consts.s_uy,
+        crit=spec.crit, row_clamp=spec.kern.row_clamp,
+        n_reps=r, n_contribs=n, nq=consts.n, n_params=p, k_cand=spec.k_cand,
+        n_steps=int(cands.shape[0]), ri0=ri % n,
+        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
+        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
+        device=_device_index(state.rset.device))
+    if rows is None:
+        prm.table = spec.kern.table.values.data_ptr()
+        prm.n_table_rows = spec.kern.table.values.shape[0]
+        prm.n_axes = len(spec.table_layout)
+        for a, (col, fixed, l0, dl, n_ax, hi) in enumerate(
+                spec.table_layout):
+            prm.ax_col[a], prm.ax_fixed[a] = col, fixed
+            prm.ax_l0[a], prm.ax_dl[a] = l0, dl
+            prm.ax_n[a], prm.ax_hi[a] = n_ax, hi
+    return prm
+
+
+def _check_prefetch(state, consts, spec, cands, rows, sw):
+    """Checks a K2 call, rows in (*rows*) or table in (*sw*)."""
+    _check(state, consts, spec, cands, "cands")
+    if rows is not None:
+        _check_rows(rows, cands, state, consts, spec)
+    else:
+        _check_table(sw, cands, state, consts, spec)
+    dev = state.rset.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no prefetch chunk implementation for device "
+                         f"{dev}")
+
+
+def _run_prefetch(wrapper, state, ri, consts, spec, cands, rows, sw, trace):
+    """Launches K2 on CUDA tensors that passed :func:`_check_prefetch`,
+    counting in ``wrapper.launches``; returns ``(state, cursor)``."""
+    dev = state.rset.device
+    n_steps, r, n = int(cands.shape[0]), *state.rset.shape[:2]
+    choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
+              if trace is not None else None)
+    _launch("mc_prefetch",
+            _prefetch_params(state, ri, consts, spec, cands, rows, sw,
+                             choice=choice), dev)
+    wrapper.launches += 1
+    if trace is not None:
+        trace["choice"] = choice
+    return state, (ri + n_steps) % n
+
+
 def run_prefetch_chunk(state, ri: int, consts: FitConstants,
                        spec: ChunkSpec, rows: torch.Tensor,
                        cands: torch.Tensor, trace: Optional[dict] = None):
-    """Runs one prefetch segment on the state's device, updating it in
-    place; returns ``(state, cursor)``.
+    """Runs one prefetch segment on given rows (K2's rows-in entry) on the
+    state's device, updating it in place; returns ``(state, cursor)``.
 
     *rows* (S, R, K, Nq) and *cands* (S, R, K, P) are one segment's
     candidate rows and candidates (:func:`segment_candidates`).  CUDA
@@ -788,44 +977,97 @@ def run_prefetch_chunk(state, ri: int, consts: FitConstants,
     tensors run :func:`prefetch_reference`.  With a *trace* dict the
     chosen candidate per step lands in ``trace["choice"]`` (S, R) int32,
     -1 where nothing was accepted."""
-    _check(state, consts, spec, cands, "cands")
-    dev = state.rset.device
-    r, n, p = state.rset.shape
-    want = (int(cands.shape[0]), r, spec.k_cand, consts.n)
-    if (rows.device != dev or rows.dtype != torch.float32
-            or tuple(rows.shape) != want or not rows.is_contiguous()):
-        raise ValueError(f"rows: want contiguous float32 {want} on {dev}, "
-                         f"got {rows.dtype} {tuple(rows.shape)} on "
-                         f"{rows.device}")
-    if dev.type == "cpu":
+    _check_prefetch(state, consts, spec, cands, rows, None)
+    if state.rset.device.type == "cpu":
         return prefetch_reference(state, ri, consts, spec, rows, cands,
                                   trace)
-    if dev.type != "cuda":
-        raise ValueError(f"no prefetch chunk implementation for device "
-                         f"{dev}")
-    n_steps = int(rows.shape[0])
-    choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
-              if trace is not None else None)
-    prm = _PrefetchParams(
-        y=consts.y.data_ptr(), u=consts.u.data_ptr(),
-        rset=state.rset.data_ptr(), ibank=state.ibank.data_ptr(),
-        ft=state.ft.data_ptr(), scale=state.scale.data_ptr(),
-        background=state.background.data_ptr(),
-        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
-        n_moves=state.n_moves.data_ptr(), rows=rows.data_ptr(),
-        cands=cands.data_ptr(),
-        trace=(choice.data_ptr() if choice is not None else None),
-        s_u=consts.s_u, s_uy=consts.s_uy, crit=spec.crit,
-        n_reps=r, n_contribs=n, nq=consts.n, n_params=p, k_cand=spec.k_cand,
-        n_steps=n_steps, ri0=ri % n,
-        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
-        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
-        device=_device_index(dev))
-    _launch("mc_prefetch", prm, dev)
-    run_prefetch_chunk.launches += 1
-    if trace is not None:
-        trace["choice"] = choice
-    return state, (ri + n_steps) % n
+    return _run_prefetch(run_prefetch_chunk, state, ri, consts, spec, cands,
+                         rows, None, trace)
 
 
 run_prefetch_chunk.launches = 0
+
+
+def run_prefetch_table_chunk(state, ri: int, consts: FitConstants,
+                             spec: ChunkSpec, cands: torch.Tensor,
+                             sw: torch.Tensor,
+                             trace: Optional[dict] = None):
+    """Runs one prefetch segment on the engine's parameter table (K2's
+    table-in entry, the fit path) on the state's device, updating it in
+    place; returns ``(state, cursor)``.
+
+    *cands* (S, R, K, P) are the segment's candidates
+    (:func:`segment_candidates`) and *sw* (S, R, K) their √w
+    (:func:`sqrt_weights`); the kernel blends each candidate's row from
+    ``spec.kern.table`` by ``spec.table_layout``, as the lookup and
+    ``IntensityKernel.row`` do.  CUDA tensors launch K2 (counted in
+    ``run_prefetch_table_chunk.launches``); CPU tensors run
+    :func:`prefetch_table_reference`.  *trace* as for
+    :func:`run_prefetch_chunk`."""
+    _check_prefetch(state, consts, spec, cands, None, sw)
+    if state.rset.device.type == "cpu":
+        return prefetch_table_reference(state, ri, consts, spec, cands,
+                                        trace)
+    return _run_prefetch(run_prefetch_table_chunk, state, ri, consts, spec,
+                         cands, None, sw, trace)
+
+
+run_prefetch_table_chunk.launches = 0
+
+
+def _prefetch_level(level: str) -> int:
+    if level not in PREFETCH_PROBE_LEVELS:
+        raise ValueError(f"unknown K2 probe level {level!r}; one of "
+                         f"{PREFETCH_PROBE_LEVELS}")
+    return PREFETCH_PROBE_LEVELS.index(level)
+
+
+def prefetch_launch_shape(state, consts: FitConstants, spec: ChunkSpec,
+                          cands: torch.Tensor,
+                          rows: Optional[torch.Tensor] = None,
+                          level: str = "full") -> dict:
+    """The launch shape of K2 (``level="full"``) or of one of its K3
+    rungs for this segment on the state's CUDA device, rows in with
+    *rows*, else table in: ``group`` (lanes per candidate), ``threads``
+    per block, ``registers`` and ``local_bytes`` per thread, ``source``
+    (where a candidate's row comes from, one of :data:`PREFETCH_SOURCES`:
+    the kernel's shape rule), ``smem_bytes`` of dynamic shared memory and
+    ``ft_parts``, the warps that share the segment-start sum of the
+    bank."""
+    prm = _prefetch_params(state, 0, consts, spec, cands, rows)
+    if level == "full":
+        shape = _shape("mc_prefetch", prm)
+    else:
+        shape = _shape("mc_probe_prefetch", prm, _prefetch_level(level))
+    shape["source"] = PREFETCH_SOURCES[shape["source"]]
+    return shape
+
+
+def run_prefetch_probe(state, ri: int, consts: FitConstants,
+                       spec: ChunkSpec, level: str, cands: torch.Tensor,
+                       rows: Optional[torch.Tensor] = None,
+                       sw: Optional[torch.Tensor] = None):
+    """Runs one segment of K2 cut at the rung *level*
+    (:data:`PREFETCH_PROBE_LEVELS`) on the state's CUDA device, rows in
+    with *rows*, else table in with *sw*; returns ``(state, cursor,
+    sink)``, *sink* the (R, threads) floats a rung below ``full`` leaves
+    behind (None for ``full``).  Only ``full`` changes the state, as K2
+    does.  Launches K3 (counted in ``run_probe.launches``); a cut step
+    has no plain version, so CPU tensors raise."""
+    lv = _prefetch_level(level)
+    _check_prefetch(state, consts, spec, cands, rows, sw)
+    dev = state.rset.device
+    if dev.type != "cuda":
+        raise ValueError("the probe's K2 rungs measure the CUDA kernel; on "
+                         "CPU tensors use the plain versions")
+    sink = None
+    if level != "full":
+        threads = prefetch_launch_shape(state, consts, spec, cands, rows,
+                                        level)["threads"]
+        sink = torch.empty((state.rset.shape[0], threads),
+                           dtype=torch.float32, device=dev)
+    _launch("mc_probe_prefetch",
+            _prefetch_params(state, ri, consts, spec, cands, rows, sw,
+                             sink=sink), dev, lv)
+    run_probe.launches += 1
+    return state, (ri + int(cands.shape[0])) % state.rset.shape[1], sink

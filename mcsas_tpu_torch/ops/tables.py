@@ -264,9 +264,12 @@ def lookup_param_table(table: ParamTable, pvals) -> torch.Tensor:
 
 def make_lookup(tab_params):
     """Returns ``fn(table, pdict) -> (..., Nq)`` reading the table's
-    parameters from a parameter dict (entries of shape (...))."""
+    parameters from a parameter dict (entries of shape (...)).
+    ``fn.tab_params`` names them, one per table axis: the prefetch
+    kernel's table entry repeats the lookup from them."""
     def fn(table: ParamTable, pdict):
         return lookup_param_table(table, [pdict[n] for n in tab_params])
+    fn.tab_params = tuple(tab_params)
     return fn
 
 

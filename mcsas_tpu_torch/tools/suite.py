@@ -4,7 +4,10 @@ run in K1, as the port fits them: data file, model, active set and
 ranges, K, proposal budget and local moves; 300 contributions × 10
 repetitions, chunks of 1024 steps, seed 2026, one retry, χ² ≤ 1.
 ``chip_smoke.py`` fits them on the card and ``tools/kern_probe.py``
-probes K1 on their data.
+probes K1 on their data.  The table-tier row 'cylinders-isotropic'
+(bench.py:162-164), whose segments run in K2, stands beside them as
+:func:`cylinder_golden`, :func:`cylinder_bound` and
+:func:`cylinder_config`: its data is synthetic and made here.
 """
 from __future__ import annotations
 
@@ -12,11 +15,15 @@ import pathlib
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
+import torch
+
 from ..api import _default_unbounded_ranges
 from ..config import McSASConfig
-from ..data import SASData, load
+from ..data import DataConfig, SASData, from_raw, load
 from ..models import get_model
 from ..models.base import BoundModel
+from ..models.cylinders import _cyl_iso_ff_ab
 
 _TESTDATA = pathlib.Path(__file__).resolve().parents[2] / "testdata"
 
@@ -72,3 +79,38 @@ ROWS = {row.name: row for row in (
              {"volFrac": (1e-4, 0.1)}, 128, 20_000_000, 0.5,
              {"radius": 10e-9}),
 )}
+
+
+GOLDEN_RADIUS = 10e-9     # the synthetic cylinder's radius (aspect 10)
+
+
+def cylinder_golden() -> SASData:
+    """bench.synth_golden("cylinder") built with the port's float64
+    functions: q = geomspace(0.01, 2, 100) nm⁻¹, I = ff² of the converged
+    n=801 orientation rule at R = 10 nm, aspect 10, normalized to max 1,
+    σ = 0.01·I, no rebinning."""
+    q_nm = np.geomspace(0.01, 2.0, 100)
+    q = torch.as_tensor(q_nm * 1e9, dtype=torch.float64)
+    r, asp = GOLDEN_RADIUS, 10.0
+    ff = _cyl_iso_ff_ab(q * r, q * (2.0 * r * asp), 801,
+                        torch.float64).numpy()
+    i = ff ** 2
+    i = i / i.max()
+    return from_raw(np.column_stack([q_nm, i, 0.01 * i]),
+                    title="synthetic-cylinder", config=DataConfig(n_bin=0))
+
+
+def cylinder_bound() -> BoundModel:
+    return get_model("CylindersIsotropic").bind(
+        active=("radius",), active_ranges={"radius": (0.5e-9, 300e-9)})
+
+
+def cylinder_config(**kw) -> McSASConfig:
+    """bench.py's suite row 'cylinders-isotropic' (bench.py:162-164,
+    213-222); table_ff 'auto' resolves to on at this budget."""
+    base = dict(num_contribs=300, num_reps=10, max_iterations=8_000_000,
+                chunk_steps=1024, candidates_per_step=128, seed=2026,
+                max_retries=1, convergence_criterion=1.0, local_moves=0.0,
+                show_incomplete=True)
+    base.update(kw)
+    return McSASConfig(**base)

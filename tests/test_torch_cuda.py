@@ -8,6 +8,7 @@ without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -21,7 +22,7 @@ from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
 from mcsas_tpu_torch.data import DataConfig  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
 from mcsas_tpu_torch.models import get_model  # noqa: E402
-from mcsas_tpu_torch.ops import mc_kernel  # noqa: E402
+from mcsas_tpu_torch.ops import mc_kernel, tables  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DATA = (pathlib.Path(__file__).resolve().parent.parent / "testdata"
@@ -188,16 +189,22 @@ def _cylinder_engine(**kw):
 
 
 @pytest.fixture(scope="module")
-def cylinder():
-    """Table engines on the card (64-row tables), without and with local
-    moves."""
+def small_tables():
+    """A card, and tables of at most 64 nodes an axis for the module."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
         mp.delenv("MCSAS_TPU_TABLE_CACHE_DIR", raising=False)
-        yield {"global": _cylinder_engine(),
-               "local": _cylinder_engine(local_moves=0.5)}
+        yield
+
+
+@pytest.fixture(scope="module")
+def cylinder(small_tables):
+    """Table engines on the card (64-row tables), without and with local
+    moves."""
+    return {"global": _cylinder_engine(),
+            "local": _cylinder_engine(local_moves=0.5)}
 
 
 @pytest.mark.parametrize("mode", ["global", "local"])
@@ -246,11 +253,198 @@ def test_prefetch_kernel_matches_plain_version(cylinder, mode):
         assert int(ks.n_iter[r]) == int(ts.n_iter[r])
 
 
+# K2's comparison shapes: K1's, which give its lane groups the same ragged
+# edges (K = 200 at 200 bins also needs more shared memory than two staged
+# blocks of rows may take, so its rows are read from global memory), and
+# one whose step block K*Nq*4 bytes is no multiple of 16 (read directly
+# too)
+K2_SHAPES = dict(SHAPES, **{"r1-k3-bins5": (1, 3, 5, 64)})
+K2_DIRECT = ("r2-k200-bins200", "r1-k3-bins5")
+K2_AXES = {"1-axis": dict(CYL_BIND),
+           "2-axis": dict(active=("radius", "aspect"),
+                          active_ranges={"radius": (1e-10, 5e-8),
+                                         "aspect": (1.0, 30.0)})}
+
+
+def _k2_engine(shape, mode, axes="1-axis"):
+    """A cylinder table engine on the card at one of K2_SHAPES, with or
+    without local moves, on a table of one or two axes; 'fixed-axis': the
+    radius alone active on the two-axis table, whose second axis the fixed
+    aspect feeds."""
+    key = ("k2", shape, mode, axes)
+    if key not in _ENGINES:
+        reps, k, n_bin, n = K2_SHAPES[shape]
+        cfg = McSASConfig(num_contribs=n, num_reps=reps, chunk_steps=60,
+                          candidates_per_step=k, seed=5,
+                          max_iterations=1_000_000, table_ff="on",
+                          local_moves=0.5 if mode == "local" else 0.0)
+        data = load(DATA, config=DataConfig(n_bin=n_bin))
+        bind = K2_AXES["1-axis" if axes == "fixed-axis" else axes]
+        eng = McSASEngine(data, get_model("CylindersIsotropic").bind(**bind),
+                          cfg, device="cuda")
+        if axes == "fixed-axis":
+            kern = dataclasses.replace(
+                eng.kern, table=_k2_engine(shape, mode, "2-axis").kern.table,
+                table_fn=tables.make_lookup(("radius", "aspect")))
+            eng.kern = kern
+            eng.spec = dataclasses.replace(eng.spec, kern=kern)
+        _ENGINES[key] = eng
+    return _ENGINES[key]
+
+
+def _k2_segment(eng, ri=9):
+    """(state, cursor, candidates) of one segment from a fresh state."""
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    ri = ri % eng.cfg.num_contribs
+    cands = mc_kernel.segment_candidates(
+        state, ri, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    return state, ri, cands
+
+
+def _run_k2_entry(eng, entry, state, ri, cands, trace=None):
+    """One segment through K2's *entry* ('rows' or 'table'), in place."""
+    if entry == "rows":
+        return mc_kernel.run_prefetch_chunk(
+            state, ri, eng.consts, eng.spec, eng.kern.row(cands), cands,
+            trace=trace)
+    return mc_kernel.run_prefetch_table_chunk(
+        state, ri, eng.consts, eng.spec, cands,
+        mc_kernel.sqrt_weights(eng.spec, cands), trace=trace)
+
+
+_K2_CASES = ([(shape, "1-axis") for shape in sorted(K2_SHAPES)]
+             + [("r3-k48-bins100", "2-axis"), ("r2-k200-bins200", "2-axis"),
+                ("r3-k48-bins100", "fixed-axis")])
+
+
+@pytest.mark.parametrize("entry", ["rows", "table"])
+@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("shape,axes", _K2_CASES)
+def test_prefetch_entries_equal_plain_versions(small_tables, shape, axes,
+                                               mode, entry):
+    """Both entries of K2 against their plain versions over one segment:
+    every decision and every bit of the state equal (the table entry's
+    bank holds the rows the kernel blended, so the blend is bitwise the
+    lookup's)."""
+    eng = _k2_engine(shape, mode, axes)
+    assert eng.uses_table and eng.runs_cuda_kernel
+    assert len(eng.spec.table_layout) == (1 if axes == "1-axis" else 2)
+    assert (eng.spec.table_layout[-1][0] < 0) == (axes == "fixed-axis")
+    state, ri, cands = _k2_segment(eng)
+    counter = (mc_kernel.run_prefetch_chunk if entry == "rows"
+               else mc_kernel.run_prefetch_table_chunk)
+    before = counter.launches
+    ks, kt = state.clone(), {}
+    _, ri_k = _run_k2_entry(eng, entry, ks, ri, cands, kt)
+    assert counter.launches == before + 1
+    ts, tt = state.clone(), {}
+    if entry == "table":
+        _, ri_t = mc_kernel.prefetch_table_reference(
+            ts, ri, eng.consts, eng.spec, cands, trace=tt)
+    else:
+        _, ri_t = mc_kernel.prefetch_reference(
+            ts, ri, eng.consts, eng.spec, eng.kern.row(cands), cands,
+            trace=tt)
+    torch.cuda.synchronize()
+    assert ri_k == ri_t == (ri + eng.seg_steps) % eng.cfg.num_contribs
+    # (local moves on a bank of one slot make a segment of one step)
+    assert eng.seg_steps == 1 or (tt["choice"] >= 0).any()
+    assert torch.equal(kt["choice"], tt["choice"])
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+
+
+@pytest.mark.parametrize("shape", sorted(K2_SHAPES))
+def test_prefetch_launch_shape(small_tables, shape):
+    """K2 runs 8 lanes per candidate, at most one group per candidate and
+    1024 threads, in whole warps; rows come staged through shared memory
+    unless the shape rule sends them directly (K2_DIRECT), the table's
+    corner rows a step ahead unless it reads them from the table."""
+    eng = _k2_engine(shape, "global")
+    state, _, cands = _k2_segment(eng)
+    k = eng.spec.k_cand
+    for rows in (eng.kern.row(cands), None):
+        got = mc_kernel.prefetch_launch_shape(state, eng.consts, eng.spec,
+                                              cands, rows)
+        assert got["group"] == 8, got
+        assert got["threads"] == -(-min(k, 128) * 8 // 32) * 32, got
+        assert 0 < got["registers"] <= 65536 // got["threads"], got
+        assert 0 < got["smem_bytes"] <= 227 * 1024, got
+        assert 1 <= got["ft_parts"] <= got["threads"] // 32, got
+        if rows is None:
+            # the corner rows a step ahead where every candidate has a
+            # group of its own, the grid fits the row registers and a row
+            # is a whole number of 16-byte pieces
+            nq = eng.consts.n
+            want = ("table_ahead" if k <= 128 and nq <= 104 and nq % 4 == 0
+                    else "table")
+        else:
+            want = "direct" if shape in K2_DIRECT else "staged"
+        assert got["source"] == want, got
+    # rows that do not start on 16 bytes are read directly too
+    rows = eng.kern.row(cands)
+    flat = torch.empty(rows.numel() + 1, dtype=rows.dtype, device="cuda")
+    odd = flat[1:].view(rows.shape).copy_(rows)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 4
+    got = mc_kernel.prefetch_launch_shape(state, eng.consts, eng.spec,
+                                          cands, odd)
+    assert got["source"] == "direct", got
+    a, b = state.clone(), state.clone()
+    mc_kernel.run_prefetch_chunk(a, 0, eng.consts, eng.spec, odd, cands)
+    mc_kernel.run_prefetch_chunk(b, 0, eng.consts, eng.spec, rows, cands)
+    torch.cuda.synchronize()
+    assert torch.equal(a.ibank, b.ibank) and torch.equal(a.conval, b.conval)
+
+
+@pytest.mark.parametrize("entry", ["rows", "table"])
+def test_prefetch_probe_full_rung_equals_the_kernel(cylinder, entry):
+    """K3's full rung of K2 is K2 compiled again: bit for bit the same
+    state; a shorter rung changes no state and leaves finite values."""
+    eng = cylinder["local"]
+    state, ri, cands = _k2_segment(eng)
+    rows = eng.kern.row(cands) if entry == "rows" else None
+    sw = mc_kernel.sqrt_weights(eng.spec, cands) if rows is None else None
+    a, b = state.clone(), state.clone()
+    _run_k2_entry(eng, entry, a, ri, cands)
+    before = mc_kernel.run_probe.launches
+    _, ri_b, sink = mc_kernel.run_prefetch_probe(
+        b, ri, eng.consts, eng.spec, "full", cands, rows, sw)
+    assert mc_kernel.run_probe.launches == before + 1 and sink is None
+    assert ri_b == (ri + eng.seg_steps) % eng.cfg.num_contribs
+    torch.cuda.synchronize()
+    assert (a.n_moves > 0).any()
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for level in mc_kernel.PREFETCH_PROBE_LEVELS[:-1]:
+        c = state.clone()
+        _, _, sink = mc_kernel.run_prefetch_probe(
+            c, ri, eng.consts, eng.spec, level, cands, rows, sw)
+        torch.cuda.synchronize()
+        shape = mc_kernel.prefetch_launch_shape(state, eng.consts, eng.spec,
+                                                cands, rows, level)
+        assert sink.shape == (eng.cfg.num_reps, shape["threads"])
+        assert torch.isfinite(sink).all(), level
+        for f in ("rset", "ibank", "conval", "n_iter"):
+            assert torch.equal(getattr(c, f), getattr(state, f)), (level, f)
+
+
 def test_prefetch_kernel_refuses_bad_input(cylinder):
     eng = cylinder["global"]
     state = eng._init_batch()
     cands = eng._draw_chunk_proposals(8)
     rows = eng.kern.row(cands)
+    sw = mc_kernel.sqrt_weights(eng.spec, cands)
+    for bad_sw in (sw.cpu(), sw.double(), sw[..., :5].contiguous(),
+                   sw.transpose(1, 2)):
+        with pytest.raises(ValueError, match="sw"):
+            mc_kernel.run_prefetch_table_chunk(state, 0, eng.consts,
+                                               eng.spec, cands, bad_sw)
+    with pytest.raises(ValueError, match="cands"):
+        mc_kernel.run_prefetch_table_chunk(state, 0, eng.consts, eng.spec,
+                                           cands.cpu(), sw)
     with pytest.raises(ValueError, match="rows"):
         mc_kernel.run_prefetch_chunk(state, 0, eng.consts, eng.spec,
                                      rows.double(), cands)
@@ -275,19 +469,23 @@ def test_table_engine_routes_to_the_prefetch_kernel(cylinder):
     use_pallas='off' runs the plain version there."""
     eng = cylinder["global"]
     k1 = mc_kernel.run_chunk.launches
-    k2 = mc_kernel.run_prefetch_chunk.launches
+    k2 = mc_kernel.run_prefetch_table_chunk.launches
+    k2_rows = mc_kernel.run_prefetch_chunk.launches
     small = eng.cfg.replace(max_iterations=48 * 150, max_retries=0)
     res = McSASEngine(eng.data, eng.bound, small, device="cuda").run()
     assert res.used_table and res.used_prefetch and res.used_pallas
-    assert mc_kernel.run_prefetch_chunk.launches > k2
+    # K2's table entry: the fit path stages no rows
+    assert mc_kernel.run_prefetch_table_chunk.launches > k2
+    assert mc_kernel.run_prefetch_chunk.launches == k2_rows
     assert mc_kernel.run_chunk.launches == k1
     off = McSASEngine(eng.data, eng.bound, small.replace(use_pallas="off"),
                       device="cuda")
     assert off.uses_table and not off.runs_cuda_kernel
-    k2 = mc_kernel.run_prefetch_chunk.launches
+    k2 = mc_kernel.run_prefetch_table_chunk.launches
     res = off.run()
     assert res.used_table and not res.used_prefetch and not res.used_pallas
-    assert mc_kernel.run_prefetch_chunk.launches == k2
+    assert mc_kernel.run_prefetch_table_chunk.launches == k2
+    assert mc_kernel.run_prefetch_chunk.launches == k2_rows
 
 
 # ------------------------------------- K1 of the other elementwise models

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
-"""K1's summation order, on the CPU.
+"""K1's and K2's summation order, on the CPU.
 
-The CUDA chunk kernel K1 (csrc/mc_chunk.cuh) evaluates each candidate with
-a group of G lanes over q: lane l adds the float64 terms of the points l,
+The CUDA chunk kernel K1 (csrc/mc_chunk.cuh) and, at 8 lanes, the prefetch
+kernel K2 (csrc/mc_prefetch.cuh) evaluate each candidate with a group of
+G lanes over q: lane l adds the float64 terms of the points l,
 l + G, l + 2G, ... one by one, and a butterfly tree over the lanes adds
 the lane partials (csrc/mc_common.cuh, mc_group_sum).  The plain version
 (ops/mc_kernel.py, chunk_reference) sums the same float32 terms in float64
@@ -10,7 +11,8 @@ in torch's order.  A float64 sum of 100 float32 terms is almost always
 exact, so both orders should give every candidate the same float32 χ²;
 where one does not, the candidate must be far from the step's decision.
 These tests recompute every candidate's sums of 64 plain steps on each
-suite row's data in the kernel's order and hold the χ² to the plain
+suite row's data (the table-tier row 'cylinders-isotropic' through K2's
+plain version) in the kernel's order and hold the χ² to the plain
 version's.
 """
 import pathlib
@@ -27,12 +29,14 @@ from mcsas_tpu_torch.core import fitcore  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
 from mcsas_tpu_torch.models import get_model  # noqa: E402
 from mcsas_tpu_torch.ops import mc_kernel  # noqa: E402
+from mcsas_tpu_torch.tools import suite  # noqa: E402
 from mcsas_tpu_torch.tools.suite import ROWS  # noqa: E402
 
 GROUPS = (8, 16, 32)       # the group widths K1 and its probe compile
 STEPS = 64
 NEAR_TIE = 1e-6
-DATASETS = ("sphere-headline", *sorted(ROWS))
+CYLINDER = "cylinders-isotropic"      # K2's row, on a 256-row table
+DATASETS = ("sphere-headline", *sorted(ROWS), CYLINDER)
 SPHERE = (pathlib.Path(__file__).resolve().parent.parent / "testdata"
           / "sasfit_sphere-10-1.dat")
 _RECORDS = {}
@@ -104,6 +108,11 @@ def _engine(name):
                           candidates_per_step=128, local_moves=0.5, seed=5)
         return McSASEngine(data, get_model("Sphere").bind(), cfg,
                            device="cpu")
+    if name == CYLINDER:
+        cfg = suite.cylinder_config(num_contribs=40, num_reps=2,
+                                    chunk_steps=STEPS)
+        return McSASEngine(suite.cylinder_golden(), suite.cylinder_bound(),
+                           cfg, device="cpu")
     row = ROWS[name]
     data = row.load()
     cfg = row.config(num_contribs=40, num_reps=2, chunk_steps=STEPS)
@@ -113,7 +122,10 @@ def _engine(name):
 def _records(name, monkeypatch):
     """(engine, [x of each step (R, K, Nq)], trace) of 64 plain steps."""
     if name not in _RECORDS:
-        eng = _engine(name)
+        with monkeypatch.context() as mp:
+            mp.setenv("MCSAS_TPU_TABLE_RES_CAP", "256")
+            mp.delenv("MCSAS_TPU_TABLE_CACHE_DIR", raising=False)
+            eng = _engine(name)
         eng.gen.manual_seed(3)
         state = eng._init_batch()
         props = eng._draw_chunk_proposals(n_steps=STEPS)
@@ -126,8 +138,15 @@ def _records(name, monkeypatch):
         trace = {}
         with monkeypatch.context() as mp:
             mp.setattr(mc_kernel, "solve_scale_bg", recording)
-            mc_kernel.chunk_reference(state, 0, eng.consts, eng.spec, props,
-                                      trace=trace)
+            if eng.uses_table:
+                assert eng.seg_steps == STEPS
+                mc_kernel.prefetch_table_reference(
+                    state, 0, eng.consts, eng.spec,
+                    mc_kernel.segment_candidates(state, 0, eng.spec, props),
+                    trace=trace)
+            else:
+                mc_kernel.chunk_reference(state, 0, eng.consts, eng.spec,
+                                          props, trace=trace)
         assert len(xs) == STEPS
         assert int((trace["choice"] >= 0).sum()) > 0
         _RECORDS[name] = (eng, xs, trace)
@@ -153,9 +172,9 @@ def test_group_sum_order():
 @pytest.mark.parametrize("name", DATASETS)
 def test_kernel_order_gives_the_plain_chi2(name, g, monkeypatch):
     """Every candidate's χ² of 64 plain steps, recomputed in K1's order
-    at g lanes, equals the plain version's in float32; a candidate where
-    it does not is neither step's best and lies more than 1e-6 (relative)
-    above the best, so the step decides the same way."""
+    at g lanes (K2's, at 8), equals the plain version's in float32; a
+    candidate where it does not is neither step's best and lies more than
+    1e-6 (relative) above the best, so the step decides the same way."""
     eng, xs, trace = _records(name, monkeypatch)
     spec = eng.spec
     plain = trace["chi"].numpy()                             # (S, R, K)

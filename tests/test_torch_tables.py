@@ -414,6 +414,214 @@ def test_run_prefetch_chunk_on_cpu_runs_the_plain_version(sphere_path):
                                      cands[..., :0])
 
 
+# ------------------------------------------- K2's table entry on the CPU
+
+_BIND2 = dict(active=("radius", "aspect"),
+              active_ranges={"radius": (1e-10, 5e-8), "aspect": (1.0, 30.0)})
+
+
+def _table_engine(path, bind=_BIND, **kw):
+    return McSASEngine(data.load(path),
+                       get_model("CylindersIsotropic").bind(**bind),
+                       McSASConfig(**_config(table_ff="on", **kw)),
+                       device="cpu")
+
+
+def kernel_blend(values, layout, cands, sw, row_clamp, log=np.log):
+    """K2's in-kernel row blend (csrc/mc_prefetch.cuh, mc2_axis_coords,
+    mc2_blend_setup and K2Blend::blend) as a numpy model, operation by
+    operation in float32 in the kernel's order: per table axis, last
+    first, log, subtract, divide, the two clamps (comparisons, so that a
+    NaN stays), floor, the corner weights chained over the axes; then the
+    corner rows times their weights added in corner order, times sqrt(w),
+    squared, clamped.  *cands* (B, P), *sw* (B,) float32; rows (B, Nq)."""
+    f32 = np.float32
+    n_c = cands.shape[0]
+    idx, cw, stride = [np.zeros(n_c, np.int64)], [np.ones(n_c, f32)], 1
+    with np.errstate(all="ignore"):
+        for col, fixed, l0, dl, n, hi in reversed(layout):
+            v = cands[:, col] if col >= 0 else np.full(n_c, fixed, f32)
+            v = np.where(v < 0, f32(0), v)
+            f = (log(v) - f32(l0)) / f32(dl)
+            f = np.where(f < 0, f32(0), f)
+            f = np.where(f > f32(hi), f32(hi), f)
+            fl = np.floor(f)
+            i = np.where(np.isnan(fl), 0, fl).astype(np.int64)
+            w = f - fl
+            w1 = f32(1) - w
+            idx, cw = ([c + i * stride for c in idx]
+                       + [c + (i + 1) * stride for c in idx],
+                       [x * w1 for x in cw] + [x * w for x in cw])
+            stride *= n
+        assert all(x.dtype == f32 for x in cw)
+        acc = None
+        for c, x in zip(idx, cw):
+            term = values[np.clip(c, 0, values.shape[0] - 1)] * x[:, None]
+            acc = term if acc is None else acc + term
+        fs = acc * sw[:, None]
+        row = fs * fs
+        assert row.dtype == f32
+        return np.where(row > f32(row_clamp), f32(row_clamp), row)
+
+
+def _torch_log(v):
+    return torch.log(torch.as_tensor(v)).numpy()
+
+
+def _fixed_axis_engine(path):
+    """A radius-only engine on the two-axis (radius, aspect) table: the
+    table's second axis is fed by the fixed aspect, not by a column."""
+    te = _table_engine(path)
+    kern = dataclasses.replace(
+        te.kern, table=_table_engine(path, _BIND2).kern.table,
+        table_fn=tables.make_lookup(("radius", "aspect")))
+    te.kern = kern
+    te.spec = dataclasses.replace(te.spec, kern=kern)
+    return te
+
+
+@pytest.mark.parametrize("axes", [1, 2, "fixed"])
+def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
+    """The numpy model of K2's in-kernel blend equals IntensityKernel.row
+    on the cylinder table of one axis, of two, and of two with the second
+    fed by a fixed parameter: off the grid, on its nodes, below and above
+    it (both ends of the clamp), at zero, at a negative and at a NaN
+    candidate (the last two give NaN rows).  Tolerance: bit for bit with
+    PyTorch's float32 log; with numpy's log, bit for bit wherever the two
+    logs agree, and elsewhere (they may differ by one ulp, which moves
+    the blend weight by ulp(log v)/dl) within 1e-5 relative with a floor
+    of 1e-6 of the largest row value — those rows are counted."""
+    if axes != 1:       # 16 x 16 nodes: a quick bake of the two-axis table
+        monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    te = (_fixed_axis_engine(sphere_path) if axes == "fixed"
+          else _table_engine(sphere_path, _BIND if axes == 1 else _BIND2))
+    layout = te.spec.table_layout
+    if axes == "fixed":
+        assert [ax[:2] for ax in layout] == [(0, 0.0), (-1, 10.0)]
+    else:
+        assert [ax[0] for ax in layout] == list(range(axes))
+    assert all(hi == np.float32(n - 1.000001) for *_, n, hi in layout)
+    rs = np.random.default_rng(11)
+    cols = []
+    for (lo, hi), (_, _, l0, dl, n, _) in zip(te.bound.ranges, layout):
+        nodes = np.exp(np.float64(l0) + np.arange(n) * np.float64(dl))
+        cols.append(np.concatenate([
+            np.exp(rs.uniform(np.log(lo), np.log(hi), 150)), nodes,
+            [lo, hi, lo / 10, hi * 10, 0.0, -hi, np.nan]]))
+    if axes == 2:       # every special radius with every kind of aspect
+        cols = [np.concatenate([cols[0], rs.permutation(cols[0])]),
+                np.concatenate([cols[1], cols[1]])]
+    cands = np.stack(cols, axis=1).astype(np.float32)
+    t_cands = torch.as_tensor(cands)
+    want = te.kern.row(t_cands).numpy()
+    sw = mc_kernel.sqrt_weights(te.spec, t_cands).numpy()
+    values = te.kern.table.values.numpy()
+    assert sw.shape == (len(cands),) and sw.dtype == np.float32
+    # a NaN candidate, and a negative one (its volume to a fractional
+    # power, so its sqrt(w), is a NaN): their rows are NaN
+    nan_rows = np.isnan(cands).any(axis=1) | np.isnan(sw)
+    assert nan_rows.sum() >= 2 and np.isnan(want[nan_rows]).all()
+    assert np.isfinite(want[~nan_rows]).all()
+
+    ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp,
+                        log=_torch_log)
+    np.testing.assert_array_equal(ours, want)
+
+    with np.errstate(all="ignore"):
+        pos = np.where(cands < 0, np.float32(0), cands)
+        same_log = (np.log(pos).view(np.int32)
+                    == _torch_log(pos).view(np.int32)).all(axis=1)
+    ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp)
+    np.testing.assert_array_equal(ours[same_log], want[same_log])
+    other = ~same_log & ~nan_rows
+    print(f"{int(other.sum())} of {len(cands)} candidates where numpy's "
+          f"float32 log differs from PyTorch's")
+    np.testing.assert_allclose(ours[other], want[other], rtol=1e-5,
+                               atol=1e-6 * np.abs(want[~nan_rows]).max())
+
+
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_table_entry_plain_version_is_the_rows_reference(sphere_path, mode):
+    """``prefetch_table_reference`` is ``prefetch_reference`` on the
+    lookup's rows, bit for bit; the wrapper of K2's table entry runs it
+    for CPU tensors; and a CPU ``_segment`` gives the state that drawing,
+    moving, looking up and ``prefetch_reference`` give."""
+    te = _table_engine(sphere_path,
+                       **({"local_moves": 0.5} if mode == "local" else {}))
+    te.gen.manual_seed(3)
+    state = te._init_batch()
+    gen_state = te.gen.get_state()
+    cands = mc_kernel.segment_candidates(
+        state, 7, te.spec, te._draw_chunk_proposals(te.seg_steps))
+    want, ri_w = mc_kernel.prefetch_reference(
+        state.clone(), 7, te.consts, te.spec, te.kern.row(cands), cands)
+    assert int(want.n_moves.sum()) > 0
+    plain, ri_p = mc_kernel.prefetch_table_reference(
+        state.clone(), 7, te.consts, te.spec, cands)
+    before = mc_kernel.run_prefetch_table_chunk.launches
+    wrapped, ri_r = mc_kernel.run_prefetch_table_chunk(
+        state.clone(), 7, te.consts, te.spec, cands,
+        mc_kernel.sqrt_weights(te.spec, cands))
+    assert mc_kernel.run_prefetch_table_chunk.launches == before
+    te.gen.set_state(gen_state)
+    seg, ri_s = te._segment(state.clone(), 7)
+    assert ri_w == ri_p == ri_r == ri_s == (7 + te.seg_steps) % N
+    for k, v in state_to_numpy(want).items():
+        for got in (plain, wrapped, seg):
+            np.testing.assert_array_equal(getattr(got, k).numpy(), v)
+
+
+def test_table_entry_refuses_bad_input(sphere_path):
+    """The wrapper of K2's table entry refuses a table, sqrt(w) or axis
+    layout of the wrong shape, dtype or device."""
+    te = _table_engine(sphere_path)
+    state = te._init_batch()
+    cands = te._draw_chunk_proposals(n_steps=6)
+    sw = mc_kernel.sqrt_weights(te.spec, cands)
+    assert tuple(sw.shape) == (6, R, 8) and sw.is_contiguous()
+
+    def run(spec=te.spec, sw=sw, cands=cands):
+        return mc_kernel.run_prefetch_table_chunk(state.clone(), 0,
+                                                  te.consts, spec, cands, sw)
+
+    run()
+    for bad in (sw.double(), sw[:5], sw[..., :4].contiguous(),
+                sw.transpose(1, 2), sw.to("meta")):
+        with pytest.raises(ValueError, match="sw"):
+            run(sw=bad)
+    with pytest.raises(ValueError, match="cands"):
+        run(cands=cands[..., :0])
+    table = te.kern.table
+
+    def with_table(values=table.values, axes=table.axes,
+                   table_fn=te.kern.table_fn):
+        kern = dataclasses.replace(
+            te.kern, table=tables.ParamTable(values=values, axes=axes),
+            table_fn=table_fn)
+        return dataclasses.replace(te.spec, kern=kern)
+
+    for values in (table.values.double(), table.values[:, :5].contiguous(),
+                   table.values.t(), table.values.to("meta")):
+        with pytest.raises(ValueError, match="table"):
+            run(spec=with_table(values=values))
+    (l0, dl, n), = table.axes
+    with pytest.raises(ValueError, match="table"):        # 64 rows, 63 nodes
+        run(spec=with_table(axes=((l0, dl, n - 1),)))
+    with pytest.raises(ValueError, match="2 parameters"):
+        run(spec=with_table(table_fn=tables.make_lookup(("radius",
+                                                         "aspect"))))
+    with pytest.raises(ValueError, match="make_lookup"):
+        run(spec=with_table(table_fn=lambda table, pdict: None))
+    three = tables.make_lookup(("radius", "aspect", "length"))
+    with pytest.raises(ValueError, match="at most 2 table axes"):
+        run(spec=with_table(values=table.values[:8].contiguous(),
+                            axes=((l0, dl, 2),) * 3, table_fn=three))
+    no_table = dataclasses.replace(
+        te.spec, kern=dataclasses.replace(te.kern, table=None))
+    with pytest.raises(ValueError, match="table"):
+        run(spec=no_table)
+
+
 def test_table_engine_routing(sphere_path):
     """A table engine runs segments (K2's plain version on the CPU); with
     the table off the cylinder has no kernel, and 'on' raises."""
