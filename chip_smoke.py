@@ -64,7 +64,34 @@ Phases (any failure raises and the script exits nonzero):
      every model and against both entries of K2, then every rung of
      every model (tools/kern_probe.py), the ff and solve rungs also at
      8, 16 and 32 lanes per candidate, and K2's rungs (loop, rows, solve,
-     full) of both entries, one line each.
+     full) of both entries and of the table entry with the intensity row,
+     one line each;
+ 11. the smeared cylinder main path: ``fit()`` of the suite row
+     'cylinders-smeared' (the slit-smeared cylinder golden, 26 smearing
+     offsets; its 4096-row table holds smeared intensities) on
+     device="cuda" — the cold wall with the bake, then 10/10 converged,
+     max χ² ≤ 1, K2's table entry launched, its rows entry and K1 not,
+     two runs of one seed equal, the vol-weighted mean radius within
+     10 % of the golden 10 nm; the peak allocation of an engine run and
+     of the float64 post pass (the smeared bank in blocks); the warm wall
+     time of five fits;
+ 12. K2's table entry with the intensity row (row = blend·w) against its
+     plain version: one 131-step segment of that fit at full width,
+     without and with local moves 0.5, and the ragged shapes K2_RAGGED on
+     smeared data — every decision identical and every bit of the state
+     equal; kernel and plain version timed;
+ 13. the repaired route: a table that K2's table entry cannot blend (a
+     lookup that does not name its parameters; a table of three axes)
+     launches the rows-in entry from the engine, one segment bit for bit
+     equal to its plain version, and a whole fit through the opaque
+     lookup equal to the cylinder fit of phase 7;
+ 14. the smeared Sphere path, which no kernel runs: ``fit()`` on
+     device="cuda" raises under the default config, naming smearing and
+     use_pallas='off'; under use_pallas='off' the plain chunk is timed
+     (µs per step at the headline shape with 26 smearing offsets) and the
+     reference McSAS's own slit-smeared MC run (100 contributions × 5
+     repetitions, K=128, local moves 0.5) is fitted and held to its
+     fixture.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -249,12 +276,16 @@ def profile_fit(torch, run, card, label, kernel):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device-side events only: the profiler also books each kernel's time
+    # on the operator that launched it (aten::mul, ...), and summing both
+    # would count the eager kernels twice
+    on_device = torch.autograd.DeviceType.CUDA
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if us > 0:
+        if us > 0 and ev.device_type == on_device:
             rows.append((us, ev.count, ev.key))
     if not rows:
         raise AssertionError("[profile] the profiler saw no device time")
@@ -393,10 +424,11 @@ def k2_bound(eng, state0, state1, cands, rows=None, sw=None):
     """bound_ms of the K2 segment that took *state0* to *state1*: the
     candidates, y/u and the state read once, the state written once, and
     rows in: the rows read once, the solves of the steps each repetition
-    ran; table in: the table and *sw* read once, and per candidate and q
-    point the blend besides the solve (a multiply-add per corner of the
-    table's 2^A, the amplitude factor, the square and the clamp) — the
-    same work whatever implements it."""
+    ran; table in: the table and the factors *sw* read once, and per
+    candidate and q point the blend besides the solve (a multiply-add per
+    corner of the table's 2^A, the factor, the clamp and, for an
+    amplitude table, the square) — the same work whatever implements
+    it."""
     k, nq = eng.spec.k_cand, eng.consts.n
     steps = int((state1.n_iter - state0.n_iter).sum()) // k
     n_bytes = 2 * _state_bytes(state0) + 2 * nq * 4 + cands.numel() * 4
@@ -404,8 +436,9 @@ def k2_bound(eng, state0, state1, cands, rows=None, sw=None):
     if rows is not None:
         n_bytes += rows.numel() * 4
     else:
-        n_bytes += (eng.kern.table.values.numel() + sw.numel()) * 4
-        ops += 2 ** len(eng.spec.table_layout) + 3
+        n_bytes += (eng.kern.table.values.numel() + sw.values.numel()) * 4
+        ops += (2 ** len(eng.spec.table_layout) + 2
+                + (not eng.kern.table_is_intensity))
     return bound_ms(n_bytes, steps * k * nq * ops)
 
 
@@ -427,9 +460,10 @@ def states_equal(torch, name, a, b):
 def k2_entries(mc_kernel, eng, cands):
     """{entry: (kernel(state, ri, n, trace), plain(state, ri, n, trace))}
     of K2's two entries over the first n steps of *cands*: 'rows' on the
-    rows the engine's lookup gives, 'table' on the table and sqrt(w)."""
+    rows the engine's lookup gives, 'table' on the table and its factors
+    (sqrt(w), or w for an intensity table)."""
     rows = eng.kern.row(cands)
-    sw = mc_kernel.sqrt_weights(eng.spec, cands)
+    sw = mc_kernel.table_factors(eng.spec, cands)
     c, sp = eng.consts, eng.spec
     return rows, sw, {
         "rows": (
@@ -439,7 +473,8 @@ def k2_entries(mc_kernel, eng, cands):
                 st, ri, c, sp, rows[:n], cands[:n], trace=tr)),
         "table": (
             lambda st, ri, n, tr=None: mc_kernel.run_prefetch_table_chunk(
-                st, ri, c, sp, cands[:n], sw[:n], trace=tr),
+                st, ri, c, sp, cands[:n], sw._replace(values=sw.values[:n]),
+                trace=tr),
             lambda st, ri, n, tr=None: mc_kernel.prefetch_table_reference(
                 st, ri, c, sp, cands[:n], trace=tr))}
 
@@ -472,39 +507,44 @@ def check_k2(torch, mc_kernel, name, eng, state0, cands, need=True):
 
 
 def check_k2_ragged(torch, mc_kernel, engine_cls, load, data_config,
-                    get_model, cyl_cfg, card):
+                    get_model, cyl_cfg, card, smearing=None):
     """Both entries of K2 against their plain versions at the K2_RAGGED
     shapes, 64 steps each (with local moves at most N, a segment visiting
     each slot once), without and with local moves: the cylinder model on
     the headline data rebinned to the shape's bins, its table baked at
-    that grid.  Returns the compared windows and the largest |delta
-    chi2|."""
+    that grid; with a *smearing* config the data is smeared and the table
+    holds intensities.  Returns the compared windows and the largest
+    |delta chi2|."""
     windows, worst = [], 0.0
+    tag = "K2" if smearing is None else "K2 intensity"
     for label, (reps, k, n_bin, n) in K2_RAGGED.items():
         two = label.endswith("2axes")
         bound = get_model("CylindersIsotropic").bind(
             active=("radius", "aspect") if two else ("radius",),
             active_ranges=dict({"radius": (1e-10, 5e-8)},
                                **({"aspect": (1.0, 30.0)} if two else {})))
-        data = load(DATA, config=data_config(n_bin=n_bin))
+        data = load(DATA, config=data_config(n_bin=n_bin,
+                                             smearing=smearing))
         for local in (0.0, 0.5):
             eng = engine_cls(data, bound, cyl_cfg.replace(
                 num_contribs=n, num_reps=reps, candidates_per_step=k,
                 local_moves=local), device="cuda")
+            if eng.kern.table_is_intensity != (smearing is not None):
+                raise AssertionError(f"[{tag} {label}] table kind")
             eng.gen.manual_seed(5)
             state0 = eng._init_batch()
             steps = min(64, n) if local else 64
             cands = mc_kernel.segment_candidates(
                 state0, 0, eng.spec, eng._draw_chunk_proposals(steps))
             rows, _, _, win, errs = check_k2(
-                torch, mc_kernel, f"K2 {label} local_moves={local}", eng,
+                torch, mc_kernel, f"{tag} {label} local_moves={local}", eng,
                 state0, cands, need=False)
             windows += win
             worst = max(worst, *errs)
         for r_ in (rows, None):
             shape = mc_kernel.prefetch_launch_shape(
                 state0, eng.consts, eng.spec, cands, r_)
-            print(f"[shape] K2 {'rows' if r_ is not None else 'table'} in "
+            print(f"[shape] {tag} {'rows' if r_ is not None else 'table'} in "
                   f"at {label} (K={k} Nq={eng.consts.n}, "
                   f"{len(eng.spec.table_layout)} table axes): {shape}; "
                   f"{card}", flush=True)
@@ -760,9 +800,28 @@ def probe_phase(torch, mc_kernel, card):
         if not (a.n_moves > 0).all():
             raise AssertionError(f"[probe] K2 {entry} in accepted nothing")
     del rows, entries
+    # the table entry with the intensity row, on the smeared cylinder row
+    seng = McSASEngine(suite.cylinder_smeared_golden(),
+                       suite.cylinder_bound(),
+                       suite.cylinder_config(local_moves=0.5), device="cuda")
+    seng.gen.manual_seed(4)
+    sstate0 = seng._init_batch()
+    scands = mc_kernel.segment_candidates(
+        sstate0, 0, seng.spec, seng._draw_chunk_proposals(seng.seg_steps))
+    factors = mc_kernel.table_factors(seng.spec, scands)
+    a, b = sstate0.clone(), sstate0.clone()
+    mc_kernel.run_prefetch_table_chunk(a, 0, seng.consts, seng.spec, scands,
+                                       factors)
+    mc_kernel.run_prefetch_probe(b, 0, seng.consts, seng.spec, "full",
+                                 scands, None, factors)
+    torch.cuda.synchronize()
+    states_equal(torch, "probe, K2 table in, intensity row, full rung", a, b)
+    if factors.kind != "w" or not (a.n_moves > 0).all():
+        raise AssertionError("[probe] K2 intensity row: factor kind "
+                             f"{factors.kind!r}, or nothing accepted")
     print(f"[probe] full rung equal to K2 bit for bit in every state field "
-          f"over one {eng.seg_steps}-step segment, both entries",
-          flush=True)
+          f"over one {eng.seg_steps}-step segment, both entries and the "
+          f"table entry with the intensity row", flush=True)
     print(f"[probe] the rungs, one JSON line each, on {card}:", flush=True)
     reset_counts(mc_kernel)
     recs = kern_probe.run(launches=3) + kern_probe.run_prefetch(launches=3)
@@ -793,6 +852,292 @@ def probe_phase(torch, mc_kernel, card):
                 bound_by=b_by, rungs=recs)
 
 
+SLIT = dict(do_smear=True, n_steps=25, umbra=0.05e9, penumbra=0.2e9)
+# proposals of the JAX package's TPU round on 'cylinders-smeared'
+# (BENCHMARKS.md:57): a count
+JAX_SMEARED_ITERS = "4,325,376"
+
+
+def smeared_cylinder_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
+                           suite, card, profiling):
+    """Phase 11: the suite row 'cylinders-smeared' through the normal
+    ``fit()`` on the card.  Returns (its K2 launches, the golden, binding
+    and config)."""
+    golden = suite.cylinder_smeared_golden()
+    bound, cfg = suite.cylinder_bound(), suite.cylinder_config()
+    if golden.locs.shape != (golden.count, 26) or golden.count != 100:
+        raise AssertionError(f"smeared golden: locs {golden.locs.shape}")
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(golden, bound, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    first, cold = timed()                  # bakes the smeared table
+    reset_counts(mc_kernel)
+    res, wall = timed()
+    table_in = mc_kernel.run_prefetch_table_chunk.launches
+    rows_in = mc_kernel.run_prefetch_chunk.launches
+    k1 = mc_kernel.run_chunk.launches
+    walls = [wall] + [timed()[1] for _ in range(4)]
+    e = res.engine
+    for r_ in (first, res):
+        if not (r_.engine.converged.all()
+                and r_.engine.conval.max() <= 1.0):
+            raise AssertionError(
+                f"smeared cylinder path: {int(r_.engine.converged.sum())}/10"
+                f" converged, max chi2 {r_.engine.conval.max()}")
+    if table_in <= 0 or rows_in or k1:
+        raise AssertionError(
+            f"smeared cylinder path: {table_in} launches of K2's table "
+            f"entry, {rows_in} of its rows entry, {k1} of K1")
+    if not (e.used_table and e.used_prefetch and e.used_pallas):
+        raise AssertionError("smeared cylinder path: used_table/"
+                             "used_prefetch not both set")
+    if not np.array_equal(first.engine.contribs, e.contribs):
+        raise AssertionError("smeared cylinder path: two runs of one seed "
+                             "differ")
+    if not (e.contribs.shape == (10, 300, 1)
+            and np.isfinite(e.contribs).all()
+            and np.isfinite(res.fractions.measval).all()
+            and res.fractions.measval.shape == (10, golden.count)):
+        raise AssertionError("smeared cylinder path: wrong shape or "
+                             "non-finite values")
+    mean_r = float(res.histograms[0].moments.mean[0])
+    if not abs(mean_r - GOLDEN_RADIUS) <= 0.1 * GOLDEN_RADIUS:
+        raise AssertionError(f"smeared cylinder path: vol-weighted mean "
+                             f"radius {mean_r!r} m, golden {GOLDEN_RADIUS}")
+    # the fit's fitted curve against the data it fitted: chi2 <= 1 in the
+    # float64 post pass too (the exact smeared quadrature, not the table)
+    eng = engine_cls(golden, bound, cfg, device="cuda")
+    if not (eng.kern.table_is_intensity and eng.prefetch_entry == "table"
+            and eng.seg_steps == 131
+            and tuple(eng.kern.table.values.shape) == (4096, 100)):
+        raise AssertionError("smeared cylinder engine: not the intensity "
+                             "table through K2's table entry")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    run = eng.run()
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated() - mem0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    histogram_all(run.contribs, golden, bound, cfg, None, device=eng.device)
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    post_peak = torch.cuda.max_memory_allocated() - mem0
+    whole_bank = 10 * 300 * 100 * 26 * 99 * 8
+    # in blocks: the whole pass stays below ONE unblocked temporary of the
+    # bank's evaluation (which holds a dozen of them at once)
+    if not post_peak < whole_bank:
+        raise AssertionError(f"smeared post pass allocated {post_peak} B; "
+                             f"one unblocked temporary is {whole_bank} B")
+    print(f"[fit cylinders-smeared] 10/10 converged, max chi2 "
+          f"{e.conval.max():.4f}, {table_in} K2 launches (table in, "
+          f"intensity rows; rows in {rows_in}, K1 {k1}), total_iters "
+          f"{e.total_iters} (the JAX package's TPU round: "
+          f"{JAX_SMEARED_ITERS}, a count), cold wall with the bake "
+          f"{cold:.4f} s, warm wall {wall:.4f} s (engine {e.elapsed:.4f} "
+          f"s), {e.total_iters / e.elapsed:.4g} proposals/s; warm walls of "
+          f"5 fits {walls}, median {float(np.median(walls)):.4f} s; "
+          f"vol-weighted mean radius {mean_r * 1e9:.4f} nm (golden 10); "
+          f"peak allocation of an engine run {run_peak} B, of the float64 "
+          f"post pass {post_peak} B in {post_s:.4f} s (one unblocked "
+          f"temporary of its bank: {whole_bank} B); on {card}", flush=True)
+    if profiling:
+        profile_fit(torch, lambda: fit(golden, bound, cfg, device="cuda"),
+                    card, "cylinders-smeared", "mc_prefetch")
+    return table_in, golden, bound, cfg
+
+
+def intensity_kernel_phase(torch, mc_kernel, engine_cls, load, data_config,
+                           get_model, smearing_cls, golden, bound, cfg,
+                           card):
+    """Phase 12: K2's table entry with the intensity row against its plain
+    version at the smeared cylinder fit's full width and at the ragged
+    shapes.  Returns the kernel line's numbers."""
+    windows, errs, out = [], [], None
+    for local in (0.0, 0.5):
+        eng = engine_cls(golden, bound, cfg.replace(local_moves=local),
+                         device="cuda")
+        if not (eng.kern.table_is_intensity and eng.seg_steps == 131):
+            raise AssertionError("intensity phase: not the smeared table "
+                                 "engine")
+        eng.gen.manual_seed(1)
+        state0 = eng._init_batch()
+        cands = mc_kernel.segment_candidates(
+            state0, 0, eng.spec, eng._draw_chunk_proposals(131))
+        name = f"K2 intensity local_moves={local}"
+        rows, sw, entries, win, err = check_k2(torch, mc_kernel, name, eng,
+                                               state0, cands)
+        if sw.kind != "w":
+            raise AssertionError(f"[{name}] factor kind {sw.kind!r}")
+        windows += win
+        errs += err
+        work = state0.clone()
+        kernel, plain = entries["table"]
+        ms = time_chunk(torch, lambda: kernel(work.copy_(state0), 0, 131),
+                        10)
+        b_ms, b_by = k2_bound(eng, state0, work, cands, None, sw)
+        plain_ms = time_chunk(torch, lambda: plain(work.copy_(state0), 0,
+                                                   131), 2)
+        f_ms = time_chunk(
+            torch, lambda: mc_kernel.table_factors(eng.spec, cands), 10)
+        shape = mc_kernel.prefetch_launch_shape(state0, eng.consts,
+                                                eng.spec, cands)
+        print(f"[time] {name} table in: 131-step segment at R=10 N=300 "
+              f"K=128 Nq={golden.count} (reset copy included), {card}: "
+              f"kernel {ms:.3f} ms ({ms * 1e3 / 131:.2f} us per step), "
+              f"plain PyTorch {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}); the factors w outside the kernel {f_ms:.4f} ms; "
+              f"shape {shape}", flush=True)
+        if not local:
+            out = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, shape=shape)
+        del rows, entries
+    ragged, ragged_err = check_k2_ragged(
+        torch, mc_kernel, engine_cls, load, data_config, get_model, cfg,
+        card, smearing=smearing_cls(**dict(SLIT, n_steps=4)))
+    print(f"[ragged] K2 with the intensity row, both entries against their "
+          f"plain versions at {len(K2_RAGGED)} ragged shapes x 2 proposal "
+          f"modes: max |chi2 kernel - plain| {ragged_err!r}", flush=True)
+    out.update(max_abs_err=max(errs + [ragged_err]),
+               compared=windows + ragged)
+    return out
+
+
+def route_phase(torch, mc_kernel, fit, engine_cls, suite, cyl_contribs, card):
+    """Phase 13: tables that K2's table entry cannot blend run through its
+    rows-in entry from the engine."""
+    golden, cfg = suite.cylinder_golden(), suite.cylinder_config()
+    for kind in ("opaque-lookup", "three-axes"):
+        bound = suite.unblendable_cylinder(kind)
+        eng = engine_cls(golden, bound, cfg, device="cuda")
+        refusal = mc_kernel.table_blend_refusal(eng.kern)
+        if not (eng.uses_table and eng.runs_cuda_kernel
+                and eng.prefetch_entry == "rows" and refusal):
+            raise AssertionError(f"[route {kind}] entry "
+                                 f"{eng.prefetch_entry!r}, refusal "
+                                 f"{refusal!r}")
+        eng.gen.manual_seed(1)
+        state0 = eng._init_batch()
+        gen_state = eng.gen.get_state()
+        cands = mc_kernel.segment_candidates(
+            state0, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+        ts = state0.clone()
+        mc_kernel.prefetch_table_reference(ts, 0, eng.consts, eng.spec,
+                                           cands)
+        eng.gen.set_state(gen_state)
+        reset_counts(mc_kernel)
+        ks, _ = eng._segment(state0.clone(), 0)
+        torch.cuda.synchronize()
+        counts = (mc_kernel.run_prefetch_chunk.launches,
+                  mc_kernel.run_prefetch_table_chunk.launches)
+        if counts != (1, 0):
+            raise AssertionError(f"[route {kind}] launches (rows in, table "
+                                 f"in) {counts}, want (1, 0)")
+        states_equal(torch, f"route {kind}", ks, ts)
+        if not (ks.n_moves > 0).all():
+            raise AssertionError(f"[route {kind}] accepted nothing")
+        print(f"[route {kind}] table of {tuple(eng.kern.table.values.shape)}"
+              f", {len(eng.kern.table.axes)} axes ({refusal}): the engine's "
+              f"{eng.seg_steps}-step segment launched K2's rows-in entry "
+              f"once, its table entry never, and equals the plain version "
+              f"bit for bit", flush=True)
+    # a whole fit through the opaque lookup: the cylinder fit's rows, so
+    # the cylinder fit's result (both entries equal the plain version)
+    reset_counts(mc_kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(golden, suite.unblendable_cylinder("opaque-lookup"), cfg,
+              device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows_in = mc_kernel.run_prefetch_chunk.launches
+    if (rows_in <= 0 or mc_kernel.run_prefetch_table_chunk.launches
+            or mc_kernel.run_chunk.launches):
+        raise AssertionError(f"[route fit] {rows_in} rows-in launches")
+    if not np.array_equal(res.engine.contribs, cyl_contribs):
+        raise AssertionError("[route fit] the fit through the rows-in entry "
+                             "differs from the fit through the table entry")
+    print(f"[route fit] cylinder fit through K2's rows-in entry: "
+          f"{rows_in} launches, 10/10 converged "
+          f"{bool(res.engine.converged.all())}, equal to the fit through "
+          f"the table entry in every contribution; wall {wall:.4f} s on "
+          f"{card}", flush=True)
+    return rows_in
+
+
+def smeared_sphere_phase(torch, mc_kernel, fit, engine_cls, load,
+                         data_config, smearing_cls, get_model, cfg, suite,
+                         card):
+    """Phase 14: the smeared Sphere path (no kernel): the default config
+    raises on the card; the plain chunk timed; the reference's smeared MC
+    run fitted with the plain chunk and held to its fixture."""
+    data = load(DATA, config=data_config(smearing=smearing_cls(**SLIT)))
+    try:
+        fit(data, "Sphere", cfg, device="cuda")
+    except ValueError as exc:
+        text = str(exc)
+        if "smeared" not in text or "use_pallas='off'" not in text:
+            raise AssertionError(f"smeared Sphere: error text {text!r}")
+        print(f"[smeared sphere] fit(device='cuda') under the default "
+              f"config raises: {text}", flush=True)
+    else:
+        raise AssertionError("smeared Sphere fit on the card did not raise "
+                             "under use_pallas='auto'")
+    off = cfg.replace(use_pallas="off")
+    eng = engine_cls(data, get_model("Sphere").bind(), off, device="cuda")
+    if eng.runs_cuda_kernel or eng.kern.locs.shape != (data.count, 26):
+        raise AssertionError("smeared Sphere: not the plain chunk on 26 "
+                             "offsets")
+    eng.gen.manual_seed(1)
+    state0 = eng._init_batch()
+    work = state0.clone()
+    steps = 200
+    props = eng._draw_chunk_proposals(n_steps=steps)
+    reset_counts(mc_kernel)
+    ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+        work.copy_(state0), 0, eng.consts, eng.spec, props), 2)
+    print(f"[smeared sphere] plain chunk, {steps} steps at R=10 N=300 K=128 "
+          f"Nq={data.count} with 26 smearing offsets (local moves 0.5), "
+          f"{card}: {ms:.2f} ms, {ms * 1e3 / steps:.1f} us per step (K1 "
+          f"unsmeared at this shape: see mc_chunk[Sphere])", flush=True)
+    fix, d, bound, mcfg = suite.smearmc_workload(
+        candidates_per_step=128, local_moves=0.5, chunk_steps=250,
+        use_pallas="off")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(d, bound, mcfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if mc_kernel.run_chunk.launches or res.engine.used_pallas:
+        raise AssertionError("smeared Sphere: a kernel was launched under "
+                             "use_pallas='off'")
+    got = suite.check_smearmc(fix, d, bound, mcfg, res.engine,
+                              weights=("vol",), check_moments=False,
+                              device="cuda")
+    e = res.engine
+    # the repetitions step together until the last has converged: without
+    # a retry the engine ran the longest repetition's steps, in whole chunks
+    per_step = "a retry ran: steps not counted"
+    if e.total_iters == int(e.n_iter.sum()):
+        ran = -(-int(e.n_iter.max()) // (128 * 250)) * 250
+        per_step = (f"{ran} steps of all 5 repetitions, "
+                    f"{e.elapsed * 1e6 / ran:.1f} us per step")
+    print(f"[smeared sphere] the reference McSAS's slit-smeared MC run "
+          f"(100 x 5, K=128, local moves 0.5, Nq={d.count}, 26 offsets) "
+          f"with the plain chunk on the card: 5/5 converged, max chi2 "
+          f"{e.conval.max():.4f}, total_iters {e.total_iters}, wall "
+          f"{wall:.3f} s (engine {e.elapsed:.3f} s, {per_step}); against "
+          f"the reference's fixture: {got}; on {card}", flush=True)
+    return ms * 1e3 / steps
+
+
 def main():
     import torch
     profiling = "--profile" in sys.argv[1:]
@@ -809,7 +1154,7 @@ def main():
     from mcsas_tpu_torch import fit, load
     from mcsas_tpu_torch.config import McSASConfig
     from mcsas_tpu_torch.core.engine import McSASEngine
-    from mcsas_tpu_torch.data import DataConfig
+    from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing
     from mcsas_tpu_torch.models import get_model
     from mcsas_tpu_torch.ops import mc_kernel
     from mcsas_tpu_torch.post.histogram import HistogramSpec, histogram_all
@@ -1151,10 +1496,11 @@ def main():
 
     # ---- phase 10: K3, the latency probe
     probe = probe_phase(torch, mc_kernel, card)
-    for entry in ("rows", "table"):
+    for entry in ("rows", "table", "intensity"):
         by_lv = {r["level"]: r["us_per_step"] for r in probe["rungs"]
                  if r.get("kernel") == "K2" and r["entry"] == entry}
-        print(f"[probe] K2 {entry} in, us per step by rung: "
+        print(f"[probe] K2 {entry}{'' if entry == 'intensity' else ' in'}, "
+              f"us per step by rung: "
               + ", ".join(f"{lv}: {by_lv[lv]:.3f}"
                           for lv in mc_kernel.PREFETCH_PROBE_LEVELS)
               + f"; {card}", flush=True)
@@ -1169,6 +1515,24 @@ def main():
               + ", ".join(f"{g}: {by_g[('solve', g)]:.3f}"
                           for g in mc_kernel.PROBE_GROUPS)
               + f"; {card}", flush=True)
+
+    # ---- phase 11: the smeared cylinder main path
+    smeared_launches, sgolden, sbound, scfg = smeared_cylinder_phase(
+        torch, mc_kernel, fit, McSASEngine, histogram_all, suite, card,
+        profiling)
+
+    # ---- phase 12: K2's table entry with the intensity row
+    k2_int = intensity_kernel_phase(
+        torch, mc_kernel, McSASEngine, load, DataConfig, get_model,
+        TrapezoidSmearing, sgolden, sbound, scfg, card)
+
+    # ---- phase 13: the repaired route (tables the table entry cannot blend)
+    route_phase(torch, mc_kernel, fit, McSASEngine, suite, ce.contribs, card)
+
+    # ---- phase 14: the smeared Sphere path (the plain chunk)
+    smeared_sphere_phase(torch, mc_kernel, fit, McSASEngine, load,
+                         DataConfig, TrapezoidSmearing, get_model, cfg,
+                         suite, card)
 
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
@@ -1208,6 +1572,16 @@ def main():
         "bound_by": k2["table"]["bound_by"], "library_ms": None,
         "shape": k2["table"]["shape"], "entry": "table in (the fit path)",
         "rows_in": k2["rows"], "compared": k2_windows})
+    kernels.append({
+        "name": "mc_prefetch[intensity]", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",
+        "replaces": "mcsas_tpu/ops/mc_kernel.py:719",
+        "launches": smeared_launches, "max_abs_err": k2_int["max_abs_err"],
+        "ms": k2_int["ms"], "plain_ms": k2_int["plain_ms"],
+        "bound_ms": k2_int["bound_ms"], "bound_by": k2_int["bound_by"],
+        "library_ms": None, "shape": k2_int["shape"],
+        "entry": "table in, intensity rows (the smeared fit path)",
+        "compared": k2_int["compared"]})
     kernels.append({
         "name": "mc_probe", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_probe.cu",

@@ -32,6 +32,7 @@ incremental float32 drift to one chunk.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 import math
 import time
@@ -189,12 +190,17 @@ class IntensityKernel:
     ``row_clamp``.  ffv is the model's form factor on the fit grid or,
     on the parameter-table tier, ``table_fn(table, pdict)``: the
     multilinear blend of the baked rows (ops/tables.py), which plays the
-    part of the model's weights.  The scalars are what the CUDA kernels
-    need to compute or consume the same rows.  The volume is scaled by a
-    multiplication with the host reciprocal of v_ref, which eager PyTorch
-    performs identically on the CPU and on CUDA (PyTorch turns a CUDA
-    division by a host scalar into that multiplication), so the kernel can
-    match it bitwise.
+    part of the model's weights.  For smeared data (``locs`` set) the
+    form factor is evaluated on the (Nq, n_off) grid of smearing offsets
+    and the row is ((ffv·√w)²) @ smear_w; a smeared table
+    (``table_is_intensity``) holds ff²(locs) @ smear_w already, and its
+    row is blend·w (reference smearing path:
+    src/mcsas/bases/model/sasmodel.py:56-73).  The scalars are what the
+    CUDA kernels need to compute or consume the same rows.  The volume is
+    scaled by a multiplication with the host reciprocal of v_ref, which
+    eager PyTorch performs identically on the CPU and on CUDA (PyTorch
+    turns a CUDA division by a host scalar into that multiplication), so
+    the kernel can match it bitwise.
     """
     bound: BoundModel
     model_ff: Callable        # ff(grid, pdict), when there is no table
@@ -206,6 +212,12 @@ class IntensityKernel:
     row_clamp: float
     table: Optional[ParamTable] = None
     table_fn: Optional[Callable] = None   # (table, pdict) -> (..., Nq)
+    # smeared data: the (Nq, n_off) evaluation grid and the contraction
+    # vector (n_off,), engine dtype and device
+    locs: Optional[torch.Tensor] = None
+    smear_w: Optional[torch.Tensor] = None
+    # the table's rows are smeared intensities, not amplitudes
+    table_is_intensity: bool = False
 
     def weight(self, pd: dict):
         """w = (v·inv_v_ref)^comp2 / i_ref of a parameter dict: a tensor,
@@ -214,20 +226,36 @@ class IntensityKernel:
         return ((self.bound.model.volume(pd) * self.inv_v_ref) ** self.comp2
                 * self.inv_i_ref)
 
-    def sqrt_weight(self, pvec: torch.Tensor) -> torch.Tensor:
-        """√w of parameter vectors (..., P): shape (..., 1), or 0-dim
-        when the volume depends on no active parameter."""
+    def row_weight(self, pvec: torch.Tensor) -> torch.Tensor:
+        """w of parameter vectors (..., P) in the engine dtype: shape
+        (..., 1), or 0-dim when the volume depends on no active
+        parameter."""
         w = self.weight(self.bound.pdict(pvec[..., None, :]))
-        return torch.sqrt(torch.as_tensor(w, dtype=self.grid.dtype,
-                                          device=self.grid.device))
+        return torch.as_tensor(w, dtype=self.grid.dtype,
+                               device=self.grid.device)
+
+    def sqrt_weight(self, pvec: torch.Tensor) -> torch.Tensor:
+        """√w of parameter vectors (..., P), shaped as
+        :meth:`row_weight`."""
+        return torch.sqrt(self.row_weight(pvec))
 
     def row(self, pvec: torch.Tensor) -> torch.Tensor:
+        if self.table_is_intensity:
+            row = (self.table_fn(self.table, self.bound.pdict(pvec))
+                   * self.row_weight(pvec))
+            return torch.clamp_max(row, self.row_clamp)
         # normalize at AMPLITUDE level, (ffv·√w)² rather than ffv²·w: raw
         # |ff|² alone can underflow float32 (and 1/i_ref alone overflow
         # it), while the amplitude-scaled product is O(1) by construction
         s = self.sqrt_weight(pvec)
         if self.table is not None:
             ffv = self.table_fn(self.table, self.bound.pdict(pvec))
+        elif self.locs is not None:
+            # two grid axes (Nq, n_off) behind the parameter batch
+            ffv = self.model_ff(self.locs,
+                                self.bound.pdict(pvec[..., None, None, :]))
+            fs = ffv * (s[..., None] if s.dim() else s)
+            return torch.clamp_max((fs * fs) @ self.smear_w, self.row_clamp)
         else:
             ffv = self.model_ff(self.grid,
                                 self.bound.pdict(pvec[..., None, :]))
@@ -235,37 +263,60 @@ class IntensityKernel:
         return torch.clamp_max(fs * fs, self.row_clamp)
 
 
+def _takes_smear(factory) -> bool:
+    """True when a table factory declares the ``smear`` keyword."""
+    try:
+        return "smear" in inspect.signature(factory).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def make_intensity_kernels(bound: BoundModel, data: SASData,
                            cfg: McSASConfig, dtype=torch.float32,
                            device="cpu") -> IntensityKernel:
-    """Builds the intensity row for the fit grid (unsmeared 1D data).
+    """Builds the intensity row for the fit grid of 1D data, smeared
+    (``data.locs`` and ``data.smear_w``) or not.
 
     A float32 engine of a model with a table factory reads its form
     factor from a parameter table baked on *device* when
-    ``cfg.table_ff_enabled()`` (the JAX package's table branch,
-    mcsas_tpu/core/engine.py:236-279)."""
+    ``cfg.table_ff_enabled()``; for smeared data the table holds the
+    smeared intensity, baked against the dataset's own contraction, and
+    only a factory that declares the ``smear`` keyword is asked for one
+    (the JAX package's table branch, mcsas_tpu/core/engine.py:236-279)."""
     if data.psi is not None and bound.model.ff2d is not None:
         raise NotImplementedError(
             "2D (q, psi) fitting is not ported to PyTorch yet")
-    if data.uses_smearing and bound.model.can_smear:
-        raise NotImplementedError("smeared fitting is not ported to "
-                                  "PyTorch yet")
+    smearing = data.uses_smearing and bound.model.can_smear
     comp2 = 2.0 * cfg.compensation_exponent
     v_ref = bound.reference_volume()
     grid = torch.as_tensor(np.asarray(data.q, np.float64)).to(
         device=device, dtype=dtype)
-    i_ref = magnitude_probe(bound, data.q)
+    locs = smear_w = None
+    if smearing:
+        locs = torch.as_tensor(np.asarray(data.locs, np.float64)).to(
+            device=device, dtype=dtype)
+        smear_w = torch.as_tensor(np.asarray(data.smear_w, np.float64)).to(
+            device=device, dtype=dtype)
+    i_ref = magnitude_probe(bound, data.locs if smearing else data.q)
     model_ff = bound.model.ff
     if dtype == torch.float32 and bound.model.ff_fast is not None:
         model_ff = bound.model.ff_fast
     table = table_fn = None
+    table_is_intensity = False
     factory = bound.model.ff_table_factory
+    if smearing and factory is not None and not _takes_smear(factory):
+        factory = None      # a factory that predates smeared tables
     if (dtype == torch.float32 and factory is not None
             and cfg.table_ff_enabled()):
+        kw = {}
+        if smearing:
+            kw["smear"] = (np.asarray(data.locs, np.float64),
+                           np.asarray(data.smear_w, np.float64))
         made = factory(bound, np.asarray(data.q, np.float64), dtype,
-                       torch.device(device))
+                       torch.device(device), **kw)
         if made is not None:
-            table_fn, table = made
+            table_fn, table = made[:2]
+            table_is_intensity = len(made) == 3 and made[2] == "intensity"
 
     # float32 overflow guard: candidate rows at extreme range corners can
     # reach (v/v_ref)^(2c)·(ff/ff_ref)² ≈ 1e20, and the solve's Σu·x²
@@ -286,7 +337,9 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
                            w_ref=v_ref ** comp2 * i_ref,
                            inv_v_ref=1.0 / v_ref, comp2=comp2,
                            inv_i_ref=1.0 / i_ref, row_clamp=row_clamp,
-                           table=table, table_fn=table_fn)
+                           table=table, table_fn=table_fn, locs=locs,
+                           smear_w=smear_w,
+                           table_is_intensity=table_is_intensity)
 
 
 class McSASEngine:
@@ -334,6 +387,10 @@ class McSASEngine:
         # plain version), any other engine as K1 chunks
         self.seg_steps = (mc_kernel.prefetch_seg_steps(self)
                           if self.uses_table else None)
+        # which entry of K2 a segment launches: 'table' where the kernel
+        # can blend this table itself, 'rows' where the rows are staged
+        # with the eager lookup first; None without K2
+        self.prefetch_entry = mc_kernel.prefetch_entry(self)
         self.runs_cuda_kernel = self._kernel_route()
         self.gen = torch.Generator(device=self.device)
 
@@ -346,16 +403,19 @@ class McSASEngine:
         if mode == "off":
             return False
         on_card = self.device.type == "cuda"
-        ok = (mc_kernel.supports_prefetch(self) if self.uses_table
+        ok = (self.prefetch_entry is not None if self.uses_table
               else mc_kernel.supports(self))
         if not ok and (mode == "on" or on_card):
+            smeared = (self.kern.locs is not None and not self.uses_table)
             raise ValueError(
                 f"use_pallas={mode!r} on {self.device.type} but this "
                 "model/config is not eligible for a chunk kernel (K1: "
                 "Sphere, LMADenseSphere, GaussianChain or "
                 "SphericalCoreShell, unsmeared, float32; K2: the "
-                "parameter-table tier, float32); pass use_pallas='off' for "
-                "the plain PyTorch chunk")
+                "parameter-table tier, float32, smeared tables included)"
+                + ("; this fit is smeared and its model has no parameter "
+                   "table, so no kernel runs its rows" if smeared else "")
+                + "; pass use_pallas='off' for the plain PyTorch chunk")
         return on_card
 
     def _k_local(self) -> int:
@@ -433,17 +493,22 @@ class McSASEngine:
         """One prefetch segment (mcsas_tpu/core/engine.py:404-417 and
         mc_kernel.py:771-818): the whole segment's proposals are drawn,
         the local ones moved around the segment-start slot values; then
-        one launch of K2's table entry blends every candidate's row from
-        the table and runs the solve/accept sequence (its plain version
-        evaluates the (S, R, K, Nq) rows with the table lookup first)."""
+        one launch of K2 runs the solve/accept sequence: its table entry
+        blends every candidate's row from the table itself; for a table
+        it cannot blend (``prefetch_entry == 'rows'``) the (S, R, K, Nq)
+        rows are evaluated with the table lookup first and go to its
+        rows entry, as the plain version does everywhere."""
         cands = mc_kernel.segment_candidates(
             state, ri, self.spec, self._draw_chunk_proposals(self.seg_steps))
-        if self.runs_cuda_kernel:
+        if not self.runs_cuda_kernel:
+            return mc_kernel.prefetch_table_reference(
+                state, ri, self.consts, self.spec, cands)
+        if self.prefetch_entry == "table":
             return mc_kernel.run_prefetch_table_chunk(
                 state, ri, self.consts, self.spec, cands,
-                mc_kernel.sqrt_weights(self.spec, cands))
-        return mc_kernel.prefetch_table_reference(state, ri, self.consts,
-                                                  self.spec, cands)
+                mc_kernel.table_factors(self.spec, cands))
+        return mc_kernel.run_prefetch_chunk(
+            state, ri, self.consts, self.spec, self.kern.row(cands), cands)
 
     # --------------------------------------------------------------- run
     def run(self, stop: Optional[Callable[[], bool]] = None,

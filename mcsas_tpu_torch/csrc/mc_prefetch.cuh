@@ -22,16 +22,19 @@
 // * rows in (the TPU kernel's own contract): rows (S, R, K, nq) float32,
 //   evaluated before the launch;
 // * table in (the fit path): the parameter table `table` (n_rows, nq), its
-//   axes and the amplitude factors sw = sqrt(w) (S, R, K); the kernel
-//   blends each candidate's row itself, exactly as ops/tables.py
-//   lookup_param_table followed by IntensityKernel.row: per table axis,
-//   last axis first, f = (log(max(v, 0)) - l0) / dl clamped to [0, hi]
-//   (hi: n - 1.000001 rounded to float32 on the host), i = floor(f),
-//   w = f - i; the 2^A corners, last axis fastest, each vals[clamp(c)] * cw
-//   with cw the chained product of (1 - w) or w, added in that order;
-//   fs = blend * sw; row = min(fs * fs, row_clamp).  A NaN stays a NaN in
-//   every clamp.  At most MC_MAX_TABLE_AXES table axes (the wrapper
-//   refuses more).
+//   axes and a factor per candidate sw (S, R, K); the kernel blends each
+//   candidate's row itself, exactly as ops/tables.py lookup_param_table
+//   followed by IntensityKernel.row: per table axis, last axis first,
+//   f = (log(max(v, 0)) - l0) / dl clamped to [0, hi] (hi: n - 1.000001
+//   rounded to float32 on the host), i = floor(f), w = f - i; the 2^A
+//   corners, last axis fastest, each vals[clamp(c)] * cw with cw the
+//   chained product of (1 - w) or w, added in that order.  An amplitude
+//   table (rows ff, `intensity` 0) takes sw = sqrt(w): fs = blend * sw,
+//   row = min(fs * fs, row_clamp).  An intensity table (rows of a smeared
+//   fit, ff^2(locs) @ smear_w, `intensity` 1) takes sw = w itself:
+//   row = min(blend * sw, row_clamp) -- w, not sqrt(w)^2, which differ in
+//   float32.  A NaN stays a NaN in every clamp.  At most
+//   MC_MAX_TABLE_AXES table axes (the wrapper refuses more).
 //
 // What bounds it on this card: a step is sequential, and within it what
 // one SM issues and moves through its shared memory.  A segment is S
@@ -155,7 +158,7 @@ struct PrefetchParams {
   const float* rows;       // (S, R, K, nq), or null: table in
   const float* cands;      // (S, R, K, P)
   const float* table;      // (n_table_rows, nq); table in
-  const float* sw;         // (S, R, K) sqrt(w); table in
+  const float* sw;         // (S, R, K) sqrt(w), or w (intensity); table in
   float* sink;             // K3 below MC2_LV_FULL: (R, threads); else null
   int32_t* trace;          // (S, R) chosen k or -1, or null
   double s_u;
@@ -183,6 +186,7 @@ struct PrefetchParams {
   int32_t find_bg;
   int32_t pos_bg;
   int32_t device;
+  int32_t intensity;       // table in: the rows are intensities, sw is w
 };
 
 // what the launcher decides from the shape (mc_prefetch_plan)
@@ -217,7 +221,7 @@ struct K2Cand {
 };
 
 // Table in: the offsets of a candidate's corner rows in the table, their
-// weights and its amplitude factor.
+// weights and its factor (sqrt(w), or w for an intensity table).
 struct K2Blend {
   int off[MC2_CORNERS];
   float cw[MC2_CORNERS];
@@ -231,8 +235,10 @@ struct K2Blend {
 #pragma unroll
     for (int c = 1; c < MC2_CORNERS; ++c)
       if (c < nc) acc = __fadd_rn(acc, __fmul_rn(fetch(c), cw[c]));
+    // the same branch in every thread of the launch: a select, not a
+    // second instantiation of the step loop
     const float fs = __fmul_rn(acc, sw);
-    const float row = __fmul_rn(fs, fs);
+    const float row = p.intensity ? fs : __fmul_rn(fs, fs);
     return row > p.row_clamp ? p.row_clamp : row;   // a NaN stays a NaN
   }
 };
@@ -273,8 +279,8 @@ __device__ __forceinline__ void mc2_axis_coords(const PrefetchParams& p,
     }
 }
 
-// the blend of a candidate at the axis coordinates f_ax with amplitude
-// factor sw: lookup_param_table's corner indices and weights
+// the blend of a candidate at the axis coordinates f_ax with factor sw:
+// lookup_param_table's corner indices and weights
 __device__ __forceinline__ void mc2_blend_setup(
     const PrefetchParams& p, const float f_ax[MC_MAX_TABLE_AXES], float sw,
     K2Blend& cd) {
@@ -771,7 +777,7 @@ static int mc_prefetch_run(const PrefetchParams* hp, cudaStream_t stream,
   PrefetchPlan plan;
   const int err = mc_prefetch_plan(p, &plan);
   if (err != (int)cudaSuccess) return err;
-  // a launch needs its inputs: sqrt(w) for table in, a rung's sink
+  // a launch needs its inputs: the factors for table in, a rung's sink
   if (!out && ((!p.rows && !p.sw) || (kLevel != MC2_LV_FULL && !p.sink)))
     return (int)cudaErrorInvalidValue;
   switch (plan.src) {

@@ -86,7 +86,10 @@ class SASModel:
     # factory(bound, q_grid, dtype, device) -> (table_fn, ParamTable) or
     # None.  When set, the float32 MC loop replaces the model's quadrature
     # with a multilinear blend of rows baked on the fit grid (fit-grade
-    # tier, like ff_fast); float64 analysis always uses ``ff``
+    # tier, like ff_fast); float64 analysis always uses ``ff``.  A factory
+    # that also declares ``smear=None`` is asked for smeared data with
+    # smear=(locs, smear_w) and returns (table_fn, ParamTable,
+    # "intensity"): rows of the smeared intensity ff²(locs) @ smear_w
     ff_table_factory: Optional[Callable] = None
     # optional anisotropic kernel ff2d(q, psi, p) for 2D (q, ψ) fitting
     # (DataConfig.fit_2d); ``ff`` remains the azimuthal average used for

@@ -66,13 +66,19 @@ def _cyl_iso_ff(q, p):
                           int(p["intDiv"]), q.dtype)
 
 
-def _cyl_iso_table_factory(bound, q_grid, dtype, device):
+def _cyl_iso_table_factory(bound, q_grid, dtype, device, smear=None):
     """Fit-grade parameter-grid row table for the float32 MC loop: rows
     over the active size parameters, the q axis exact, baked on *device*
     with a converged rule (n=801; the default intDiv=100 trapezoid carries
     up to ~20 % discretization noise at qR in [10, 100]).  Returns
     ``(lookup, table)`` with ``lookup(table, pdict) -> (..., Nq)``, or
-    None when the binding leaves ``useAspect`` active."""
+    None when the binding leaves ``useAspect`` active.
+
+    With *smear* = (locs (Nq, n_off), smear_w (n_off,)) the rows are the
+    smeared intensity ff²(locs) @ smear_w, baked against the dataset's
+    own contraction, and the return is ``(lookup, table, "intensity")``:
+    the lookup then gives intensity, not amplitude (reference smearing
+    path: src/mcsas/bases/model/sasmodel.py:56-73)."""
     fixed = dict(bound.fixed)
     if "useAspect" not in fixed:        # not fittable, so always fixed
         return None
@@ -86,25 +92,40 @@ def _cyl_iso_table_factory(bound, q_grid, dtype, device):
                           2: (512, 64)}[len(tab_params)])
     grids = [tables.log_grid(*tables.param_product_range(bound, p), nn)
              for p, nn in zip(tab_params, res)]
-    q32 = torch.tensor(np.asarray(q_grid, np.float64), dtype=dtype,
-                       device=device)
+    # the grid the rule runs on: the fit grid, or the smearing offsets
+    q32 = torch.tensor(np.asarray(q_grid if smear is None else smear[0],
+                                  np.float64), dtype=dtype, device=device)
+    if smear is not None:
+        # vals (B, 1) against the grid (Nq, n_off): one axis more
+        q32 = q32[None]
+        sw32 = torch.tensor(np.asarray(smear[1], np.float64), dtype=dtype,
+                            device=device)
 
     def row_fn(vals):                   # (B, P) -> (B, Nq)
         p = dict(fixed)
         for i, name in enumerate(tab_params):
-            p[name] = vals[:, i:i + 1]
+            p[name] = (vals[:, i:i + 1] if smear is None
+                       else vals[:, i:i + 1, None])
         # active params outside `rele` do not enter the form factor
         for name in bound.active:
             p.setdefault(name, 1.0)
-        return _cyl_iso_ff_ab(q32 * p["radius"],
-                              q32 * (2.0 * _cyl_half(p)), n, dtype)
+        f = _cyl_iso_ff_ab(q32 * p["radius"],
+                           q32 * (2.0 * _cyl_half(p)), n, dtype)
+        return f if smear is None else (f * f) @ sw32
 
     key = ("CylindersIsotropic", n, tab_params,
-           tables.grid_fingerprint(q_grid), None,
+           tables.grid_fingerprint(q_grid), tables.smear_fingerprint(smear),
            tuple(sorted(fixed.items())))
-    tab = tables.build_param_table(row_fn, grids, dtype, block=256,
-                                   cache_key=key, device=device)
-    return tables.make_lookup(tab_params), tab
+    # smeared rows evaluate on the full (Nq, n_off, n) block: keep the
+    # per-block temporary bounded
+    tab = tables.build_param_table(
+        row_fn, grids, dtype, block=256 if smear is None else 8,
+        cache_key=key, probe_rows_are_intensity=smear is not None,
+        device=device)
+    lookup = tables.make_lookup(tab_params)
+    if smear is not None:
+        return lookup, tab, "intensity"
+    return lookup, tab
 
 
 CylindersIsotropic = SASModel(

@@ -18,9 +18,12 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   contract, takes the candidates' rows (S, R, K, Nq) evaluated before
   the launch (plain version :func:`prefetch_reference`, wrapper
   :func:`run_prefetch_chunk`); *table in*, the fit path, takes the
-  parameter table and √w per candidate and blends each row in the kernel
-  (plain version :func:`prefetch_table_reference`, wrapper
-  :func:`run_prefetch_table_chunk`).
+  parameter table and a factor per candidate (:func:`table_factors`: √w,
+  or w for the intensity table of a smeared fit) and blends each row in
+  the kernel (plain version :func:`prefetch_table_reference`, wrapper
+  :func:`run_prefetch_table_chunk`).  :func:`prefetch_entry` says which
+  entry an engine's segments launch: a table the kernel cannot blend
+  goes through the rows-in entry.
 * K3, the latency probe (``tools/kern_probe.py::build``): K1's step cut
   short at a rung (:data:`PROBE_LEVELS`), its ``ff`` and ``solve`` rungs
   also at each group width of :data:`PROBE_GROUPS`, and K2's step cut at
@@ -63,7 +66,7 @@ import shutil
 import subprocess
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -168,18 +171,13 @@ class ChunkSpec:
         column that feeds it, or -1 and its fixed value; the log of its
         first node, its log spacing and the clamp's upper end
         ``n - 1.000001``, each rounded to float32 as the lookup's tensors
-        round them.  Raises for an engine without a table, a lookup that
-        does not name its parameters (``table_fn.tab_params``,
-        ``tables.make_lookup``), or more than :data:`MAX_TABLE_AXES`
-        axes."""
+        round them.  Raises where :func:`table_blend_refusal` has a
+        reason."""
         kern = self.kern
-        names = getattr(kern.table_fn, "tab_params", None)
-        if kern.table is None or names is None:
-            raise ValueError("K2's table entry needs a parameter table and "
-                             "a lookup made by tables.make_lookup")
-        if len(names) != len(kern.table.axes):
-            raise ValueError(f"the lookup reads {len(names)} parameters, "
-                             f"the table has {len(kern.table.axes)} axes")
+        refusal = table_blend_refusal(kern)
+        if refusal:
+            raise ValueError(refusal)
+        names = kern.table_fn.tab_params
         bound, fixed = kern.bound, dict(kern.bound.fixed)
         f32 = lambda v: float(np.float32(v))    # noqa: E731
         axes = []
@@ -189,11 +187,27 @@ class ChunkSpec:
             col = bound.active.index(name) if name in bound.active else -1
             axes.append((col, 0.0 if col >= 0 else f32(fixed[name]),
                          f32(l0), f32(dl), int(n), f32(n - 1.000001)))
-        if len(axes) > MAX_TABLE_AXES:
-            raise ValueError(f"K2's table entry blends at most "
-                             f"{MAX_TABLE_AXES} table axes, this table has "
-                             f"{len(axes)}")
         return tuple(axes)
+
+
+def table_blend_refusal(kern) -> Optional[str]:
+    """Why K2's table entry cannot blend the rows of *kern*'s table
+    itself, or None when it can: it needs a parameter table, a lookup
+    that names one parameter per table axis (``table_fn.tab_params``,
+    ``tables.make_lookup``: any other lookup may do more than blend) and
+    at most :data:`MAX_TABLE_AXES` axes with more than one node."""
+    names = getattr(kern.table_fn, "tab_params", None)
+    if kern.table is None or names is None:
+        return ("K2's table entry needs a parameter table and a lookup "
+                "made by tables.make_lookup")
+    if len(names) != len(kern.table.axes):
+        return (f"the lookup reads {len(names)} parameters, the table has "
+                f"{len(kern.table.axes)} axes")
+    n_axes = sum(n > 1 for _, _, n in kern.table.axes)
+    if n_axes > MAX_TABLE_AXES:
+        return (f"K2's table entry blends at most {MAX_TABLE_AXES} table "
+                f"axes, this table has {n_axes}")
+    return None
 
 
 def model_id(model) -> int:
@@ -219,13 +233,24 @@ def supports(engine) -> bool:
             and 1 <= engine.bound.n_active <= MAX_P)
 
 
+def prefetch_entry(engine) -> Optional[str]:
+    """The entry of the prefetch kernel K2 that runs this engine's
+    segments, or None where K2 cannot: the parameter-table tier in
+    float32 (local moves included — see :func:`segment_candidates`;
+    smeared tables included).  ``'table'`` where the kernel can blend the
+    table's rows itself (:func:`table_blend_refusal`), else ``'rows'``:
+    the rows are evaluated with the table's own lookup before the launch,
+    which is the TPU kernel's contract and takes any table."""
+    if not (engine.uses_table and engine.dtype == torch.float32
+            and 1 <= engine.bound.n_active <= MAX_P):
+        return None
+    return "rows" if table_blend_refusal(engine.kern) else "table"
+
+
 def supports_prefetch(engine) -> bool:
-    """True when the prefetch kernel K2 can run this engine: the
-    parameter-table tier in float32 (local moves included — see
-    :func:`segment_candidates`)."""
-    return (engine.uses_table
-            and engine.dtype == torch.float32
-            and 1 <= engine.bound.n_active <= MAX_P)
+    """True when the prefetch kernel K2 can run this engine, through
+    either entry (:func:`prefetch_entry`)."""
+    return prefetch_entry(engine) is not None
 
 
 def prefetch_seg_steps(engine) -> int:
@@ -354,14 +379,38 @@ def prefetch_table_reference(state, ri: int, consts: FitConstants,
                               cands, trace)
 
 
-def sqrt_weights(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
-    """√w of the candidates (S, R, K, P) as K2's table entry takes it:
-    contiguous (S, R, K), the engine's own ``IntensityKernel.sqrt_weight``
-    (a volume without an active parameter gives every candidate the same
-    value)."""
-    sw = spec.kern.sqrt_weight(cands)
-    return sw.expand(*cands.shape[:-1], 1).reshape(
+def _per_candidate(w: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """A weight of shape (S, R, K, 1), or 0-dim (a volume without an
+    active parameter gives every candidate the same value), as a
+    contiguous (S, R, K) tensor."""
+    return w.expand(*cands.shape[:-1], 1).reshape(
         cands.shape[:-1]).contiguous()
+
+
+def sqrt_weights(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
+    """√w of the candidates (S, R, K, P), contiguous (S, R, K): the
+    engine's own ``IntensityKernel.sqrt_weight``, the factor K2's table
+    entry takes for an amplitude table."""
+    return _per_candidate(spec.kern.sqrt_weight(cands), cands)
+
+
+class TableFactors(NamedTuple):
+    """The per-candidate factors of K2's table entry and what they are:
+    ``'sqrt_w'`` for an amplitude table (row = (blend·√w)²), ``'w'`` for
+    an intensity table (row = blend·w)."""
+    values: torch.Tensor                   # (S, R, K)
+    kind: str
+
+
+def table_factors(spec: ChunkSpec, cands: torch.Tensor) -> TableFactors:
+    """What K2's table entry multiplies each candidate's blend by, with
+    the rounding of ``IntensityKernel.row``: √w, or w itself where the
+    table holds intensities (a smeared fit) — (√w)² is not w in float32,
+    and the kernel is held to the row bit for bit."""
+    if spec.kern.table_is_intensity:
+        return TableFactors(
+            _per_candidate(spec.kern.row_weight(cands), cands), "w")
+    return TableFactors(sqrt_weights(spec, cands), "sqrt_w")
 
 
 def segment_candidates(state, ri: int, spec: ChunkSpec,
@@ -515,7 +564,7 @@ class _PrefetchParams(ctypes.Structure):
         + [(name, ctypes.c_int32) for name in (
             "n_axes", "n_table_rows", "n_reps", "n_contribs", "nq",
             "n_params", "k_cand", "n_steps", "ri0", "max_iter", "n_fit",
-            "find_bg", "pos_bg", "device")])
+            "find_bg", "pos_bg", "device", "intensity")])
 
 
 # The C entries, <entry>_launch, <entry>_shape and <entry>_params_size
@@ -878,8 +927,22 @@ def _check_rows(rows, cands, state, consts, spec):
 
 def _check_table(sw, cands, state, consts, spec):
     """Checks what K2's table entry takes besides the state and the
-    candidates: the table, its axis layout and √w."""
+    candidates: the table, its axis layout and the factors, whose kind
+    must be the one the table's rows need (a plain tensor counts as
+    √w)."""
     dev = state.rset.device
+    sw, kind = (sw if isinstance(sw, TableFactors)
+                else TableFactors(sw, "sqrt_w"))
+    if sw is None:
+        raise ValueError("sw: K2's table entry needs its per-candidate "
+                         "factors (table_factors)")
+    want_kind = "w" if spec.kern.table_is_intensity else "sqrt_w"
+    if kind != want_kind:
+        raise ValueError(
+            f"sw: the table's rows are "
+            f"{'intensities' if want_kind == 'w' else 'amplitudes'} and "
+            f"take the factor {want_kind!r}, got {kind!r} (table_factors "
+            f"gives the right one)")
     table = spec.kern.table
     if table is None:
         raise ValueError("table: this engine has no parameter table")
@@ -906,9 +969,12 @@ def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
                      cands, rows=None, sw=None, sink=None,
                      choice=None) -> _PrefetchParams:
     """The kernel's parameter struct for one segment (K2 and its K3
-    rungs): rows in with *rows*, else table in with *sw*."""
+    rungs): rows in with *rows*, else table in with *sw* (a tensor, or
+    :class:`TableFactors`)."""
     r, n, p = state.rset.shape
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    if isinstance(sw, TableFactors):
+        sw = sw.values
     prm = _PrefetchParams(
         y=consts.y.data_ptr(), u=consts.u.data_ptr(),
         rset=state.rset.data_ptr(), ibank=state.ibank.data_ptr(),
@@ -927,6 +993,7 @@ def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
     if rows is None:
         prm.table = spec.kern.table.values.data_ptr()
         prm.n_table_rows = spec.kern.table.values.shape[0]
+        prm.intensity = int(spec.kern.table_is_intensity)
         prm.n_axes = len(spec.table_layout)
         for a, (col, fixed, l0, dl, n_ax, hi) in enumerate(
                 spec.table_layout):
@@ -989,18 +1056,19 @@ run_prefetch_chunk.launches = 0
 
 
 def run_prefetch_table_chunk(state, ri: int, consts: FitConstants,
-                             spec: ChunkSpec, cands: torch.Tensor,
-                             sw: torch.Tensor,
+                             spec: ChunkSpec, cands: torch.Tensor, sw,
                              trace: Optional[dict] = None):
     """Runs one prefetch segment on the engine's parameter table (K2's
     table-in entry, the fit path) on the state's device, updating it in
     place; returns ``(state, cursor)``.
 
     *cands* (S, R, K, P) are the segment's candidates
-    (:func:`segment_candidates`) and *sw* (S, R, K) their √w
-    (:func:`sqrt_weights`); the kernel blends each candidate's row from
+    (:func:`segment_candidates`) and *sw* their factors
+    (:func:`table_factors`; a plain (S, R, K) tensor is taken as √w,
+    :func:`sqrt_weights`); the kernel blends each candidate's row from
     ``spec.kern.table`` by ``spec.table_layout``, as the lookup and
-    ``IntensityKernel.row`` do.  CUDA tensors launch K2 (counted in
+    ``IntensityKernel.row`` do, for an amplitude and for an intensity
+    table.  CUDA tensors launch K2 (counted in
     ``run_prefetch_table_chunk.launches``); CPU tensors run
     :func:`prefetch_table_reference`.  *trace* as for
     :func:`run_prefetch_chunk`."""
@@ -1045,8 +1113,7 @@ def prefetch_launch_shape(state, consts: FitConstants, spec: ChunkSpec,
 
 def run_prefetch_probe(state, ri: int, consts: FitConstants,
                        spec: ChunkSpec, level: str, cands: torch.Tensor,
-                       rows: Optional[torch.Tensor] = None,
-                       sw: Optional[torch.Tensor] = None):
+                       rows: Optional[torch.Tensor] = None, sw=None):
     """Runs one segment of K2 cut at the rung *level*
     (:data:`PREFETCH_PROBE_LEVELS`) on the state's CUDA device, rows in
     with *rows*, else table in with *sw*; returns ``(state, cursor,

@@ -4,8 +4,9 @@
 Reference semantics: McSAS.histogram (src/mcsas/mcsas/mcsas.py:445-615) and
 the Histogram/Moments machinery (src/mcsas/utils/parameter.py:20-154,
 187-568).  The per-repetition float64 analysis (:func:`_post_pass_f64`)
-evaluates the whole (R, N, Nq) partial-intensity bank as one batch of
-torch float64 operations on the engine's device; fractions, histograms and
+evaluates the whole (R, N, Nq) partial-intensity bank in torch float64
+on the engine's device (for smeared data on the (Nq, n_off) grid of
+smearing offsets, in blocks of contributions); fractions, histograms and
 moments are numpy on the host, as in the JAX package.
 """
 from __future__ import annotations
@@ -146,10 +147,56 @@ class FractionsResult:
 
 # ------------------------------------------------------------ computation
 
+# float64 values one block of the bank's evaluation may hold at once (the
+# form factor's largest temporary: block × grid points × quadrature nodes;
+# 268 MB, and a quadrature model keeps about a dozen alive).  The
+# unsmeared suite rows (3000 contributions) stay one block.
+BANK_BLOCK_VALUES = 2 ** 25
+
+
+def _bank_f64(bound: BoundModel, data: SASData, comp2: float,
+              rset: torch.Tensor, block: Optional[int] = None
+              ) -> torch.Tensor:
+    """The float64 partial-intensity bank (R, N, Nq) of contributions
+    *rset* (R, N, P): ff²·w on the fit grid, or for smeared data
+    (ff²(locs) @ smear_w)·w on the (Nq, n_off) grid of smearing offsets
+    (reference: sasmodel.py:56-73), with w = volume^comp2.
+
+    Evaluated *block* contributions at a time, so that the temporaries
+    (block × Nq × n_off × the model's quadrature nodes) stay bounded: a
+    smeared cylinder's whole bank would take gigabytes per temporary.
+    *block* None sizes the blocks to :data:`BANK_BLOCK_VALUES`; the
+    result does not depend on it (each contribution's row is its own)."""
+    model, dev = bound.model, rset.device
+    smearing = data.uses_smearing and model.can_smear
+    grid = torch.as_tensor(np.asarray(data.locs if smearing else data.q,
+                                      np.float64)).to(dev)
+    smear_w = (torch.as_tensor(np.asarray(data.smear_w, np.float64)).to(dev)
+               if smearing else None)
+    flat = rset.reshape(-1, rset.shape[-1])
+    if block is None:
+        nodes = 1 if model.elementwise_q else int(
+            dict(bound.fixed).get("intDiv", 1))
+        block = max(1, BANK_BLOCK_VALUES // (grid.numel() * max(nodes, 1)))
+    out = []
+    for i in range(0, len(flat), block):
+        part = flat[i:i + block]
+        # entries (B, 1) against the fit grid, (B, 1, 1) against locs
+        pd = bound.pdict(part[:, None, None, :] if smearing
+                         else part[:, None, :])
+        ffv = model.ff(grid, pd)
+        it = (ffv * ffv) @ smear_w if smearing else ffv * ffv
+        w = model.volume(bound.pdict(part[:, None, :])) ** comp2
+        out.append(it * w)
+    return torch.cat(out).reshape(*rset.shape[:2], -1)
+
+
 def _post_pass_f64(bound: BoundModel, data: SASData, cfg: McSASConfig,
-                   contribs: np.ndarray, device="cpu"):
-    """The whole per-repetition float64 analysis as one batch on *device*:
-    per-contribution properties, the scale/background solve, fitted
+                   contribs: np.ndarray, device="cpu",
+                   bank_block: Optional[int] = None):
+    """The whole per-repetition float64 analysis on *device*:
+    per-contribution properties, the bank (:func:`_bank_f64`, in blocks
+    of *bank_block* contributions), the scale/background solve, fitted
     curves, aGoFs and the observability min-ratio (reference equivalent:
     the per-contribution Python loops of mcsas.py:549-594).  Returns
     numpy float64 arrays (wset, vset, sset (R, N), a, b (R,), measval
@@ -157,23 +204,17 @@ def _post_pass_f64(bound: BoundModel, data: SASData, cfg: McSASConfig,
     if data.psi is not None and bound.model.ff2d is not None:
         raise NotImplementedError(
             "2D (q, psi) post analysis is not ported to PyTorch yet")
-    if data.uses_smearing and bound.model.can_smear:
-        raise NotImplementedError(
-            "smeared post analysis is not ported to PyTorch yet")
     f64 = torch.float64
     comp2 = 2.0 * cfg.compensation_exponent
     n_params = contribs.shape[2]
     rset = torch.as_tensor(np.asarray(contribs, np.float64)).to(device)
-    q = torch.as_tensor(np.asarray(data.q, np.float64)).to(device)
     model = bound.model
 
     def props(pd):
         return (model.volume(pd) ** comp2, model.absvolume_fn()(pd),
                 model.surface(pd))
 
-    pd_q = bound.pdict(rset[..., None, :])               # entries (R, N, 1)
-    ffv = model.ff(q, pd_q)                              # (R, N, Nq)
-    bank = ffv * ffv * props(pd_q)[0]
+    bank = _bank_f64(bound, data, comp2, rset, bank_block)
     shape = rset.shape[:2]
     wset, vset, sset = (
         torch.broadcast_to(torch.as_tensor(v, dtype=f64, device=device),

@@ -25,7 +25,9 @@ runs at K1's own group width).
 
 K2's step loop (csrc/mc_prefetch.cuh) is cut the same way, for its
 rows-in and its table-in entry, on the cylinder suite row (R=10, N=300,
-K=128, Nq=100, a 4096-row table; criterion 0):
+K=128, Nq=100, a 4096-row table; criterion 0), and for the table-in
+entry with the intensity row on the slit-smeared row 'cylinders-smeared'
+(entry ``intensity``: its table holds smeared intensities):
 
   loop       cursor, activity check, ft − bank[ri], barriers
   rows       + the K rows into registers: staged a step ahead and read
@@ -55,7 +57,7 @@ from ..data import load
 from ..models import get_model
 from ..ops import mc_kernel
 from .suite import (ROWS, cylinder_bound, cylinder_config,
-                    cylinder_golden)
+                    cylinder_golden, cylinder_smeared_golden)
 
 CHUNK = 2048
 K2_STEPS = 262
@@ -151,25 +153,28 @@ def _time_launches(launch, launches: int) -> float:
 
 def run_prefetch(steps: int = K2_STEPS, launches: int = LAUNCHES,
                  levels=mc_kernel.PREFETCH_PROBE_LEVELS,
-                 entries=("rows", "table")):
+                 entries=("rows", "table", "intensity")):
     """Probes K2 at every rung of both entries on the cylinder suite row
-    (criterion 0, so that every repetition runs all its steps); returns
-    the result dicts and prints each as a JSON line.  Each launch starts
-    from one state, restored on the device before it (a ~1 MB copy)."""
+    and of the table entry on the smeared row (``intensity``), criterion
+    0, so that every repetition runs all its steps; returns the result
+    dicts and prints each as a JSON line.  Each launch starts from one
+    state, restored on the device before it (a ~1 MB copy)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the probe measures the CUDA kernel: "
                            "torch.cuda.is_available() is False")
-    eng = McSASEngine(cylinder_golden(), cylinder_bound(),
-                      cylinder_config(convergence_criterion=0.0),
-                      device="cuda")
-    eng.gen.manual_seed(1)
-    state0 = eng._init_batch()
-    work = state0.clone()
-    cands = eng._draw_chunk_proposals(steps)
     out = []
     for entry in entries:
+        golden = (cylinder_smeared_golden() if entry == "intensity"
+                  else cylinder_golden())
+        eng = McSASEngine(golden, cylinder_bound(),
+                          cylinder_config(convergence_criterion=0.0),
+                          device="cuda")
+        eng.gen.manual_seed(1)
+        state0 = eng._init_batch()
+        work = state0.clone()
+        cands = eng._draw_chunk_proposals(steps)
         rows = eng.kern.row(cands) if entry == "rows" else None
-        sw = mc_kernel.sqrt_weights(eng.spec, cands) if rows is None \
+        sw = mc_kernel.table_factors(eng.spec, cands) if rows is None \
             else None
         for level in levels:
             sinks = []

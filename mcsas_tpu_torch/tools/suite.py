@@ -7,10 +7,16 @@ repetitions, chunks of 1024 steps, seed 2026, one retry, χ² ≤ 1.
 probes K1 on their data.  The table-tier row 'cylinders-isotropic'
 (bench.py:162-164), whose segments run in K2, stands beside them as
 :func:`cylinder_golden`, :func:`cylinder_bound` and
-:func:`cylinder_config`: its data is synthetic and made here.
+:func:`cylinder_config`: its data is synthetic and made here.  The row
+'cylinders-smeared' (bench.py:169-171) is the same binding and config on
+:func:`cylinder_smeared_golden`, the slit-smeared golden: its table holds
+smeared intensities and its segments run in K2 with the intensity row.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import math
 import pathlib
 from dataclasses import dataclass
 from typing import Optional
@@ -20,10 +26,13 @@ import torch
 
 from ..api import _default_unbounded_ranges
 from ..config import McSASConfig
-from ..data import DataConfig, SASData, from_raw, load
+from ..data import (DataConfig, SASData, TrapezoidSmearing, from_raw,
+                    load)
 from ..models import get_model
 from ..models.base import BoundModel
-from ..models.cylinders import _cyl_iso_ff_ab
+from ..models.cylinders import _cyl_iso_ff_ab, _cyl_iso_table_factory
+from ..ops import tables
+from ..post.histogram import HistogramSpec, histogram_all
 
 _TESTDATA = pathlib.Path(__file__).resolve().parents[2] / "testdata"
 
@@ -100,17 +109,180 @@ def cylinder_golden() -> SASData:
                     title="synthetic-cylinder", config=DataConfig(n_bin=0))
 
 
+def cylinder_smeared_golden() -> SASData:
+    """bench.synth_golden("cylinder-smeared") built with the port's
+    float64 functions: the same q grid and cylinder, its converged-rule
+    intensity pushed through the trapezoid slit contraction the fit will
+    use (25 steps, umbra 0.05e9, penumbra 0.2e9 m⁻¹; reference smearing:
+    sasmodel.py:56-73), normalized to max 1, σ = 0.01·I, no rebinning."""
+    q_nm = np.geomspace(0.01, 2.0, 100)
+    dcfg = DataConfig(n_bin=0, smearing=TrapezoidSmearing(
+        do_smear=True, n_steps=25, umbra=0.05e9, penumbra=0.2e9))
+    ones = np.ones_like(q_nm)
+    d0 = from_raw(np.column_stack([q_nm, ones, 0.01 * ones]), config=dcfg)
+    if not d0.uses_smearing:
+        raise RuntimeError("the slit configuration did not engage smearing")
+    locs = torch.as_tensor(np.asarray(d0.locs, np.float64))
+    r, asp = GOLDEN_RADIUS, 10.0
+    ff = _cyl_iso_ff_ab(locs * r, locs * (2.0 * r * asp), 801, torch.float64)
+    i = ((ff * ff) @ torch.as_tensor(
+        np.asarray(d0.smear_w, np.float64))).numpy()
+    i = i / i.max()
+    return from_raw(np.column_stack([q_nm, i, 0.01 * i]),
+                    title="synthetic-cylinder-smeared", config=dcfg)
+
+
 def cylinder_bound() -> BoundModel:
     return get_model("CylindersIsotropic").bind(
         active=("radius",), active_ranges={"radius": (0.5e-9, 300e-9)})
 
 
+def _opaque_factory(bound, q_grid, dtype, device):
+    """The cylinder's own table behind a lookup that does not name its
+    parameters: the same rows, but K2's table entry cannot know that the
+    lookup only blends."""
+    lookup, table = _cyl_iso_table_factory(bound, q_grid, dtype, device)
+
+    def opaque(tab, pdict):
+        return lookup(tab, pdict)
+    return opaque, table
+
+
+def _three_axis_factory(bound, q_grid, dtype, device):
+    """The cylinder's rows over three table axes (radius, aspect, length;
+    256 × 4 × 4 nodes; the rows do not depend on the length while
+    ``useAspect`` is set): one axis more than K2's table entry blends."""
+    fixed = dict(bound.fixed)
+    names = ("radius", "aspect", "length")
+    grids = [tables.log_grid(*tables.param_product_range(bound, p), n)
+             for p, n in zip(names, tables.cap_res((256, 4, 4)))]
+    q32 = torch.tensor(np.asarray(q_grid, np.float64), dtype=dtype,
+                       device=device)
+
+    def row_fn(vals):                   # (B, 3) -> (B, Nq)
+        r, asp = vals[:, 0:1], vals[:, 1:2]
+        return _cyl_iso_ff_ab(q32 * r, q32 * (2.0 * r * asp), 801, dtype)
+
+    key = ("three-axis-cylinder", tables.grid_fingerprint(q_grid),
+           tuple(sorted(fixed.items())))
+    tab = tables.build_param_table(row_fn, grids, dtype, block=256,
+                                   cache_key=key, device=device)
+    return tables.make_lookup(names), tab
+
+
+_UNBLENDABLE = {"opaque-lookup": _opaque_factory,
+                "three-axes": _three_axis_factory}
+
+
+def unblendable_cylinder(kind: str, **bind) -> BoundModel:
+    """The cylinder model bound on a table that K2's table entry cannot
+    blend itself (*kind*: 'opaque-lookup' or 'three-axes'), so that its
+    segments go through K2's rows-in entry: what a later model with such
+    a table will need, held by the tests and ``chip_smoke.py``.  *bind*
+    as for ``SASModel.bind``; default: the cylinder row's binding."""
+    model = dataclasses.replace(get_model("CylindersIsotropic"),
+                                ff_table_factory=_UNBLENDABLE[kind])
+    if not bind:
+        bind = dict(active=("radius",),
+                    active_ranges={"radius": (0.5e-9, 300e-9)})
+    return model.bind(**bind)
+
+
 def cylinder_config(**kw) -> McSASConfig:
-    """bench.py's suite row 'cylinders-isotropic' (bench.py:162-164,
-    213-222); table_ff 'auto' resolves to on at this budget."""
+    """bench.py's suite rows 'cylinders-isotropic' and 'cylinders-smeared'
+    (bench.py:162-171, 213-222); table_ff 'auto' resolves to on at this
+    budget."""
     base = dict(num_contribs=300, num_reps=10, max_iterations=8_000_000,
                 chunk_steps=1024, candidates_per_step=128, seed=2026,
                 max_retries=1, convergence_criterion=1.0, local_moves=0.0,
                 show_incomplete=True)
     base.update(kw)
     return McSASConfig(**base)
+
+
+# ------------------------------ the reference's slit-smeared MC workload
+
+def smearmc_workload(**variant):
+    """The running reference McSAS's own slit-smeared MC run
+    (testdata/reference_smearmc_fixture.json: Sphere on the synthetic
+    2-population testdata/smearmix.dat, trapezoid slit, no rebinning, 100
+    contributions × 5 repetitions, χ² ≤ 1): ``(fixture, data, bound,
+    config)``, the config with *variant* on top (K, local moves, chunk
+    size, ...), as the JAX package's crossvals of that run bind it."""
+    fix = json.loads((_TESTDATA / "reference_smearmc_fixture.json")
+                     .read_text())
+    wl = fix["workload"]
+    umbra, penumbra = (float(v) for v in wl["smearing"].split(":"))
+    data = load(_TESTDATA / "smearmix.dat", config=DataConfig(
+        n_bin=0, smearing=TrapezoidSmearing(do_smear=True, umbra=umbra,
+                                            penumbra=penumbra)))
+    if (data.locs.shape[1] != wl["smearAudit"]["nIntPoints"]
+            or not np.allclose(data.q, np.asarray(fix["fitX0"]), rtol=1e-9,
+                               atol=0.0)):
+        raise AssertionError("smearmix.dat does not load as the reference "
+                             "ran it")
+    ranges = {k: tuple(v) for k, v in wl["activeRanges_m"].items()}
+    bound = get_model("Sphere").bind(active=("radius",),
+                                     active_ranges=ranges)
+    base = dict(num_contribs=int(wl["numContribs"]),
+                num_reps=int(wl["numReps"]),
+                convergence_criterion=wl["convergenceCriterion"],
+                max_iterations=8_000_000, chunk_steps=4000, seed=101,
+                max_retries=1)
+    base.update(variant)
+    return fix, data, bound, McSASConfig(**base)
+
+
+def check_smearmc(fix, data, bound, cfg, res, weights=("vol", "num"),
+                  check_moments=True, device="cpu") -> dict:
+    """Holds an engine result *res* of :func:`smearmc_workload` to the
+    reference's run, by the reference's own tolerances (the JAX
+    package's ``_cyl_check_distributions``): every repetition converged;
+    per weighting the normalized radius histogram within 0.2 of the
+    reference's bars and, with *check_moments*, its mean within the
+    combined rep-to-rep spread (3σ, or 10 %); the mean fitted curve
+    within 3σ of the data uncertainty everywhere and below 1σ² on
+    average.  Raises AssertionError; returns what it measured."""
+    if not res.converged.all():
+        raise AssertionError(f"{int(res.converged.sum())}/{res.num_reps} "
+                             f"repetitions reached the reference's chi2 "
+                             f"criterion (chi2 {res.conval})")
+    lo, hi = fix["workload"]["activeRanges_m"]["radius"]
+    out = {}
+    for weight in weights:
+        h_ref = fix["histograms"][weight]
+        y_ref = np.asarray(h_ref["yMean"], np.float64)
+        spec = HistogramSpec("radius", lo, hi, bin_count=len(y_ref),
+                             xscale="log", yweight=weight,
+                             auto_follow=False).resolved(bound)
+        h = histogram_all(res.contribs, data, bound, cfg, [spec],
+                          device=device)[1][0]
+        if not np.allclose(h.x_lower_edge, np.asarray(h_ref["xLowerEdge"]),
+                           rtol=1e-9, atol=0.0):
+            raise AssertionError(f"{weight}: histogram edges differ")
+        y_eng = h.bins.mean / max(h.bins.mean.sum(), 1e-300)
+        bar = float(np.max(np.abs(y_eng - y_ref / max(y_ref.sum(),
+                                                      1e-300))))
+        out[f"bar_diff_{weight}"] = bar
+        if not bar <= 0.2:
+            raise AssertionError(f"{weight}: normalized bars differ by "
+                                 f"{bar:.3g} (limit 0.2)")
+        if check_moments:
+            mean_ref, std_ref = h_ref["moments"]["mean"]
+            mean_eng, std_eng = h.moments.mean
+            tol = max(3.0 * math.hypot(std_ref, std_eng),
+                      0.10 * abs(mean_ref))
+            if not abs(mean_eng - mean_ref) <= tol:
+                raise AssertionError(
+                    f"{weight}: mean {mean_eng:.3e} against the "
+                    f"reference's {mean_ref:.3e} ± {std_ref:.2e}")
+    fu = np.asarray(data.fu, np.float64)
+    z = np.abs(np.asarray(res.measval, np.float64).mean(axis=0)
+               - np.asarray(fix["fitMeasValMean"])) \
+        / np.where(fu == 0, 1.0, fu)
+    out["curve_max_sigma"] = float(z.max())
+    out["curve_mean_sigma2"] = float((z ** 2).mean())
+    if not (out["curve_max_sigma"] < 3.0 and out["curve_mean_sigma2"] < 1.0):
+        raise AssertionError(f"fit curve deviates {z.max():.2f} sigma "
+                             f"(mean square {out['curve_mean_sigma2']:.2f})")
+    return out

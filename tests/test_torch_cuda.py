@@ -19,10 +19,11 @@ torch.set_num_threads(1)
 
 from mcsas_tpu_torch import load  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
-from mcsas_tpu_torch.data import DataConfig  # noqa: E402
+from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
 from mcsas_tpu_torch.models import get_model  # noqa: E402
 from mcsas_tpu_torch.ops import mc_kernel, tables  # noqa: E402
+from mcsas_tpu_torch.tools import suite  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DATA = (pathlib.Path(__file__).resolve().parent.parent / "testdata"
@@ -266,11 +267,15 @@ K2_AXES = {"1-axis": dict(CYL_BIND),
                                          "aspect": (1.0, 30.0)})}
 
 
+_SMEARED = "-smeared"
+
+
 def _k2_engine(shape, mode, axes="1-axis"):
     """A cylinder table engine on the card at one of K2_SHAPES, with or
     without local moves, on a table of one or two axes; 'fixed-axis': the
     radius alone active on the two-axis table, whose second axis the fixed
-    aspect feeds."""
+    aspect feeds.  With the suffix '-smeared' the data is slit-smeared
+    (5 offsets) and the table holds intensities."""
     key = ("k2", shape, mode, axes)
     if key not in _ENGINES:
         reps, k, n_bin, n = K2_SHAPES[shape]
@@ -278,13 +283,22 @@ def _k2_engine(shape, mode, axes="1-axis"):
                           candidates_per_step=k, seed=5,
                           max_iterations=1_000_000, table_ff="on",
                           local_moves=0.5 if mode == "local" else 0.0)
-        data = load(DATA, config=DataConfig(n_bin=n_bin))
-        bind = K2_AXES["1-axis" if axes == "fixed-axis" else axes]
+        smeared = axes.endswith(_SMEARED)
+        plain_axes = axes[:-len(_SMEARED)] if smeared else axes
+        data = load(DATA, config=DataConfig(
+            n_bin=n_bin, smearing=TrapezoidSmearing(
+                do_smear=True, n_steps=4, umbra=0.05e9, penumbra=0.2e9)
+            if smeared else None))
+        assert data.uses_smearing == smeared
+        bind = K2_AXES["1-axis" if plain_axes == "fixed-axis"
+                       else plain_axes]
         eng = McSASEngine(data, get_model("CylindersIsotropic").bind(**bind),
                           cfg, device="cuda")
-        if axes == "fixed-axis":
+        assert eng.kern.table_is_intensity == smeared
+        if plain_axes == "fixed-axis":
+            two = "2-axis" + (_SMEARED if smeared else "")
             kern = dataclasses.replace(
-                eng.kern, table=_k2_engine(shape, mode, "2-axis").kern.table,
+                eng.kern, table=_k2_engine(shape, mode, two).kern.table,
                 table_fn=tables.make_lookup(("radius", "aspect")))
             eng.kern = kern
             eng.spec = dataclasses.replace(eng.spec, kern=kern)
@@ -310,12 +324,19 @@ def _run_k2_entry(eng, entry, state, ri, cands, trace=None):
             trace=trace)
     return mc_kernel.run_prefetch_table_chunk(
         state, ri, eng.consts, eng.spec, cands,
-        mc_kernel.sqrt_weights(eng.spec, cands), trace=trace)
+        mc_kernel.table_factors(eng.spec, cands), trace=trace)
 
 
+# the intensity row (smeared tables) at K = 8, 48 and 200, grids of 5,
+# 100 and 200 points, one and two table axes and a fixed-fed axis
 _K2_CASES = ([(shape, "1-axis") for shape in sorted(K2_SHAPES)]
              + [("r3-k48-bins100", "2-axis"), ("r2-k200-bins200", "2-axis"),
-                ("r3-k48-bins100", "fixed-axis")])
+                ("r3-k48-bins100", "fixed-axis")]
+             + [(shape, "1-axis" + _SMEARED)
+                for shape in ("r1-k8-bins5", "r3-k48-bins100",
+                              "r2-k200-bins200")]
+             + [("r3-k48-bins100", "2-axis" + _SMEARED),
+                ("r3-k48-bins100", "fixed-axis" + _SMEARED)])
 
 
 @pytest.mark.parametrize("entry", ["rows", "table"])
@@ -326,11 +347,16 @@ def test_prefetch_entries_equal_plain_versions(small_tables, shape, axes,
     """Both entries of K2 against their plain versions over one segment:
     every decision and every bit of the state equal (the table entry's
     bank holds the rows the kernel blended, so the blend is bitwise the
-    lookup's)."""
+    lookup's), for amplitude tables ((blend·√w)²) and for the intensity
+    tables of smeared fits (blend·w)."""
     eng = _k2_engine(shape, mode, axes)
     assert eng.uses_table and eng.runs_cuda_kernel
-    assert len(eng.spec.table_layout) == (1 if axes == "1-axis" else 2)
-    assert (eng.spec.table_layout[-1][0] < 0) == (axes == "fixed-axis")
+    assert eng.prefetch_entry == "table"
+    assert eng.kern.table_is_intensity == axes.endswith(_SMEARED)
+    assert len(eng.spec.table_layout) == (1 if axes.startswith("1-axis")
+                                          else 2)
+    assert (eng.spec.table_layout[-1][0] < 0) == axes.startswith(
+        "fixed-axis")
     state, ri, cands = _k2_segment(eng)
     counter = (mc_kernel.run_prefetch_chunk if entry == "rows"
                else mc_kernel.run_prefetch_table_chunk)
@@ -398,14 +424,18 @@ def test_prefetch_launch_shape(small_tables, shape):
     assert torch.equal(a.ibank, b.ibank) and torch.equal(a.conval, b.conval)
 
 
-@pytest.mark.parametrize("entry", ["rows", "table"])
+@pytest.mark.parametrize("entry", ["rows", "table", "intensity"])
 def test_prefetch_probe_full_rung_equals_the_kernel(cylinder, entry):
     """K3's full rung of K2 is K2 compiled again: bit for bit the same
-    state; a shorter rung changes no state and leaves finite values."""
+    state; a shorter rung changes no state and leaves finite values.
+    'intensity': the table entry on a smeared table."""
     eng = cylinder["local"]
+    if entry == "intensity":
+        eng = _k2_engine("r3-k48-bins100", "local", "1-axis" + _SMEARED)
+        entry = "table"
     state, ri, cands = _k2_segment(eng)
     rows = eng.kern.row(cands) if entry == "rows" else None
-    sw = mc_kernel.sqrt_weights(eng.spec, cands) if rows is None else None
+    sw = mc_kernel.table_factors(eng.spec, cands) if rows is None else None
     a, b = state.clone(), state.clone()
     _run_k2_entry(eng, entry, a, ri, cands)
     before = mc_kernel.run_probe.launches
@@ -445,6 +475,11 @@ def test_prefetch_kernel_refuses_bad_input(cylinder):
     with pytest.raises(ValueError, match="cands"):
         mc_kernel.run_prefetch_table_chunk(state, 0, eng.consts, eng.spec,
                                            cands.cpu(), sw)
+    # an amplitude table takes sqrt(w), not w
+    with pytest.raises(ValueError, match="take the factor 'sqrt_w'"):
+        mc_kernel.run_prefetch_table_chunk(
+            state, 0, eng.consts, eng.spec, cands,
+            mc_kernel.TableFactors(sw, "w"))
     with pytest.raises(ValueError, match="rows"):
         mc_kernel.run_prefetch_chunk(state, 0, eng.consts, eng.spec,
                                      rows.double(), cands)
@@ -462,6 +497,93 @@ def test_prefetch_kernel_refuses_bad_input(cylinder):
     with pytest.raises(ValueError, match="conval"):
         mc_kernel.run_prefetch_chunk(bad, 0, eng.consts, eng.spec, rows,
                                      cands)
+
+
+def test_intensity_table_refuses_the_amplitude_factor(small_tables):
+    """The flag and the factor go together: an intensity table takes w
+    (``table_factors``); sqrt(w), tagged or as a plain tensor, is refused
+    before any launch."""
+    eng = _k2_engine("r3-k48-bins100", "global", "1-axis" + _SMEARED)
+    state, ri, cands = _k2_segment(eng)
+    factors = mc_kernel.table_factors(eng.spec, cands)
+    assert factors.kind == "w"
+    root = mc_kernel.sqrt_weights(eng.spec, cands)
+    assert not torch.equal(root * root, factors.values)
+    before = mc_kernel.run_prefetch_table_chunk.launches
+    for bad in (root, mc_kernel.TableFactors(root, "sqrt_w"),
+                mc_kernel.TableFactors(factors.values, "sqrt_w")):
+        with pytest.raises(ValueError, match="take the factor 'w'"):
+            mc_kernel.run_prefetch_table_chunk(state.clone(), ri, eng.consts,
+                                               eng.spec, cands, bad)
+        with pytest.raises(ValueError, match="take the factor 'w'"):
+            mc_kernel.run_prefetch_probe(state.clone(), ri, eng.consts,
+                                         eng.spec, "full", cands, None, bad)
+    assert mc_kernel.run_prefetch_table_chunk.launches == before
+
+
+@pytest.mark.parametrize("kind", ["opaque-lookup", "three-axes"])
+def test_unblendable_table_runs_the_rows_entry(small_tables, kind):
+    """A table the table entry cannot blend (a lookup without
+    ``tab_params``, a table of three axes) has a route on the card: the
+    engine stages the rows with the table's own lookup and launches K2's
+    rows-in entry — no raise, no plain version — and the segment equals
+    ``prefetch_table_reference`` bit for bit."""
+    cfg = McSASConfig(num_contribs=64, num_reps=3, chunk_steps=60,
+                      candidates_per_step=48, seed=5, local_moves=0.5,
+                      max_iterations=48 * 150, max_retries=0, table_ff="on")
+    eng = McSASEngine(load(DATA), suite.unblendable_cylinder(kind, **CYL_BIND),
+                      cfg, device="cuda")
+    assert eng.uses_table and eng.runs_cuda_kernel
+    assert eng.prefetch_entry == "rows"
+    assert mc_kernel.table_blend_refusal(eng.kern)
+    with pytest.raises(ValueError, match="table"):
+        mc_kernel.run_prefetch_table_chunk(
+            eng._init_batch(), 0, eng.consts, eng.spec,
+            eng._draw_chunk_proposals(4),
+            torch.ones((4, 3, 48), device="cuda"))
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    gen_state = eng.gen.get_state()
+    cands = mc_kernel.segment_candidates(
+        state, 9, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    ts, _ = mc_kernel.prefetch_table_reference(state.clone(), 9, eng.consts,
+                                               eng.spec, cands)
+    rows_in = mc_kernel.run_prefetch_chunk.launches
+    table_in = mc_kernel.run_prefetch_table_chunk.launches
+    eng.gen.set_state(gen_state)
+    ks, ri = eng._segment(state.clone(), 9)
+    torch.cuda.synchronize()
+    assert mc_kernel.run_prefetch_chunk.launches == rows_in + 1
+    assert mc_kernel.run_prefetch_table_chunk.launches == table_in
+    assert ri == (9 + eng.seg_steps) % 64 and (ks.n_moves > 0).any()
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+    res = eng.run()
+    assert res.used_table and res.used_prefetch and res.used_pallas
+    assert mc_kernel.run_prefetch_chunk.launches > rows_in + 1
+    assert mc_kernel.run_prefetch_table_chunk.launches == table_in
+    assert np.isfinite(res.conval).all()
+
+
+def test_smeared_elementwise_fit_raises_on_the_card():
+    """A smeared Sphere fit has no kernel: on the card the default
+    'auto' raises, naming smearing and use_pallas='off', which runs the
+    plain chunk there."""
+    _needs_card()
+    data = load(DATA, config=DataConfig(smearing=TrapezoidSmearing(
+        do_smear=True, n_steps=4, umbra=0.05e9, penumbra=0.2e9)))
+    cfg = McSASConfig(num_contribs=16, num_reps=2, chunk_steps=20,
+                      candidates_per_step=4, max_iterations=4 * 40,
+                      max_retries=0, seed=5)
+    with pytest.raises(ValueError, match="smeared") as err:
+        McSASEngine(data, get_model("Sphere").bind(), cfg, device="cuda")
+    assert "use_pallas='off'" in str(err.value)
+    k1 = mc_kernel.run_chunk.launches
+    res = McSASEngine(data, get_model("Sphere").bind(),
+                      cfg.replace(use_pallas="off"), device="cuda").run()
+    assert mc_kernel.run_chunk.launches == k1 and not res.used_pallas
+    assert np.isfinite(res.conval).all() and (res.n_moves > 0).all()
 
 
 def test_table_engine_routes_to_the_prefetch_kernel(cylinder):

@@ -61,17 +61,27 @@ def _config(**kw):
     return base
 
 
-def _engines(path, **kw):
+def _slit(mod):
+    """A data config of package *mod* with a trapezoid slit of 10
+    offsets (the JAX package's test_prefetch_smeared_table)."""
+    return mod.DataConfig(smearing=mod.TrapezoidSmearing(
+        do_smear=True, n_steps=9, umbra=0.05e9, penumbra=0.2e9))
+
+
+def _engines(path, smear=False, **kw):
     """The JAX engine (use_pallas 'on': the prefetch kernel K2 in
-    interpret mode) and the port's CPU engine, both on the table tier."""
+    interpret mode) and the port's CPU engine, both on the table tier;
+    with *smear* on slit-smeared data, the tables holding intensities."""
+    jd = jax_data.load(path, config=_slit(jax_data) if smear else None)
+    td = data.load(path, config=_slit(data) if smear else None)
     je = jax_engine.McSASEngine(
-        jax_data.load(path), jax_get_model("CylindersIsotropic").bind(**_BIND),
+        jd, jax_get_model("CylindersIsotropic").bind(**_BIND),
         JaxConfig(**_config(use_pallas="on", **kw)))
-    te = McSASEngine(data.load(path),
-                     get_model("CylindersIsotropic").bind(**_BIND),
+    te = McSASEngine(td, get_model("CylindersIsotropic").bind(**_BIND),
                      McSASConfig(**_config(table_ff="on", **kw)),
                      device="cpu")
     assert je.uses_prefetch and je.uses_table and te.uses_table
+    assert te.kern.table_is_intensity == smear
     return je, te
 
 
@@ -96,16 +106,20 @@ def _with_table(te, values, axes):
 
 # ------------------------------------------------------ bake and lookup
 
-def test_bake_matches_jax(sphere_path):
+def _check_bake(sphere_path, smear):
     # tolerance: 2e-6 relative — both bake the same n=801 trapezoid in
     # float32; the two libraries' sin/cos/sqrt differ in the last ulp and
-    # the 799-node sums run in another order
-    je, te = _engines(sphere_path)
+    # the 799-node sums run in another order.  The smeared table holds
+    # ff²(locs) @ smear_w: the square doubles the amplitude's error and
+    # the 10-term contraction adds its own order, 1e-5
+    je, te = _engines(sphere_path, smear=smear)
     values, axes = _jax_table(je, te.consts.n)
     ours = te.kern.table
     assert ours.axes == tuple(axes)
     assert ours.values.dtype == torch.float32
-    np.testing.assert_allclose(ours.values.numpy(), values, rtol=2e-6)
+    assert tuple(ours.values.shape) == (64, te.consts.n)
+    np.testing.assert_allclose(ours.values.numpy(), values,
+                               rtol=1e-5 if smear else 2e-6)
 
 
 def test_lookup_matches_jax_off_grid(sphere_path):
@@ -236,12 +250,15 @@ def test_probe_gate_decides_like_jax(kind, monkeypatch):
 
 # ---------------------------------------------------- engine rows, K2
 
-def test_engine_rows_match_jax(sphere_path):
+def _check_engine_rows(sphere_path, smear):
     # tolerance: on JAX's own table the rows agree to 1e-5 relative (the
     # lookup as above; the port scales the volume by 1/v_ref where JAX
     # divides, ≤ 1 ulp); on the port's own bake to 2e-5 (plus the bake's
-    # 2e-6); a floor of 1e-6 of each row's maximum in both
-    je, te = _engines(sphere_path)
+    # 2e-6; the smeared bake's 1e-5 enters its row blend·w once, the
+    # amplitude bake's 2e-6 enters (blend·√w)² twice); a floor of 1e-6 of
+    # each row's maximum in both
+    je, te = _engines(sphere_path, smear=smear)
+    assert te.w_ref == pytest.approx(je.w_ref, rel=1e-13)
     nq = te.consts.n
     values, axes = _jax_table(je, nq)
     lo, hi = te.bound.ranges[0]
@@ -259,14 +276,36 @@ def test_engine_rows_match_jax(sphere_path):
     assert np.all(np.abs(on_ours - ref) <= 2e-5 * np.abs(ref) + floor)
 
 
-@pytest.fixture(scope="module", params=["global", "local"])
+def test_bake_matches_jax(sphere_path):
+    _check_bake(sphere_path, smear=False)
+
+
+def test_smeared_bake_matches_jax(sphere_path):
+    """The smeared (intensity) table, baked in blocks of 8 rows against
+    the dataset's own contraction."""
+    _check_bake(sphere_path, smear=True)
+
+
+def test_engine_rows_match_jax(sphere_path):
+    _check_engine_rows(sphere_path, smear=False)
+
+
+def test_smeared_engine_rows_match_jax(sphere_path):
+    """The intensity row blend·w of the smeared table engine."""
+    _check_engine_rows(sphere_path, smear=True)
+
+
+@pytest.fixture(scope="module", params=["global", "local", "smeared"])
 def k2_pair(request, sphere_path):
     """One segment from the same JAX-initialized state on JAX's own
     proposal stream and JAX's table: JAX's K2 (``_chunk_batch``, interpret
     mode), the same JAX step applied one step at a time (to locate a
-    flip), and ``prefetch_reference`` with its trace."""
+    flip), and ``prefetch_reference`` with its trace.  'smeared': on
+    slit-smeared data, the JAX-baked intensity table carried over with
+    ``table_from_numpy`` (the JAX package's test_prefetch_smeared_table:
+    smeared tables ride the prefetch kernel unchanged)."""
     kw = {"local_moves": 0.5} if request.param == "local" else {}
-    je, te = _engines(sphere_path, **kw)
+    je, te = _engines(sphere_path, smear=request.param == "smeared", **kw)
     nq = te.consts.n
     seg = mc_kernel.prefetch_seg_steps(te)
     assert seg == jax_mc_kernel.prefetch_seg_steps(je)
@@ -427,14 +466,16 @@ def _table_engine(path, bind=_BIND, **kw):
                        device="cpu")
 
 
-def kernel_blend(values, layout, cands, sw, row_clamp, log=np.log):
+def kernel_blend(values, layout, cands, sw, row_clamp, log=np.log,
+                 intensity=False):
     """K2's in-kernel row blend (csrc/mc_prefetch.cuh, mc2_axis_coords,
     mc2_blend_setup and K2Blend::blend) as a numpy model, operation by
     operation in float32 in the kernel's order: per table axis, last
     first, log, subtract, divide, the two clamps (comparisons, so that a
     NaN stays), floor, the corner weights chained over the axes; then the
     corner rows times their weights added in corner order, times sqrt(w),
-    squared, clamped.  *cands* (B, P), *sw* (B,) float32; rows (B, Nq)."""
+    squared, clamped — or, for an *intensity* table, times w and clamped.
+    *cands* (B, P), *sw* (B,) float32 (sqrt(w), or w); rows (B, Nq)."""
     f32 = np.float32
     n_c = cands.shape[0]
     idx, cw, stride = [np.zeros(n_c, np.int64)], [np.ones(n_c, f32)], 1
@@ -459,7 +500,7 @@ def kernel_blend(values, layout, cands, sw, row_clamp, log=np.log):
             term = values[np.clip(c, 0, values.shape[0] - 1)] * x[:, None]
             acc = term if acc is None else acc + term
         fs = acc * sw[:, None]
-        row = fs * fs
+        row = fs if intensity else fs * fs
         assert row.dtype == f32
         return np.where(row > f32(row_clamp), f32(row_clamp), row)
 
@@ -480,21 +521,26 @@ def _fixed_axis_engine(path):
     return te
 
 
-@pytest.mark.parametrize("axes", [1, 2, "fixed"])
+@pytest.mark.parametrize("axes", [1, 2, "fixed", "intensity"])
 def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
     """The numpy model of K2's in-kernel blend equals IntensityKernel.row
-    on the cylinder table of one axis, of two, and of two with the second
-    fed by a fixed parameter: off the grid, on its nodes, below and above
+    on the cylinder table of one axis, of two, of two with the second
+    fed by a fixed parameter, and on the smeared (intensity) table of one
+    axis with w as the factor: off the grid, on its nodes, below and above
     it (both ends of the clamp), at zero, at a negative and at a NaN
     candidate (the last two give NaN rows).  Tolerance: bit for bit with
     PyTorch's float32 log; with numpy's log, bit for bit wherever the two
     logs agree, and elsewhere (they may differ by one ulp, which moves
     the blend weight by ulp(log v)/dl) within 1e-5 relative with a floor
     of 1e-6 of the largest row value — those rows are counted."""
-    if axes != 1:       # 16 x 16 nodes: a quick bake of the two-axis table
-        monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
-    te = (_fixed_axis_engine(sphere_path) if axes == "fixed"
-          else _table_engine(sphere_path, _BIND if axes == 1 else _BIND2))
+    intensity = axes == "intensity"
+    if intensity:
+        te, axes = _engines(sphere_path, smear=True)[1], 1
+    else:
+        if axes != 1:   # 16 x 16 nodes: a quick bake of the two-axis table
+            monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+        te = (_fixed_axis_engine(sphere_path) if axes == "fixed"
+              else _table_engine(sphere_path, _BIND if axes == 1 else _BIND2))
     layout = te.spec.table_layout
     if axes == "fixed":
         assert [ax[:2] for ax in layout] == [(0, 0.0), (-1, 10.0)]
@@ -514,7 +560,16 @@ def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
     cands = np.stack(cols, axis=1).astype(np.float32)
     t_cands = torch.as_tensor(cands)
     want = te.kern.row(t_cands).numpy()
-    sw = mc_kernel.sqrt_weights(te.spec, t_cands).numpy()
+    factors = mc_kernel.table_factors(te.spec, t_cands)
+    assert factors.kind == ("w" if intensity else "sqrt_w")
+    sw = factors.values.numpy()
+    if intensity:       # w itself, which (sqrt w)² is not in float32
+        root = mc_kernel.sqrt_weights(te.spec, t_cands).numpy()
+        with np.errstate(invalid="ignore"):
+            assert (root * root != sw)[np.isfinite(sw)].any()
+    else:
+        np.testing.assert_array_equal(
+            sw, mc_kernel.sqrt_weights(te.spec, t_cands).numpy())
     values = te.kern.table.values.numpy()
     assert sw.shape == (len(cands),) and sw.dtype == np.float32
     # a NaN candidate, and a negative one (its volume to a fractional
@@ -524,14 +579,15 @@ def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
     assert np.isfinite(want[~nan_rows]).all()
 
     ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp,
-                        log=_torch_log)
+                        log=_torch_log, intensity=intensity)
     np.testing.assert_array_equal(ours, want)
 
     with np.errstate(all="ignore"):
         pos = np.where(cands < 0, np.float32(0), cands)
         same_log = (np.log(pos).view(np.int32)
                     == _torch_log(pos).view(np.int32)).all(axis=1)
-    ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp)
+    ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp,
+                        intensity=intensity)
     np.testing.assert_array_equal(ours[same_log], want[same_log])
     other = ~same_log & ~nan_rows
     print(f"{int(other.sum())} of {len(cands)} candidates where numpy's "
@@ -620,6 +676,83 @@ def test_table_entry_refuses_bad_input(sphere_path):
         te.spec, kern=dataclasses.replace(te.kern, table=None))
     with pytest.raises(ValueError, match="table"):
         run(spec=no_table)
+
+
+def test_table_factors_pair_with_the_table_kind(sphere_path):
+    """K2's table entry takes √w for an amplitude table and w for an
+    intensity table; the wrapper refuses the wrong pairing (a plain
+    tensor counts as √w)."""
+    amp = _table_engine(sphere_path)
+    smeared = _engines(sphere_path, smear=True)[1]
+    for te, kind in ((amp, "sqrt_w"), (smeared, "w")):
+        state = te._init_batch()
+        cands = te._draw_chunk_proposals(n_steps=4)
+        factors = mc_kernel.table_factors(te.spec, cands)
+        assert factors.kind == kind
+        assert tuple(factors.values.shape) == (4, R, 8)
+        assert factors.values.is_contiguous()
+        a, _ = mc_kernel.run_prefetch_table_chunk(
+            state.clone(), 0, te.consts, te.spec, cands, factors)
+        b, _ = mc_kernel.prefetch_table_reference(
+            state.clone(), 0, te.consts, te.spec, cands)
+        for k, v in state_to_numpy(a).items():
+            np.testing.assert_array_equal(v, getattr(b, k).numpy())
+        wrong = mc_kernel.TableFactors(
+            factors.values, "w" if kind == "sqrt_w" else "sqrt_w")
+        with pytest.raises(ValueError, match="take the factor"):
+            mc_kernel.run_prefetch_table_chunk(
+                state.clone(), 0, te.consts, te.spec, cands, wrong)
+    cands = smeared._draw_chunk_proposals(n_steps=4)
+    with pytest.raises(ValueError, match="take the factor 'w'"):
+        mc_kernel.run_prefetch_table_chunk(
+            smeared._init_batch(), 0, smeared.consts, smeared.spec, cands,
+            mc_kernel.sqrt_weights(smeared.spec, cands))
+
+
+@pytest.mark.parametrize("kind", ["opaque-lookup", "three-axes"])
+def test_unblendable_table_takes_the_rows_entry(sphere_path, kind,
+                                                monkeypatch):
+    """The entry of K2 is decided at engine construction from the table's
+    layout: a lookup that does not name its parameters, or a table of
+    three axes, cannot be blended in the kernel, so the segments stage
+    their rows with the table's own lookup ('rows'); the cylinder's own
+    table takes the table entry.  On the CPU both run the plain version,
+    which equals ``prefetch_reference`` on the lookup's rows."""
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    from mcsas_tpu_torch.tools import suite
+    d = data.load(sphere_path)
+    bound = suite.unblendable_cylinder(kind, **_BIND)
+    te = McSASEngine(d, bound, McSASConfig(**_config(table_ff="on")),
+                     device="cpu")
+    assert te.uses_table and mc_kernel.supports_prefetch(te)
+    assert te.prefetch_entry == mc_kernel.prefetch_entry(te) == "rows"
+    reason = mc_kernel.table_blend_refusal(te.kern)
+    assert ("make_lookup" if kind == "opaque-lookup"
+            else "at most 2 table axes") in reason
+    with pytest.raises(ValueError, match="table"):
+        te.spec.table_layout
+    plain = _table_engine(sphere_path)
+    assert plain.prefetch_entry == "table"
+    assert mc_kernel.table_blend_refusal(plain.kern) is None
+    if kind == "three-axes":
+        assert len(te.kern.table.axes) == 3
+        assert tuple(te.kern.table.values.shape) == (16 * 4 * 4,
+                                                     te.consts.n)
+    te.gen.manual_seed(3)
+    state = te._init_batch()
+    gen_state = te.gen.get_state()
+    cands = mc_kernel.segment_candidates(
+        state, 0, te.spec, te._draw_chunk_proposals(te.seg_steps))
+    want, _ = mc_kernel.prefetch_reference(
+        state.clone(), 0, te.consts, te.spec, te.kern.row(cands), cands)
+    te.gen.set_state(gen_state)
+    got, _ = te._segment(state.clone(), 0)
+    assert int(got.n_moves.sum()) > 0
+    for k, v in state_to_numpy(want).items():
+        np.testing.assert_array_equal(getattr(got, k).numpy(), v)
+    off = McSASEngine(d, bound, McSASConfig(**_config(
+        table_ff="on", dtype="float64")), device="cpu")
+    assert off.prefetch_entry is None and not off.uses_table
 
 
 def test_table_engine_routing(sphere_path):
