@@ -496,8 +496,9 @@ class McSASEngine:
         one launch of K2 runs the solve/accept sequence: its table entry
         blends every candidate's row from the table itself; for a table
         it cannot blend (``prefetch_entry == 'rows'``) the (S, R, K, Nq)
-        rows are evaluated with the table lookup first and go to its
-        rows entry, as the plain version does everywhere."""
+        rows are evaluated with the table lookup first, in blocks of steps
+        (``mc_kernel.segment_rows``), and go to its rows entry, as the
+        plain version does everywhere."""
         cands = mc_kernel.segment_candidates(
             state, ri, self.spec, self._draw_chunk_proposals(self.seg_steps))
         if not self.runs_cuda_kernel:
@@ -508,7 +509,8 @@ class McSASEngine:
                 state, ri, self.consts, self.spec, cands,
                 mc_kernel.table_factors(self.spec, cands))
         return mc_kernel.run_prefetch_chunk(
-            state, ri, self.consts, self.spec, self.kern.row(cands), cands)
+            state, ri, self.consts, self.spec,
+            mc_kernel.segment_rows(self.spec, cands), cands)
 
     # --------------------------------------------------------------- run
     def run(self, stop: Optional[Callable[[], bool]] = None,

@@ -221,6 +221,58 @@ __device__ __forceinline__ float gauss_debye_over_u(float u) {
   return __fdiv_rn(__fsqrt_rn(__fmul_rn(2.0f, x)), u);
 }
 
+// Horner of ops/special.py::_poly for seven coefficients: each rounded to
+// float32 first, the start zeros_like(t) + c6, then acc * t + c_i
+__device__ __forceinline__ float poly7(float t, double c0, double c1,
+                                       double c2, double c3, double c4,
+                                       double c5, double c6) {
+  float acc = (float)c6;
+  acc = __fadd_rn(__fmul_rn(acc, t), (float)c5);
+  acc = __fadd_rn(__fmul_rn(acc, t), (float)c4);
+  acc = __fadd_rn(__fmul_rn(acc, t), (float)c3);
+  acc = __fadd_rn(__fmul_rn(acc, t), (float)c2);
+  acc = __fadd_rn(__fmul_rn(acc, t), (float)c1);
+  return __fadd_rn(__fmul_rn(acc, t), (float)c0);
+}
+
+// ops/special.py::bessel_j1 (Abramowitz & Stegun 9.4.4 / 9.4.6): ax / 3.0
+// is PyTorch's multiplication by the float32 reciprocal on CUDA, 3.0 / ax
+// the tensor's reciprocal times 3 (Tensor.__rtruediv__); cosf and the
+// correctly rounded square root and division; torch.sign gives 0 for 0
+__device__ __forceinline__ float bessel_j1f(float x) {
+  const float sign = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  const float ax = fabsf(x);
+  float j;
+  if (ax <= 3.0f) {
+    float t = __fmul_rn(ax, __fdiv_rn(1.0f, 3.0f));
+    t = __fmul_rn(t, t);
+    j = __fmul_rn(ax, poly7(t, 0.5, -0.56249985, 0.21093573, -0.03954289,
+                            0.00443319, -0.00031761, 0.00001109));
+  } else {
+    const float t = __fmul_rn(__fdiv_rn(1.0f, ax), 3.0f);
+    const float f1 = poly7(t, 0.79788456, 0.00000156, 0.01659667,
+                           0.00017105, -0.00249511, 0.00113653, -0.00020033);
+    const float th = __fadd_rn(
+        ax, poly7(t, -2.35619449, 0.12499612, 0.00005650, -0.00637879,
+                  0.00074348, 0.00079824, -0.00029166));
+    j = __fdiv_rn(__fmul_rn(f1, cosf(th)), __fsqrt_rn(ax));
+  }
+  return __fmul_rn(sign, j);
+}
+
+// ops/special.py::j1_over_x: J1(x)/x, 1/2 - x^2/16 below |x| < 1e-6
+__device__ __forceinline__ float j1_over_x(float x) {
+  if (fabsf(x) < (float)1e-6)
+    return __fsub_rn(0.5f, __fmul_rn(__fmul_rn(x, x), 0.0625f));
+  return __fdiv_rn(bessel_j1f(x), x);
+}
+
+// the Kholodenko worm's circular cross-section 2 j1(q r)/(q r) at one point
+// (models/chains.py, the table lookup: 2.0 * j1_over_x(q * radius))
+__device__ __forceinline__ float cross_section(float q, float r) {
+  return __fmul_rn(2.0f, j1_over_x(__fmul_rn(q, r)));
+}
+
 // ------------------------------------------------------------ models
 //
 // K1Model<id>: setup(pv) turns one candidate's full parameter list (in

@@ -1,7 +1,8 @@
 // The step loop of the prefetch chunk kernel K2, templated on where a
-// candidate's row comes from (kSrc) and on how much of the step runs
-// (kLevel).  mc_prefetch.cu instantiates the whole step, MC2_LV_FULL, for
-// each row source; the latency probe mc_probe.cu (K3) instantiates the
+// candidate's row comes from (kSrc), on how much of the step runs (kLevel)
+// and on the factor a table's lookup applies to its blend (kXs).
+// mc_prefetch.cu instantiates the whole step, MC2_LV_FULL, for each row
+// source (the table sources with and without the factor); the latency probe mc_probe.cu (K3) instantiates the
 // rungs that cut the same step short, so that it measures the code that
 // runs.
 //
@@ -33,7 +34,12 @@
 //   row = min(fs * fs, row_clamp).  An intensity table (rows of a smeared
 //   fit, ff^2(locs) @ smear_w, `intensity` 1) takes sw = w itself:
 //   row = min(blend * sw, row_clamp) -- w, not sqrt(w)^2, which differ in
-//   float32.  A NaN stays a NaN in every clamp.  At most
+//   float32.  A lookup that multiplies its blend by a factor of each point
+//   and candidate (`xs_kind`, MC2_XS_*) has it applied to the blend before
+//   sw: the Kholodenko worm's circular cross-section (MC2_XS_CROSS_SECTION),
+//   p0 = blend * 2 j1(q r)/(q r) with q the fit grid and r the candidate's
+//   radius (its active column xs_col, or the fixed xs_fixed), then
+//   fs = p0 * sw as above.  A NaN stays a NaN in every clamp.  At most
 //   MC_MAX_TABLE_AXES table axes (the wrapper refuses more).
 //
 // What bounds it on this card: a step is sequential, and within it what
@@ -120,6 +126,7 @@
 #include <stdint.h>
 
 #include "mc_common.cuh"
+#include "mc_models.cuh"
 
 #define MC2_GROUP 8             // lanes per candidate
 #define MC2_BLOCK_THREADS 1024
@@ -135,6 +142,12 @@ enum {
   MC2_SRC_AHEAD = 3    // table in, the corner rows copied a step ahead
 };
 
+// the factor a table's lookup applies to its blend (table in)
+enum {
+  MC2_XS_NONE = 0,
+  MC2_XS_CROSS_SECTION = 1   // 2 j1(q r)/(q r), mc_models.cuh cross_section
+};
+
 // how much of a step runs (the rungs of the probe, tools/kern_probe.py)
 enum {
   MC2_LV_LOOP = 0,   // cursor, activity, ft - bank[ri], barriers
@@ -145,6 +158,7 @@ enum {
 
 // Field order and types mirror _PrefetchParams in ops/mc_kernel.py.
 struct PrefetchParams {
+  const float* q;          // (nq,) fit grid; table in with a factor
   const float* y;          // (nq,) data
   const float* u;          // (nq,) weights 1/sigma^2
   float* rset;             // (R, N, P)
@@ -165,6 +179,7 @@ struct PrefetchParams {
   double s_uy;
   float crit;
   float row_clamp;
+  float xs_fixed;          // the factor's parameter where xs_col < 0
   // the table's axes with more than one node, first axis first
   float ax_l0[MC_MAX_TABLE_AXES];     // log of the first node
   float ax_dl[MC_MAX_TABLE_AXES];     // log spacing
@@ -187,6 +202,8 @@ struct PrefetchParams {
   int32_t pos_bg;
   int32_t device;
   int32_t intensity;       // table in: the rows are intensities, sw is w
+  int32_t xs_kind;         // table in: the blend's factor, MC2_XS_*
+  int32_t xs_col;          // its parameter's active column, or -1: fixed
 };
 
 // what the launcher decides from the shape (mc_prefetch_plan)
@@ -210,9 +227,10 @@ __device__ __forceinline__ void mc2_stage(float* dst, const float* src,
                  : "memory");
 }
 
-// A candidate's row, point by point.  Rows in: a pointer to its nq floats
-// (in the staged block or in global memory).
-template <int kSrc>
+// A candidate's row, point by point, from source kSrc with the lookup's
+// factor kXs (MC2_XS_*; table in only).  Rows in: a pointer to its nq
+// floats (in the staged block or in global memory).
+template <int kSrc, int kXs>
 struct K2Cand {
   const float* row;
   __device__ __forceinline__ float at(int i, const PrefetchParams&) const {
@@ -221,22 +239,30 @@ struct K2Cand {
 };
 
 // Table in: the offsets of a candidate's corner rows in the table, their
-// weights and its factor (sqrt(w), or w for an intensity table).
+// weights, its factor (sqrt(w), or w for an intensity table) and the
+// parameter of the lookup's factor of each point (xs_kind).
 struct K2Blend {
   int off[MC2_CORNERS];
   float cw[MC2_CORNERS];
   float sw;
+  float xr;
   int nc;
-  // the row at one point from its corner values fetch(c), c < nc
-  template <class Fetch>
-  __device__ __forceinline__ float blend(const PrefetchParams& p,
+  // the row at point i from its corner values fetch(c), c < nc, times
+  // the lookup's factor kXs
+  template <int kXs, class Fetch>
+  __device__ __forceinline__ float blend(const PrefetchParams& p, int i,
                                          Fetch fetch) const {
     float acc = __fmul_rn(fetch(0), cw[0]);
 #pragma unroll
     for (int c = 1; c < MC2_CORNERS; ++c)
       if (c < nc) acc = __fadd_rn(acc, __fmul_rn(fetch(c), cw[c]));
+    // an instantiation of its own: as a select on a flag it cost the
+    // tables without a factor 0.4-0.6 us of a 9.9 us step (K3's full rung,
+    // H100 80GB HBM3 at 700 W)
+    if constexpr (kXs == MC2_XS_CROSS_SECTION)
+      acc = __fmul_rn(acc, cross_section(__ldg(p.q + i), xr));
     // the same branch in every thread of the launch: a select, not a
-    // second instantiation of the step loop
+    // further instantiation of the step loop
     const float fs = __fmul_rn(acc, sw);
     const float row = p.intensity ? fs : __fmul_rn(fs, fs);
     return row > p.row_clamp ? p.row_clamp : row;   // a NaN stays a NaN
@@ -244,20 +270,21 @@ struct K2Blend {
 };
 
 // ... its corner values read from the table
-template <>
-struct K2Cand<MC2_SRC_TABLE> : K2Blend {
+template <int kXs>
+struct K2Cand<MC2_SRC_TABLE, kXs> : K2Blend {
   __device__ __forceinline__ float at(int i, const PrefetchParams& p) const {
-    return blend(p, [&](int c) { return __ldg(p.table + off[c] + i); });
+    return blend<kXs>(p, i,
+                      [&](int c) { return __ldg(p.table + off[c] + i); });
   }
 };
 
 // ... its corner rows copied a step ahead into its group's region of
 // shared memory, corner c at region[c * nq]
-template <>
-struct K2Cand<MC2_SRC_AHEAD> : K2Blend {
+template <int kXs>
+struct K2Cand<MC2_SRC_AHEAD, kXs> : K2Blend {
   const float* region;
   __device__ __forceinline__ float at(int i, const PrefetchParams& p) const {
-    return blend(p, [&](int c) { return region[c * p.nq + i]; });
+    return blend<kXs>(p, i, [&](int c) { return region[c * p.nq + i]; });
   }
 };
 
@@ -279,11 +306,26 @@ __device__ __forceinline__ void mc2_axis_coords(const PrefetchParams& p,
     }
 }
 
-// the blend of a candidate at the axis coordinates f_ax with factor sw:
-// lookup_param_table's corner indices and weights
+// the parameter of the lookup's factor kXs of candidate k of that step (0
+// without a factor)
+template <int kXs>
+__device__ __forceinline__ float mc2_factor_param(const PrefetchParams& p,
+                                                  size_t step_rep, int k) {
+  if constexpr (kXs == MC2_XS_NONE)
+    return 0.0f;
+  else
+    return p.xs_col >= 0
+               ? __ldg(p.cands + (step_rep * p.k_cand + k) * p.n_params +
+                       p.xs_col)
+               : p.xs_fixed;
+}
+
+// the blend of a candidate at the axis coordinates f_ax with factor sw and
+// the parameter xr of the lookup's factor: lookup_param_table's corner
+// indices and weights
 __device__ __forceinline__ void mc2_blend_setup(
     const PrefetchParams& p, const float f_ax[MC_MAX_TABLE_AXES], float sw,
-    K2Blend& cd) {
+    float xr, K2Blend& cd) {
   int idx[MC2_CORNERS];
   idx[0] = 0;
   cd.cw[0] = 1.0f;
@@ -318,14 +360,15 @@ __device__ __forceinline__ void mc2_blend_setup(
     if (c < cd.nc)
       cd.off[c] = (idx[c] < 0 ? 0 : (idx[c] > last ? last : idx[c])) * p.nq;
   cd.sw = sw;
+  cd.xr = xr;
 }
 
 // candidate k of that step; `staged`: the step's block of rows in shared
 // memory (MC2_SRC_STAGED), or the group's region (MC2_SRC_AHEAD)
-template <int kSrc>
-__device__ __forceinline__ K2Cand<kSrc> mc2_candidate(
+template <int kSrc, int kXs>
+__device__ __forceinline__ K2Cand<kSrc, kXs> mc2_candidate(
     const PrefetchParams& p, size_t step_rep, int k, const float* staged) {
-  K2Cand<kSrc> cd;
+  K2Cand<kSrc, kXs> cd;
   if constexpr (kSrc == MC2_SRC_STAGED) {
     cd.row = staged + (size_t)k * p.nq;
   } else if constexpr (kSrc == MC2_SRC_DIRECT) {
@@ -333,7 +376,8 @@ __device__ __forceinline__ K2Cand<kSrc> mc2_candidate(
   } else {
     float f[MC_MAX_TABLE_AXES];
     mc2_axis_coords(p, step_rep, k, f);
-    mc2_blend_setup(p, f, __ldg(p.sw + step_rep * p.k_cand + k), cd);
+    mc2_blend_setup(p, f, __ldg(p.sw + step_rep * p.k_cand + k),
+                    mc2_factor_param<kXs>(p, step_rep, k), cd);
     if constexpr (kSrc == MC2_SRC_AHEAD) cd.region = staged;
   }
   return cd;
@@ -395,7 +439,7 @@ __device__ __forceinline__ void mc2_bulk_corners(const PrefetchParams& p,
           : "memory");
 }
 
-template <int kSrc, int kLevel>
+template <int kSrc, int kLevel, int kXs>
 __global__ void __launch_bounds__(MC2_BLOCK_THREADS)
 mc_prefetch_kernel(const PrefetchParams p, const int ft_parts,
                    const int stage_floats) {
@@ -445,7 +489,7 @@ mc_prefetch_kernel(const PrefetchParams p, const int ft_parts,
     if (p.n_steps > 0 && group < K) {
       K2Blend first;
       mc2_axis_coords(p, (size_t)r, group, cf);
-      mc2_blend_setup(p, cf, 0.0f, first);
+      mc2_blend_setup(p, cf, 0.0f, 0.0f, first);
       if (lane == 0) mc2_bulk_corners(p, first, region, &sh_bar);
     }
   }
@@ -496,9 +540,10 @@ mc_prefetch_kernel(const PrefetchParams p, const int ft_parts,
     const size_t step_rep = (size_t)s * p.n_reps + r;
     // corners a step ahead: what this step's blend and the next step's
     // copies need of the group's candidates, under way across the barrier
-    float nf[MC_MAX_TABLE_AXES], csw = 0.0f;
+    float nf[MC_MAX_TABLE_AXES], csw = 0.0f, cxr = 0.0f;
     if (kAhead && group < K) {
       csw = __ldg(p.sw + step_rep * K + group);
+      cxr = mc2_factor_param<kXs>(p, step_rep, group);
       if (s + 1 < p.n_steps)
         mc2_axis_coords(p, step_rep + p.n_reps, group, nf);
     }
@@ -524,12 +569,12 @@ mc_prefetch_kernel(const PrefetchParams p, const int ft_parts,
     int my_k = INT_MAX, last_k = -1;
     float row[kRegs];
     for (int k = group; k < (kLevel >= MC2_LV_ROWS ? K : 0); k += n_groups) {
-      K2Cand<kSrc> cd;
+      K2Cand<kSrc, kXs> cd;
       if constexpr (kSrc == MC2_SRC_AHEAD) {
-        mc2_blend_setup(p, cf, csw, cd);
+        mc2_blend_setup(p, cf, csw, cxr, cd);
         cd.region = staged;
       } else {
-        cd = mc2_candidate<kSrc>(p, step_rep, k, staged);
+        cd = mc2_candidate<kSrc, kXs>(p, step_rep, k, staged);
       }
       // the block's corner rows, copied during the last step
       if (kAhead) mc2_bar_wait(&sh_bar, s & 1);
@@ -562,7 +607,7 @@ mc_prefetch_kernel(const PrefetchParams p, const int ft_parts,
         __syncwarp(gmask);
         if (s + 1 < p.n_steps) {
           K2Blend next;
-          mc2_blend_setup(p, nf, 0.0f, next);
+          mc2_blend_setup(p, nf, 0.0f, 0.0f, next);
           if (lane == 0) mc2_bulk_corners(p, next, region, &sh_bar);
 #pragma unroll
           for (int a = 0; a < MC_MAX_TABLE_AXES; ++a) cf[a] = nf[a];
@@ -624,7 +669,8 @@ mc_prefetch_kernel(const PrefetchParams p, const int ft_parts,
       // (never with the corners a step ahead: the shape rule)
       const bool again = kb != last_k;
       if (kSrc != MC2_SRC_AHEAD && (again || nq > kRegs * kG)) {
-        const K2Cand<kSrc> cd = mc2_candidate<kSrc>(p, step_rep, kb, staged);
+        const K2Cand<kSrc, kXs> cd =
+            mc2_candidate<kSrc, kXs>(p, step_rep, kb, staged);
         if (again) {
 #pragma unroll
           for (int j = 0; j < kRegs; ++j) {
@@ -697,6 +743,11 @@ static int mc_prefetch_plan(const PrefetchParams& p, PrefetchPlan* plan) {
       n_rows *= p.ax_n[a];
     }
     if (n_rows != p.n_table_rows) return (int)cudaErrorInvalidValue;
+    if (p.xs_kind < MC2_XS_NONE || p.xs_kind > MC2_XS_CROSS_SECTION ||
+        (p.xs_kind != MC2_XS_NONE && (!p.q || p.xs_col >= p.n_params)))
+      return (int)cudaErrorInvalidValue;
+  } else if (p.xs_kind != MC2_XS_NONE) {
+    return (int)cudaErrorInvalidValue;     // rows in: the rows are whole
   }
   cudaError_t err = cudaSetDevice(p.device);
   if (err != cudaSuccess) return (int)err;
@@ -737,17 +788,18 @@ static int mc_prefetch_plan(const PrefetchParams& p, PrefetchPlan* plan) {
   return (int)cudaSuccess;
 }
 
-// kernel <kSrc, kLevel> with this plan: launched on `stream` (out null),
+// kernel <kSrc, kLevel, kXs> with this plan: launched on `stream` (out null),
 // or its shape into out[7]: lanes per candidate, threads per block,
 // registers and local memory bytes per thread, the row source (MC2_SRC_*),
 // dynamic shared memory bytes, the warps sharing the segment-start sum
-template <int kSrc, int kLevel>
+template <int kSrc, int kLevel, int kXs>
 static int mc_prefetch_go(const PrefetchParams& p, const PrefetchPlan& plan,
                           cudaStream_t stream, int* out) {
   cudaError_t err;
   if (out) {
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, mc_prefetch_kernel<kSrc, kLevel>);
+    err = cudaFuncGetAttributes(&attr,
+                                mc_prefetch_kernel<kSrc, kLevel, kXs>);
     out[0] = MC2_GROUP;
     out[1] = plan.threads;
     out[2] = err == cudaSuccess ? attr.numRegs : -1;
@@ -758,12 +810,12 @@ static int mc_prefetch_go(const PrefetchParams& p, const PrefetchPlan& plan,
     return (int)err;
   }
   if (plan.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(mc_prefetch_kernel<kSrc, kLevel>,
+    err = cudaFuncSetAttribute(mc_prefetch_kernel<kSrc, kLevel, kXs>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                plan.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  mc_prefetch_kernel<kSrc, kLevel>
+  mc_prefetch_kernel<kSrc, kLevel, kXs>
       <<<p.n_reps, plan.threads, plan.smem, stream>>>(p, plan.parts,
                                                       plan.stage_floats);
   return (int)cudaGetLastError();
@@ -780,14 +832,22 @@ static int mc_prefetch_run(const PrefetchParams* hp, cudaStream_t stream,
   // a launch needs its inputs: the factors for table in, a rung's sink
   if (!out && ((!p.rows && !p.sw) || (kLevel != MC2_LV_FULL && !p.sink)))
     return (int)cudaErrorInvalidValue;
+  constexpr int kNo = MC2_XS_NONE, kXs = MC2_XS_CROSS_SECTION;
+  const bool xs = p.xs_kind == MC2_XS_CROSS_SECTION;
   switch (plan.src) {
     case MC2_SRC_STAGED:
-      return mc_prefetch_go<MC2_SRC_STAGED, kLevel>(p, plan, stream, out);
+      return mc_prefetch_go<MC2_SRC_STAGED, kLevel, kNo>(p, plan, stream, out);
     case MC2_SRC_DIRECT:
-      return mc_prefetch_go<MC2_SRC_DIRECT, kLevel>(p, plan, stream, out);
+      return mc_prefetch_go<MC2_SRC_DIRECT, kLevel, kNo>(p, plan, stream, out);
     case MC2_SRC_TABLE:
-      return mc_prefetch_go<MC2_SRC_TABLE, kLevel>(p, plan, stream, out);
+      return xs ? mc_prefetch_go<MC2_SRC_TABLE, kLevel, kXs>(p, plan, stream,
+                                                             out)
+                : mc_prefetch_go<MC2_SRC_TABLE, kLevel, kNo>(p, plan, stream,
+                                                             out);
     default:
-      return mc_prefetch_go<MC2_SRC_AHEAD, kLevel>(p, plan, stream, out);
+      return xs ? mc_prefetch_go<MC2_SRC_AHEAD, kLevel, kXs>(p, plan, stream,
+                                                             out)
+                : mc_prefetch_go<MC2_SRC_AHEAD, kLevel, kNo>(p, plan, stream,
+                                                             out);
   }
 }

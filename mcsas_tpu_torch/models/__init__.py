@@ -1,27 +1,28 @@
 # -*- coding: utf-8 -*-
 """Model bank of the PyTorch port: the registry of ported models.
 
-Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell and
-CylindersIsotropic are ported so far; the other reference models keep
-their names here so that asking for one gives a clear error instead of an
-unknown model.
+Sphere, LMADenseSphere, GaussianChain, Kholodenko, SphericalCoreShell,
+EllipsoidsIsotropic, EllipsoidalCoreShell and CylindersIsotropic are
+ported so far; the other reference models keep their names here so that
+asking for one gives a clear error instead of an unknown model.
 """
 from __future__ import annotations
 
 from .base import BoundModel, ParamSpec, SASModel
-from .chains import GaussianChain
+from .chains import GaussianChain, Kholodenko
 from .cylinders import CylindersIsotropic
-from .ellipsoids import SphericalCoreShell
+from .ellipsoids import (EllipsoidalCoreShell, EllipsoidsIsotropic,
+                         SphericalCoreShell)
 from .sphere import LMADenseSphere, Sphere
 
-MODELS = (Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell,
+MODELS = (Sphere, LMADenseSphere, GaussianChain, Kholodenko,
+          SphericalCoreShell, EllipsoidsIsotropic, EllipsoidalCoreShell,
           CylindersIsotropic)
 
 REGISTRY = {m.name: m for m in MODELS}
 
 # reference models that the JAX package has and this package does not yet
 _NOT_PORTED = (
-    "EllipsoidsIsotropic", "EllipsoidalCoreShell", "Kholodenko",
     "CylindersIsotropicAspect", "CylindersRadiallyIsotropic",
     "CylindersRadiallyIsotropicTilted",
 )
@@ -41,4 +42,5 @@ def get_model(name: str) -> SASModel:
 
 __all__ = ["SASModel", "BoundModel", "ParamSpec", "MODELS", "REGISTRY",
            "get_model", "Sphere", "LMADenseSphere", "GaussianChain",
-           "SphericalCoreShell", "CylindersIsotropic"]
+           "Kholodenko", "SphericalCoreShell", "EllipsoidsIsotropic",
+           "EllipsoidalCoreShell", "CylindersIsotropic"]

@@ -20,10 +20,13 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   :func:`run_prefetch_chunk`); *table in*, the fit path, takes the
   parameter table and a factor per candidate (:func:`table_factors`: √w,
   or w for the intensity table of a smeared fit) and blends each row in
-  the kernel (plain version :func:`prefetch_table_reference`, wrapper
+  the kernel, with the lookup's factor of each point where it declares
+  one (:data:`ROW_FACTORS`: the Kholodenko worm's cross-section; plain
+  version :func:`prefetch_table_reference`, wrapper
   :func:`run_prefetch_table_chunk`).  :func:`prefetch_entry` says which
   entry an engine's segments launch: a table the kernel cannot blend
-  goes through the rows-in entry.
+  goes through the rows-in entry, its rows evaluated in blocks of steps
+  (:func:`segment_rows`).
 * K3, the latency probe (``tools/kern_probe.py::build``): K1's step cut
   short at a rung (:data:`PROBE_LEVELS`), its ``ff`` and ``solve`` rungs
   also at each group width of :data:`PROBE_GROUPS`, and K2's step cut at
@@ -90,9 +93,19 @@ PREFETCH_PROBE_LEVELS = ("loop", "rows", "solve", "full")
 # where K2 takes a candidate's row from (MC2_SRC_* in csrc/mc_prefetch.cuh)
 PREFETCH_SOURCES = ("staged", "direct", "table", "table_ahead")
 MAX_TABLE_AXES = 2             # table axes K2's table entry blends
+# the factors a lookup may apply to its blend at each point and candidate
+# that K2's table entry computes too (a lookup declares one as
+# ``lookup.row_factor = (kind, parameter)``), by MC2_XS_* code of
+# csrc/mc_prefetch.cuh: the worm's cross-section 2·j1_over_x(q·radius)
+ROW_FACTORS = {"cross_section": 1}
 # the JAX package's HBM cap for one prefetch segment's staged candidate
 # rows (its _PREFETCH_HBM_BUDGET), kept for the segment length it gives
 PREFETCH_ROW_BYTES = 64 * 2 ** 20
+# float32 values of one temporary of the eager lookup of a table wider
+# than the fit grid (segment_rows, 4 MiB): the smeared worm's lookup keeps
+# about 17 alive, so a block works in about PREFETCH_ROW_BYTES beside the
+# segment's rows
+ROWS_BLOCK_VALUES = PREFETCH_ROW_BYTES // 64
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
 KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe")  # csrc/<name>.cu each
 # the shared headers; every kernel's build hash covers all of them
@@ -189,13 +202,35 @@ class ChunkSpec:
                          f32(l0), f32(dl), int(n), f32(n - 1.000001)))
         return tuple(axes)
 
+    @functools.cached_property
+    def factor_layout(self) -> tuple:
+        """The factor the table's lookup applies to its blend, as K2's
+        table entry takes it: ``(code, col, fixed)`` — its MC2_XS_* code
+        (:data:`ROW_FACTORS`, 0 for none), the active column of its
+        parameter, or -1 and the parameter's fixed value.  Raises where
+        :func:`table_blend_refusal` has a reason."""
+        kern = self.kern
+        refusal = table_blend_refusal(kern)
+        if refusal:
+            raise ValueError(refusal)
+        factor = getattr(kern.table_fn, "row_factor", None)
+        if factor is None:
+            return (0, -1, 0.0)
+        kind, name = factor
+        bound = kern.bound
+        if name in bound.active:
+            return (ROW_FACTORS[kind], bound.active.index(name), 0.0)
+        return (ROW_FACTORS[kind], -1, float(dict(bound.fixed)[name]))
+
 
 def table_blend_refusal(kern) -> Optional[str]:
     """Why K2's table entry cannot blend the rows of *kern*'s table
     itself, or None when it can: it needs a parameter table, a lookup
     that names one parameter per table axis (``table_fn.tab_params``,
-    ``tables.make_lookup``: any other lookup may do more than blend) and
-    at most :data:`MAX_TABLE_AXES` axes with more than one node."""
+    ``tables.make_lookup``: any other lookup may do more than blend), at
+    most :data:`MAX_TABLE_AXES` axes with more than one node, and, where
+    the lookup declares a factor of its blend (``table_fn.row_factor``),
+    one of :data:`ROW_FACTORS` on an amplitude table."""
     names = getattr(kern.table_fn, "tab_params", None)
     if kern.table is None or names is None:
         return ("K2's table entry needs a parameter table and a lookup "
@@ -207,6 +242,16 @@ def table_blend_refusal(kern) -> Optional[str]:
     if n_axes > MAX_TABLE_AXES:
         return (f"K2's table entry blends at most {MAX_TABLE_AXES} table "
                 f"axes, this table has {n_axes}")
+    factor = getattr(kern.table_fn, "row_factor", None)
+    if factor is not None:
+        kind, name = factor
+        if kind not in ROW_FACTORS:
+            return (f"K2's table entry knows the row factors "
+                    f"{sorted(ROW_FACTORS)}, the lookup declares {kind!r}")
+        if kern.table_is_intensity:
+            return "K2's table entry applies a row factor to amplitudes only"
+        if name not in kern.bound.model.param_names:
+            return f"the row factor's parameter {name!r} is not the model's"
     return None
 
 
@@ -245,6 +290,32 @@ def prefetch_entry(engine) -> Optional[str]:
             and 1 <= engine.bound.n_active <= MAX_P):
         return None
     return "rows" if table_blend_refusal(engine.kern) else "table"
+
+
+def segment_rows(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
+    """The rows (S, R, K, Nq) of one segment's candidates (S, R, K, P)
+    by the engine's own row (``spec.kern.row``: the table's lookup).  A
+    lookup whose table is Nq wide holds temporaries of the rows' own
+    size, which the segment length already bounds (PREFETCH_ROW_BYTES):
+    it runs on the whole segment.  A wider one runs in blocks of steps
+    of each repetition (the K candidates of one step and repetition stay
+    together) whose lookup temporaries hold about
+    :data:`ROWS_BLOCK_VALUES` values each: the smeared worm's table is
+    Nq·n_off wide (2,600 at Nq=100 with 26 offsets), and a whole 131-step
+    segment at R=10, K=128 would make 1.7 GB temporaries, one step 13 MB,
+    one step of one repetition 1.3 MB.  The engine's segment and the plain
+    version evaluate the same blocks."""
+    kern = spec.kern
+    width = kern.table.values.shape[1]
+    flat = cands.reshape(-1, *cands.shape[2:])          # (S·R, K, P)
+    block = max(1, ROWS_BLOCK_VALUES // (cands.shape[2] * width))
+    if width <= kern.grid.numel() or block >= flat.shape[0]:
+        return kern.row(cands)
+    out = torch.empty((*flat.shape[:-1], kern.grid.numel()),
+                      dtype=kern.grid.dtype, device=cands.device)
+    for i in range(0, flat.shape[0], block):
+        out[i:i + block] = kern.row(flat[i:i + block])
+    return out.reshape(*cands.shape[:-1], -1)
 
 
 def supports_prefetch(engine) -> bool:
@@ -372,11 +443,11 @@ def prefetch_table_reference(state, ri: int, consts: FitConstants,
                              spec: ChunkSpec, cands: torch.Tensor,
                              trace: Optional[dict] = None):
     """Plain PyTorch version of K2's table entry: the candidates' rows
-    from the engine's table lookup (``spec.kern.row``), then
-    :func:`prefetch_reference` on them; state updated in place.  Returns
-    ``(state, cursor)``."""
-    return prefetch_reference(state, ri, consts, spec, spec.kern.row(cands),
-                              cands, trace)
+    from the engine's table lookup (``spec.kern.row``, in blocks of steps:
+    :func:`segment_rows`), then :func:`prefetch_reference` on them; state
+    updated in place.  Returns ``(state, cursor)``."""
+    return prefetch_reference(state, ri, consts, spec,
+                              segment_rows(spec, cands), cands, trace)
 
 
 def _per_candidate(w: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
@@ -552,11 +623,12 @@ class _PrefetchParams(ctypes.Structure):
     order)."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "y", "u", "rset", "ibank", "ft", "scale", "background",
+            "q", "y", "u", "rset", "ibank", "ft", "scale", "background",
             "conval", "n_iter", "n_moves", "rows", "cands", "table", "sw",
             "sink", "trace")]
         + [("s_u", ctypes.c_double), ("s_uy", ctypes.c_double),
-           ("crit", ctypes.c_float), ("row_clamp", ctypes.c_float)]
+           ("crit", ctypes.c_float), ("row_clamp", ctypes.c_float),
+           ("xs_fixed", ctypes.c_float)]
         + [(name, ctypes.c_float * MAX_TABLE_AXES) for name in (
             "ax_l0", "ax_dl", "ax_hi", "ax_fixed")]
         + [(name, ctypes.c_int32 * MAX_TABLE_AXES) for name in (
@@ -564,7 +636,8 @@ class _PrefetchParams(ctypes.Structure):
         + [(name, ctypes.c_int32) for name in (
             "n_axes", "n_table_rows", "n_reps", "n_contribs", "nq",
             "n_params", "k_cand", "n_steps", "ri0", "max_iter", "n_fit",
-            "find_bg", "pos_bg", "device", "intensity")])
+            "find_bg", "pos_bg", "device", "intensity", "xs_kind",
+            "xs_col")])
 
 
 # The C entries, <entry>_launch, <entry>_shape and <entry>_params_size
@@ -970,7 +1043,8 @@ def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
                      choice=None) -> _PrefetchParams:
     """The kernel's parameter struct for one segment (K2 and its K3
     rungs): rows in with *rows*, else table in with *sw* (a tensor, or
-    :class:`TableFactors`)."""
+    :class:`TableFactors`) and the lookup's factor of each point
+    (``spec.factor_layout``) on the fit grid."""
     r, n, p = state.rset.shape
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     if isinstance(sw, TableFactors):
@@ -995,6 +1069,8 @@ def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
         prm.n_table_rows = spec.kern.table.values.shape[0]
         prm.intensity = int(spec.kern.table_is_intensity)
         prm.n_axes = len(spec.table_layout)
+        prm.xs_kind, prm.xs_col, prm.xs_fixed = spec.factor_layout
+        prm.q = spec.kern.grid.data_ptr()
         for a, (col, fixed, l0, dl, n_ax, hi) in enumerate(
                 spec.table_layout):
             prm.ax_col[a], prm.ax_fixed[a] = col, fixed

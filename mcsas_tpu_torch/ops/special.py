@@ -9,6 +9,8 @@ kernel (csrc/mc_chunk.cu, ``sphere_ff``) repeats the float32 branch.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -143,3 +145,69 @@ def py_G_over_A(A: torch.Tensor, alpha, beta, gamma) -> torch.Tensor:
     g2 = torch.where(small, g2s, g2)
     g3 = torch.where(small, g3s, g3)
     return alpha * g1 + beta * g2 + gamma * g3
+
+
+# --- sine integral ---------------------------------------------------------
+
+# Gauss-Laguerre rule for the auxiliary functions of Si:
+#   f(y) = ∫₀^∞ e^{-u}·y/(y²+u²) du,   g(y) = ∫₀^∞ e^{-u}·u/(y²+u²) du
+# (rational integrands: no transcendentals at evaluation time).  The
+# integrands are analytic with poles at u = ±iy, so above the Taylor
+# cutover the rule converges geometrically; 64 nodes reach ~1e-13
+# relative at y=6 (the JAX package's rule).
+_SI_LAG_X, _SI_LAG_W = np.polynomial.laguerre.laggauss(64)
+_SI_CUT = 6.0
+# Taylor Si(y) = Σ (-1)^k y^(2k+1)/((2k+1)(2k+1)!): coefficients of y²ᵏ
+_SI_TAYLOR = np.array(
+    [(-1.0) ** k / ((2 * k + 1) * float(math.factorial(2 * k + 1)))
+     for k in range(22)], np.float64)
+
+
+def sine_integral(y: torch.Tensor) -> torch.Tensor:
+    """Si(y) = ∫₀^y sin(u)/u du for y ≥ 0, full float64 accuracy.
+
+    Taylor series below y=6; above, the auxiliary-function identity
+    Si(y) = π/2 − f(y)·cos y − g(y)·sin y with f, g evaluated by a fixed
+    Gauss-Laguerre rule over rational integrands (A&S 5.2.8/5.2.12-13).
+    The rule's 64 nodes are a loop, not an axis: the temporaries keep
+    y's shape (the Kholodenko bank evaluates Si on (B, Nq, n_off)), and
+    the sums run in node order."""
+    dt = y.dtype
+    npdt = np.float32 if dt == torch.float32 else np.float64
+    small = y < _SI_CUT
+    # Taylor branch (clamped argument so the large-y lanes stay finite)
+    ys = torch.where(small, y, torch.zeros_like(y))
+    taylor = ys * _poly(_SI_TAYLOR, ys * ys)
+    # auxiliary branch; the nodes and weights rounded to y's dtype first
+    yb = torch.where(small, torch.full_like(y, _SI_CUT), y)
+    yb2 = yb ** 2
+    u = _SI_LAG_X.astype(npdt)
+    w = _SI_LAG_W.astype(npdt)
+    u2, wu = u * u, w * u
+    f = g = None
+    for k in range(len(u)):
+        den = 1.0 / (yb2 + float(u2[k]))
+        f = den * float(w[k]) if f is None else f + den * float(w[k])
+        g = den * float(wu[k]) if g is None else g + den * float(wu[k])
+    f = f * yb
+    asym = (np.pi / 2.0) - f * torch.cos(yb) - g * torch.sin(yb)
+    return torch.where(small, taylor, asym)
+
+
+# --- quadrature ------------------------------------------------------------
+
+def gauss_legendre(n_points: int, n_panels: int = 1):
+    """Composite Gauss-Legendre nodes/weights on [0, 1] (host-side numpy).
+
+    Returns float64 (nodes, weights) of length n_points*n_panels; scale by
+    the integration interval at use site.
+    """
+    x, w = np.polynomial.legendre.leggauss(n_points)
+    x = 0.5 * (x + 1.0)   # → (0, 1)
+    w = 0.5 * w
+    nodes, weights = [], []
+    for p in range(n_panels):
+        lo = p / n_panels
+        nodes.append(lo + x / n_panels)
+        weights.append(w / n_panels)
+    return np.concatenate(nodes), np.concatenate(weights)

@@ -25,9 +25,13 @@ runs at K1's own group width).
 
 K2's step loop (csrc/mc_prefetch.cuh) is cut the same way, for its
 rows-in and its table-in entry, on the cylinder suite row (R=10, N=300,
-K=128, Nq=100, a 4096-row table; criterion 0), and for the table-in
-entry with the intensity row on the slit-smeared row 'cylinders-smeared'
-(entry ``intensity``: its table holds smeared intensities):
+K=128, Nq=100, a 4096-row table; criterion 0), for the table-in entry
+with the intensity row on the slit-smeared row 'cylinders-smeared'
+(entry ``intensity``: its table holds smeared intensities), and for the
+table-in entry on the worm's row 'kholodenko-worm' (a 256 × 48 table
+over lenKuhn and lenContour, no local moves) with the cross-section of
+each point (entry ``factor``) and, for comparison, the same table blended
+without it (entry ``blend``: the factor's cost is the difference):
 
   loop       cursor, activity check, ft − bank[ri], barriers
   rows       + the K rows into registers: staged a step ahead and read
@@ -46,6 +50,7 @@ Each rung times LAUNCHES launches of K2_STEPS steps (two of the fit's
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 
@@ -55,13 +60,14 @@ from ..config import McSASConfig
 from ..core.engine import McSASEngine
 from ..data import load
 from ..models import get_model
-from ..ops import mc_kernel
-from .suite import (ROWS, cylinder_bound, cylinder_config,
+from ..ops import mc_kernel, tables
+from .suite import (ROWS, TABLE_ROWS, cylinder_bound, cylinder_config,
                     cylinder_golden, cylinder_smeared_golden)
 
 CHUNK = 2048
 K2_STEPS = 262
 K2_MODEL = "CylindersIsotropic"
+K2_ENTRIES = ("rows", "table", "intensity", "factor", "blend")
 LAUNCHES = 8
 SEED = 20261016
 _SPHERE_DATA = (pathlib.Path(__file__).resolve().parents[2] / "testdata"
@@ -151,37 +157,59 @@ def _time_launches(launch, launches: int) -> float:
     return start.elapsed_time(stop) / launches
 
 
-def run_prefetch(steps: int = K2_STEPS, launches: int = LAUNCHES,
-                 levels=mc_kernel.PREFETCH_PROBE_LEVELS,
-                 entries=("rows", "table", "intensity")):
-    """Probes K2 at every rung of both entries on the cylinder suite row
-    and of the table entry on the smeared row (``intensity``), criterion
-    0, so that every repetition runs all its steps; returns the result
-    dicts and prints each as a JSON line.  Each launch starts from one
-    state, restored on the device before it (a ~1 MB copy)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the probe measures the CUDA kernel: "
-                           "torch.cuda.is_available() is False")
-    out = []
-    for entry in entries:
+def prefetch_probe_engine(entry: str):
+    """The engine of a K2 probe entry (:data:`K2_ENTRIES`), criterion 0,
+    and the spec its rungs run: the engine's own, or for ``blend`` the
+    worm's table behind a plain lookup (no factor)."""
+    if entry in ("factor", "blend"):
+        row = TABLE_ROWS["kholodenko-worm"]
+        data = row.load()
+        eng = McSASEngine(data, row.bound(data),
+                          row.config(convergence_criterion=0.0,
+                                     local_moves=0.0), device="cuda")
+    else:
         golden = (cylinder_smeared_golden() if entry == "intensity"
                   else cylinder_golden())
         eng = McSASEngine(golden, cylinder_bound(),
                           cylinder_config(convergence_criterion=0.0),
                           device="cuda")
+    spec = eng.spec
+    if entry == "blend":
+        kern = dataclasses.replace(eng.kern, table_fn=tables.make_lookup(
+            eng.kern.table_fn.tab_params))
+        spec = dataclasses.replace(spec, kern=kern)
+    return eng, spec
+
+
+def run_prefetch(steps: int = K2_STEPS, launches: int = LAUNCHES,
+                 levels=mc_kernel.PREFETCH_PROBE_LEVELS,
+                 entries=K2_ENTRIES):
+    """Probes K2 at every rung of both entries on the cylinder suite row,
+    of the table entry on the smeared row (``intensity``) and on the
+    worm's row with and without its cross-section (``factor``,
+    ``blend``), criterion 0, so that every repetition runs all its steps;
+    returns the result dicts and prints each as a JSON line.  Each launch
+    starts from one state, restored on the device before it (a ~1 MB
+    copy)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probe measures the CUDA kernel: "
+                           "torch.cuda.is_available() is False")
+    out = []
+    for entry in entries:
+        eng, spec = prefetch_probe_engine(entry)
         eng.gen.manual_seed(1)
         state0 = eng._init_batch()
         work = state0.clone()
         cands = eng._draw_chunk_proposals(steps)
         rows = eng.kern.row(cands) if entry == "rows" else None
-        sw = mc_kernel.table_factors(eng.spec, cands) if rows is None \
+        sw = mc_kernel.table_factors(spec, cands) if rows is None \
             else None
         for level in levels:
             sinks = []
 
             def launch(_):
                 sinks.append(mc_kernel.run_prefetch_probe(
-                    work.copy_(state0), 0, eng.consts, eng.spec, level,
+                    work.copy_(state0), 0, eng.consts, spec, level,
                     cands, rows, sw)[2])
 
             ms = _time_launches(launch, launches)
@@ -190,9 +218,9 @@ def run_prefetch(steps: int = K2_STEPS, launches: int = LAUNCHES,
                 raise AssertionError(f"K2 probe rung {level!r} left "
                                      "non-finite values")
             shape = mc_kernel.prefetch_launch_shape(
-                state0, eng.consts, eng.spec, cands, rows, level)
+                state0, eng.consts, spec, cands, rows, level)
             rec = {"kernel": "K2", "entry": entry, "level": level,
-                   "model": K2_MODEL, "group": shape["group"],
+                   "model": eng.bound.model.name, "group": shape["group"],
                    "threads": shape["threads"], "source": shape["source"],
                    "us_per_step": ms * 1e3 / steps, "ms_per_launch": ms}
             print(json.dumps(rec), flush=True)
@@ -207,7 +235,8 @@ def main(argv=None):
     ap.add_argument("--launches", type=int, default=LAUNCHES)
     ap.add_argument("--model", action="append",
                     help="a model name (repeatable): a K1 model, or "
-                         f"{K2_MODEL} for K2's rungs; default: all")
+                         f"{K2_MODEL} for K2's rungs (every entry, the "
+                         "worm's too); default: all")
     ap.add_argument("--k2-steps", type=int, default=K2_STEPS)
     args = ap.parse_args(argv)
     k1_models = [m for m in args.model or [] if m != K2_MODEL]

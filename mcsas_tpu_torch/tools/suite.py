@@ -11,6 +11,11 @@ probes K1 on their data.  The table-tier row 'cylinders-isotropic'
 'cylinders-smeared' (bench.py:169-171) is the same binding and config on
 :func:`cylinder_smeared_golden`, the slit-smeared golden: its table holds
 smeared intensities and its segments run in K2 with the intensity row.
+:data:`TABLE_ROWS` are the other table-tier rows, whose segments run in
+K2's table entry: 'ellipsoids-isotropic' and 'core-shell-ellipsoid' on
+synthetic goldens made here (:func:`ellipsoid_golden`,
+:func:`core_shell_ellipsoid_golden`) and 'kholodenko-worm', whose lookup
+multiplies the blend by the worm's cross-section (bench.py:155-222).
 """
 from __future__ import annotations
 
@@ -31,8 +36,10 @@ from ..data import (DataConfig, SASData, TrapezoidSmearing, from_raw,
 from ..models import get_model
 from ..models.base import BoundModel
 from ..models.cylinders import _cyl_iso_ff_ab, _cyl_iso_table_factory
+from ..models.ellipsoids import _ell_cs_ff, _ell_iso_ff_uv
 from ..ops import tables
 from ..post.histogram import HistogramSpec, histogram_all
+from ..utils.units import ANGSTROM_SLD
 
 _TESTDATA = pathlib.Path(__file__).resolve().parents[2] / "testdata"
 
@@ -50,8 +57,14 @@ class SuiteRow:
     # the parameters that generated the data, SI as the data load (q in
     # nm⁻¹): what the vol-weighted means of a converged fit come near
     truth: dict
+    # SI values of parameters the row fixes (bench.py:213-214)
+    fixed: Optional[dict] = None
 
     def load(self) -> SASData:
+        """The row's data: a file under testdata/, or 'synth:<kind>', a
+        synthetic golden made here."""
+        if self.data.startswith("synth:"):
+            return _GOLDENS[self.data[len("synth:"):]]()
         return load(_TESTDATA / self.data)
 
     def bound(self, data: SASData, active=None) -> BoundModel:
@@ -62,7 +75,8 @@ class SuiteRow:
         ranges = {k: v for k, v in (self.ranges or {}).items()
                   if active is None or k in active}
         bound = get_model(self.model).bind(active=active,
-                                           active_ranges=ranges or None)
+                                           active_ranges=ranges or None,
+                                           fixed=self.fixed)
         return _default_unbounded_ranges(bound, data)
 
     def config(self, **kw) -> McSASConfig:
@@ -87,6 +101,22 @@ ROWS = {row.name: row for row in (
              "LMADenseSphere", ("radius", "volFrac"),
              {"volFrac": (1e-4, 0.1)}, 128, 20_000_000, 0.5,
              {"radius": 10e-9}),
+)}
+
+
+_NM = 1e-9     # bench.py's nm: its products round as bench.py's do
+TABLE_ROWS = {row.name: row for row in (
+    SuiteRow("ellipsoids-isotropic", "synth:ellipsoid",
+             "EllipsoidsIsotropic", ("a",), {"a": (0.5 * _NM, 300 * _NM)},
+             128, 8_000_000, 0.0, {"a": 10e-9}, fixed={"aspect": 3.0}),
+    SuiteRow("core-shell-ellipsoid", "synth:ellcoreshell",
+             "EllipsoidalCoreShell", ("a", "t"),
+             {"a": (2 * _NM, 50 * _NM), "t": (10 * _NM, 200 * _NM)}, 128,
+             40_000_000, 0.5, {"a": 10e-9, "t": 50e-9},
+             fixed={"b": 15 * _NM}),
+    SuiteRow("kholodenko-worm", "sasfit_kho-1-10-1000.dat", "Kholodenko",
+             None, None, 128, 24_000_000, 0.75,
+             {"radius": 1e-9, "lenKuhn": 10e-9, "lenContour": 1000e-9}),
 )}
 
 
@@ -130,6 +160,42 @@ def cylinder_smeared_golden() -> SASData:
     i = i / i.max()
     return from_raw(np.column_stack([q_nm, i, 0.01 * i]),
                     title="synthetic-cylinder-smeared", config=dcfg)
+
+
+def _synthetic(q_nm, ff, kind) -> SASData:
+    """I = ff² normalized to max 1, σ = 0.01·I, no rebinning: the form of
+    bench.synth_golden."""
+    i = np.asarray(ff, np.float64) ** 2
+    i = i / i.max()
+    return from_raw(np.column_stack([q_nm, i, 0.01 * i]),
+                    title=f"synthetic-{kind}", config=DataConfig(n_bin=0))
+
+
+def ellipsoid_golden() -> SASData:
+    """bench.synth_golden("ellipsoid") built with the port's float64
+    functions: q = geomspace(0.01, 2, 100) nm⁻¹, the converged n=801
+    orientation rule of a spheroid with a = 10 nm, c = 30 nm."""
+    q_nm = np.geomspace(0.01, 2.0, 100)
+    q = torch.as_tensor(q_nm * 1e9, dtype=torch.float64)
+    ff = _ell_iso_ff_uv(q * 10e-9, q * 30e-9, 801, torch.float64)
+    return _synthetic(q_nm, ff.numpy(), "ellipsoid")
+
+
+def core_shell_ellipsoid_golden() -> SASData:
+    """bench.synth_golden("ellcoreshell") built with the port's float64
+    functions: q = geomspace(0.01, 0.3, 100) nm⁻¹, a = 10, b = 15, t = 50
+    nm, the default SLDs (core 3.15e-6, shell 2.53e-6 Å⁻², solvent 0),
+    intDiv 801."""
+    q_nm = np.geomspace(0.01, 0.3, 100)
+    p = dict(a=10e-9, b=15e-9, t=50e-9,
+             eta_c=ANGSTROM_SLD.to_si(3.15e-6),
+             eta_s=ANGSTROM_SLD.to_si(2.53e-6), eta_sol=0.0, intDiv=801.0)
+    ff = _ell_cs_ff(torch.as_tensor(q_nm * 1e9, dtype=torch.float64), p)
+    return _synthetic(q_nm, ff.numpy(), "ellcoreshell")
+
+
+_GOLDENS = {"ellipsoid": ellipsoid_golden,
+            "ellcoreshell": core_shell_ellipsoid_golden}
 
 
 def cylinder_bound() -> BoundModel:
@@ -233,13 +299,48 @@ def smearmc_workload(**variant):
     return fix, data, bound, McSASConfig(**base)
 
 
+# ------------------------ the reference's joint-cylinder MC workload
+
+def cylinder_crossval_workload(**variant):
+    """The running reference McSAS's joint cylinder run
+    (testdata/reference_cyl_fixture.json: CylindersIsotropic with radius
+    AND length active, useAspect off, on the synthetic 2-population
+    testdata/cylmix.dat, 100 contributions × 5 repetitions, χ² ≤ 0.2):
+    ``(fixture, data, bound, config)``, the config with *variant* on top,
+    as the JAX package's crossvals of that run bind it
+    (tests/test_reference_parity.py, ``_cyl_engine_run``)."""
+    fix = json.loads((_TESTDATA / "reference_cyl_fixture.json")
+                     .read_text())
+    wl = fix["workload"]
+    data = load(_TESTDATA / "cylmix.dat")
+    if not np.allclose(data.q, np.asarray(fix["fitX0"]), rtol=1e-9,
+                       atol=0.0):
+        raise AssertionError("cylmix.dat does not load as the reference "
+                             "ran it")
+    ranges = {k: tuple(v) for k, v in wl["activeRanges_m"].items()}
+    bound = get_model("CylindersIsotropic").bind(
+        active=("radius", "length"), active_ranges=ranges,
+        fixed={"useAspect": 0.0})
+    base = dict(num_contribs=int(wl["numContribs"]),
+                num_reps=int(wl["numReps"]),
+                convergence_criterion=wl["convergenceCriterion"],
+                max_iterations=8_000_000, chunk_steps=4000, seed=101,
+                max_retries=1)
+    base.update(variant)
+    return fix, data, bound, McSASConfig(**base)
+
+
 def check_smearmc(fix, data, bound, cfg, res, weights=("vol", "num"),
-                  check_moments=True, device="cpu") -> dict:
-    """Holds an engine result *res* of :func:`smearmc_workload` to the
-    reference's run, by the reference's own tolerances (the JAX
-    package's ``_cyl_check_distributions``): every repetition converged;
-    per weighting the normalized radius histogram within 0.2 of the
-    reference's bars and, with *check_moments*, its mean within the
+                  check_moments=True, device="cpu", params=None,
+                  bar_limit=0.2) -> dict:
+    """Holds an engine result *res* of :func:`smearmc_workload` (or, with
+    *params*, of :func:`cylinder_crossval_workload`: the fixture's
+    histograms keyed ``'<param>:<weight>'``) to the reference's run, by
+    the reference's own tolerances (the JAX package's
+    ``_cyl_check_distributions``): every repetition converged; per
+    parameter and weighting the normalized histogram within 0.2 of the
+    reference's bars (*bar_limit*; None: measured, not held) and, with
+    *check_moments*, its mean within the
     combined rep-to-rep spread (3σ, or 10 %); the mean fitted curve
     within 3σ of the data uncertainty everywhere and below 1σ² on
     average.  Raises AssertionError; returns what it measured."""
@@ -247,35 +348,38 @@ def check_smearmc(fix, data, bound, cfg, res, weights=("vol", "num"),
         raise AssertionError(f"{int(res.converged.sum())}/{res.num_reps} "
                              f"repetitions reached the reference's chi2 "
                              f"criterion (chi2 {res.conval})")
-    lo, hi = fix["workload"]["activeRanges_m"]["radius"]
     out = {}
-    for weight in weights:
-        h_ref = fix["histograms"][weight]
-        y_ref = np.asarray(h_ref["yMean"], np.float64)
-        spec = HistogramSpec("radius", lo, hi, bin_count=len(y_ref),
-                             xscale="log", yweight=weight,
-                             auto_follow=False).resolved(bound)
-        h = histogram_all(res.contribs, data, bound, cfg, [spec],
-                          device=device)[1][0]
-        if not np.allclose(h.x_lower_edge, np.asarray(h_ref["xLowerEdge"]),
-                           rtol=1e-9, atol=0.0):
-            raise AssertionError(f"{weight}: histogram edges differ")
-        y_eng = h.bins.mean / max(h.bins.mean.sum(), 1e-300)
-        bar = float(np.max(np.abs(y_eng - y_ref / max(y_ref.sum(),
-                                                      1e-300))))
-        out[f"bar_diff_{weight}"] = bar
-        if not bar <= 0.2:
-            raise AssertionError(f"{weight}: normalized bars differ by "
-                                 f"{bar:.3g} (limit 0.2)")
-        if check_moments:
-            mean_ref, std_ref = h_ref["moments"]["mean"]
-            mean_eng, std_eng = h.moments.mean
-            tol = max(3.0 * math.hypot(std_ref, std_eng),
-                      0.10 * abs(mean_ref))
-            if not abs(mean_eng - mean_ref) <= tol:
-                raise AssertionError(
-                    f"{weight}: mean {mean_eng:.3e} against the "
-                    f"reference's {mean_ref:.3e} ± {std_ref:.2e}")
+    for pname in params or ("radius",):
+        lo, hi = fix["workload"]["activeRanges_m"][pname]
+        for weight in weights:
+            label = weight if params is None else f"{pname}:{weight}"
+            h_ref = fix["histograms"][label]
+            y_ref = np.asarray(h_ref["yMean"], np.float64)
+            spec = HistogramSpec(pname, lo, hi, bin_count=len(y_ref),
+                                 xscale="log", yweight=weight,
+                                 auto_follow=False).resolved(bound)
+            h = histogram_all(res.contribs, data, bound, cfg, [spec],
+                              device=device)[1][0]
+            if not np.allclose(h.x_lower_edge,
+                               np.asarray(h_ref["xLowerEdge"]), rtol=1e-9,
+                               atol=0.0):
+                raise AssertionError(f"{label}: histogram edges differ")
+            y_eng = h.bins.mean / max(h.bins.mean.sum(), 1e-300)
+            bar = float(np.max(np.abs(y_eng - y_ref / max(y_ref.sum(),
+                                                          1e-300))))
+            out[f"bar_diff_{label.replace(':', '_')}"] = bar
+            if bar_limit is not None and not bar <= bar_limit:
+                raise AssertionError(f"{label}: normalized bars differ by "
+                                     f"{bar:.3g} (limit {bar_limit})")
+            if check_moments:
+                mean_ref, std_ref = h_ref["moments"]["mean"]
+                mean_eng, std_eng = h.moments.mean
+                tol = max(3.0 * math.hypot(std_ref, std_eng),
+                          0.10 * abs(mean_ref))
+                if not abs(mean_eng - mean_ref) <= tol:
+                    raise AssertionError(
+                        f"{label}: mean {mean_eng:.3e} against the "
+                        f"reference's {mean_ref:.3e} ± {std_ref:.2e}")
     fu = np.asarray(data.fu, np.float64)
     z = np.abs(np.asarray(res.measval, np.float64).mean(axis=0)
                - np.asarray(fix["fitMeasValMean"])) \

@@ -610,6 +610,179 @@ def test_table_engine_routes_to_the_prefetch_kernel(cylinder):
     assert mc_kernel.run_prefetch_chunk.launches == k2_rows
 
 
+# ------------------------------- K2's table entry with a row factor
+
+KHO = DATA.parent / "sasfit_kho-1-10-1000.dat"
+_SLIT4 = dict(do_smear=True, n_steps=4, umbra=0.05e9, penumbra=0.2e9)
+
+
+def _worm_engine(shape, mode, radius="active", smeared=False):
+    """The Kholodenko worm on its table (at most 64 nodes an axis) at one
+    of K2_SHAPES on the kho data rebinned to the shape's bins: the lookup
+    multiplies the blend by the cross-section 2·j1_over_x(q·radius) of
+    each candidate, the radius an active column or ('fixed') a fixed
+    value.  *smeared*: a slit of 5 offsets, rows through rows in."""
+    key = ("worm", shape, mode, radius, smeared)
+    if key not in _ENGINES:
+        reps, k, n_bin, n = K2_SHAPES[shape]
+        cfg = McSASConfig(num_contribs=n, num_reps=reps, chunk_steps=60,
+                          candidates_per_step=k, seed=5,
+                          max_iterations=1_000_000, table_ff="on",
+                          local_moves=0.5 if mode == "local" else 0.0)
+        data = load(KHO, config=DataConfig(
+            n_bin=n_bin, smearing=TrapezoidSmearing(**_SLIT4)
+            if smeared else None))
+        bound = (get_model("Kholodenko").bind() if radius == "active" else
+                 get_model("Kholodenko").bind(
+                     active=("lenKuhn", "lenContour"),
+                     fixed={"radius": 2e-9}))
+        _ENGINES[key] = McSASEngine(data, bound, cfg, device="cuda")
+    return _ENGINES[key]
+
+
+_XS_CASES = ([(shape, "active") for shape in sorted(K2_SHAPES)]
+             + [("r3-k48-bins100", "fixed"), ("r2-k200-bins200", "fixed")])
+
+
+@pytest.mark.parametrize("entry", ["rows", "table"])
+@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("shape,radius", _XS_CASES)
+def test_cross_section_entry_equals_plain_version(small_tables, shape,
+                                                  radius, mode, entry):
+    """K2's table entry with the worm's cross-section of each point (and,
+    for the same rows, its rows-in entry) against the plain versions over
+    one segment: every decision and every bit of the state equal — the
+    in-kernel j1_over_x rounds as PyTorch's float32 operations on the card
+    do, at every ragged shape, with the radius active or fixed, on both
+    corner sources (a step ahead, or from the table for K > 128 or
+    Nq > 104)."""
+    eng = _worm_engine(shape, mode, radius)
+    assert eng.prefetch_entry == "table" and eng.runs_cuda_kernel
+    assert eng.spec.factor_layout == ((1, 0, 0.0) if radius == "active"
+                                      else (1, -1, 2e-9))
+    state, ri, cands = _k2_segment(eng)
+    ks, kt = state.clone(), {}
+    _, ri_k = _run_k2_entry(eng, entry, ks, ri, cands, kt)
+    ts, tt = state.clone(), {}
+    _, ri_t = mc_kernel.prefetch_table_reference(ts, ri, eng.consts,
+                                                 eng.spec, cands, trace=tt)
+    torch.cuda.synchronize()
+    assert ri_k == ri_t
+    assert eng.seg_steps == 1 or (tt["choice"] >= 0).any()
+    assert torch.equal(kt["choice"], tt["choice"])
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+    got = mc_kernel.prefetch_launch_shape(state, eng.consts, eng.spec,
+                                          cands)
+    k, nq = eng.spec.k_cand, eng.consts.n
+    assert got["source"] == ("table_ahead" if k <= 128 and nq <= 104
+                             and nq % 4 == 0 else "table"), got
+
+
+def test_cross_section_probe_full_rung_equals_the_kernel(small_tables):
+    """K3's full rung with the factor is K2 bit for bit; its shorter
+    rungs change no state and leave finite values."""
+    eng = _worm_engine("r3-k48-bins100", "local")
+    state, ri, cands = _k2_segment(eng)
+    sw = mc_kernel.table_factors(eng.spec, cands)
+    a, b = state.clone(), state.clone()
+    _run_k2_entry(eng, "table", a, ri, cands)
+    mc_kernel.run_prefetch_probe(b, ri, eng.consts, eng.spec, "full", cands,
+                                 None, sw)
+    torch.cuda.synchronize()
+    assert (a.n_moves > 0).any()
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for level in mc_kernel.PREFETCH_PROBE_LEVELS[:-1]:
+        c = state.clone()
+        _, _, sink = mc_kernel.run_prefetch_probe(
+            c, ri, eng.consts, eng.spec, level, cands, None, sw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(sink).all(), level
+        assert torch.equal(c.rset, state.rset) and torch.equal(
+            c.conval, state.conval), level
+
+
+@pytest.mark.parametrize("shape", ["r3-k48-bins100", "r2-k200-bins200"])
+def test_smeared_worm_runs_the_rows_entry(small_tables, shape):
+    """The smeared worm's lookup (the cross-section at each offset, then
+    the contraction) declares no factor: its rows, Nq wide, are evaluated
+    in blocks of steps of each repetition and go to K2's rows-in entry;
+    the engine's segment equals prefetch_table_reference bit for bit."""
+    eng = _worm_engine(shape, "local", smeared=True)
+    assert eng.prefetch_entry == "rows" and eng.kern.table_is_intensity
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    gen_state = eng.gen.get_state()
+    cands = mc_kernel.segment_candidates(
+        state, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    ts, _ = mc_kernel.prefetch_table_reference(state.clone(), 0, eng.consts,
+                                               eng.spec, cands)
+    rows_in = mc_kernel.run_prefetch_chunk.launches
+    table_in = mc_kernel.run_prefetch_table_chunk.launches
+    eng.gen.set_state(gen_state)
+    ks, _ = eng._segment(state.clone(), 0)
+    torch.cuda.synchronize()
+    assert mc_kernel.run_prefetch_chunk.launches == rows_in + 1
+    assert mc_kernel.run_prefetch_table_chunk.launches == table_in
+    assert (ks.n_moves > 0).any()
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+
+
+@pytest.mark.parametrize("name", sorted(suite.TABLE_ROWS))
+def test_table_rows_route_to_the_table_entry(small_tables, name):
+    """Each table row's engine on the card launches K2's table entry only
+    (never its rows entry, K1 or the plain chunk) over a short run."""
+    row = suite.TABLE_ROWS[name]
+    d = row.load()
+    cfg = row.config(num_contribs=64, num_reps=3, max_iterations=128 * 150,
+                     max_retries=0, table_ff="on")
+    eng = McSASEngine(d, row.bound(d), cfg, device="cuda")
+    assert eng.prefetch_entry == "table" and eng.runs_cuda_kernel
+    counts = (mc_kernel.run_prefetch_table_chunk.launches,
+              mc_kernel.run_prefetch_chunk.launches,
+              mc_kernel.run_chunk.launches)
+    res = eng.run()
+    assert res.used_table and res.used_prefetch and res.used_pallas
+    assert mc_kernel.run_prefetch_table_chunk.launches > counts[0]
+    assert (mc_kernel.run_prefetch_chunk.launches,
+            mc_kernel.run_chunk.launches) == counts[1:]
+    assert np.isfinite(res.conval).all() and (res.n_moves > 0).all()
+
+
+def test_three_axis_core_shell_ellipsoid_runs_the_rows_entry(small_tables,
+                                                             monkeypatch):
+    """EllipsoidalCoreShell with a, b and t active has three table axes:
+    its segments go through K2's rows-in entry, bit for bit the plain
+    version."""
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    d = suite.core_shell_ellipsoid_golden()
+    cfg = McSASConfig(num_contribs=64, num_reps=3, chunk_steps=60,
+                      candidates_per_step=48, seed=5, local_moves=0.5,
+                      max_iterations=1_000_000, table_ff="on")
+    eng = McSASEngine(d, get_model("EllipsoidalCoreShell").bind(
+        active=("a", "b", "t")), cfg, device="cuda")
+    assert eng.prefetch_entry == "rows" and len(eng.kern.table.axes) == 3
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    gen_state = eng.gen.get_state()
+    cands = mc_kernel.segment_candidates(
+        state, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    ts, _ = mc_kernel.prefetch_table_reference(state.clone(), 0, eng.consts,
+                                               eng.spec, cands)
+    eng.gen.set_state(gen_state)
+    rows_in = mc_kernel.run_prefetch_chunk.launches
+    ks, _ = eng._segment(state.clone(), 0)
+    torch.cuda.synchronize()
+    assert mc_kernel.run_prefetch_chunk.launches == rows_in + 1
+    for f in ("rset", "ibank", "ft", "conval", "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+
+
 # ------------------------------------- K1 of the other elementwise models
 
 _ROW_OF = {"LMADenseSphere": "lma-dense-sphere",

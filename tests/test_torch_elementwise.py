@@ -262,8 +262,8 @@ def test_registry_has_the_elementwise_models():
     for name in MODELS:
         assert get_model(name).name == name
         assert get_model(name).param_names == jax_get_model(name).param_names
-    for name in ("Kholodenko", "EllipsoidsIsotropic",
-                 "EllipsoidalCoreShell"):
+    for name in ("CylindersIsotropicAspect", "CylindersRadiallyIsotropic",
+                 "CylindersRadiallyIsotropicTilted"):
         with pytest.raises(KeyError, match="later PR"):
             get_model(name)
 

@@ -166,7 +166,7 @@ def test_registry_names_unported_models():
     assert get_model("Sphere").name == "Sphere"
     assert get_model("CylindersIsotropic").name == "CylindersIsotropic"
     with pytest.raises(KeyError, match="later PR"):
-        get_model("EllipsoidsIsotropic")
+        get_model("CylindersIsotropicAspect")
     with pytest.raises(KeyError, match="unknown model"):
         get_model("NoSuchModel")
 

@@ -467,15 +467,17 @@ def _table_engine(path, bind=_BIND, **kw):
 
 
 def kernel_blend(values, layout, cands, sw, row_clamp, log=np.log,
-                 intensity=False):
+                 intensity=False, pcs=None):
     """K2's in-kernel row blend (csrc/mc_prefetch.cuh, mc2_axis_coords,
     mc2_blend_setup and K2Blend::blend) as a numpy model, operation by
     operation in float32 in the kernel's order: per table axis, last
     first, log, subtract, divide, the two clamps (comparisons, so that a
     NaN stays), floor, the corner weights chained over the axes; then the
-    corner rows times their weights added in corner order, times sqrt(w),
-    squared, clamped — or, for an *intensity* table, times w and clamped.
-    *cands* (B, P), *sw* (B,) float32 (sqrt(w), or w); rows (B, Nq)."""
+    corner rows times their weights added in corner order, times the
+    lookup's factor of each point *pcs* (B, Nq) where it has one, times
+    sqrt(w), squared, clamped — or, for an *intensity* table, times w and
+    clamped.  *cands* (B, P), *sw* (B,) float32 (sqrt(w), or w); rows
+    (B, Nq)."""
     f32 = np.float32
     n_c = cands.shape[0]
     idx, cw, stride = [np.zeros(n_c, np.int64)], [np.ones(n_c, f32)], 1
@@ -499,6 +501,8 @@ def kernel_blend(values, layout, cands, sw, row_clamp, log=np.log,
         for c, x in zip(idx, cw):
             term = values[np.clip(c, 0, values.shape[0] - 1)] * x[:, None]
             acc = term if acc is None else acc + term
+        if pcs is not None:
+            acc = acc * pcs
         fs = acc * sw[:, None]
         row = fs if intensity else fs * fs
         assert row.dtype == f32
@@ -521,21 +525,40 @@ def _fixed_axis_engine(path):
     return te
 
 
-@pytest.mark.parametrize("axes", [1, 2, "fixed", "intensity"])
-def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
+def _worm_engine(refdata):
+    """The Kholodenko worm on its table (16 × 16 nodes over lenKuhn and
+    lenContour), radius active: the lookup multiplies the blend by the
+    cross-section 2·j1_over_x(q·radius) of each candidate."""
+    d = data.load(refdata / "sasfit_kho-1-10-1000.dat")
+    return McSASEngine(d, get_model("Kholodenko").bind(),
+                       McSASConfig(**_config(table_ff="on")), device="cpu")
+
+
+@pytest.mark.parametrize("axes", [1, 2, "fixed", "intensity",
+                                  "cross-section"])
+def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch,
+                                           refdata):
     """The numpy model of K2's in-kernel blend equals IntensityKernel.row
     on the cylinder table of one axis, of two, of two with the second
-    fed by a fixed parameter, and on the smeared (intensity) table of one
-    axis with w as the factor: off the grid, on its nodes, below and above
-    it (both ends of the clamp), at zero, at a negative and at a NaN
-    candidate (the last two give NaN rows).  Tolerance: bit for bit with
-    PyTorch's float32 log; with numpy's log, bit for bit wherever the two
-    logs agree, and elsewhere (they may differ by one ulp, which moves
-    the blend weight by ulp(log v)/dl) within 1e-5 relative with a floor
-    of 1e-6 of the largest row value — those rows are counted."""
+    fed by a fixed parameter, on the smeared (intensity) table of one
+    axis with w as the factor, and on the worm's table of two axes whose
+    lookup multiplies the blend by the cross-section of each point
+    (``pcs`` from the port's own ``j1_over_x``): off the grid, on its
+    nodes, below and above it (both ends of the clamp), at zero, at a
+    negative and at a NaN candidate (the last two give NaN rows).
+    Tolerance: bit for bit with PyTorch's float32 log; with numpy's log,
+    bit for bit wherever the two logs agree, and elsewhere (they may
+    differ by one ulp, which moves the blend weight by ulp(log v)/dl)
+    within 1e-5 relative with a floor of 1e-6 of the largest row value —
+    those rows are counted."""
     intensity = axes == "intensity"
+    worm = axes == "cross-section"
     if intensity:
         te, axes = _engines(sphere_path, smear=True)[1], 1
+    elif worm:
+        monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+        te = _worm_engine(refdata)
+        assert te.spec.factor_layout == (1, 0, 0.0)
     else:
         if axes != 1:   # 16 x 16 nodes: a quick bake of the two-axis table
             monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
@@ -544,19 +567,32 @@ def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
     layout = te.spec.table_layout
     if axes == "fixed":
         assert [ax[:2] for ax in layout] == [(0, 0.0), (-1, 10.0)]
+    elif worm:
+        assert [ax[0] for ax in layout] == [1, 2]
     else:
         assert [ax[0] for ax in layout] == list(range(axes))
     assert all(hi == np.float32(n - 1.000001) for *_, n, hi in layout)
+    if not worm:
+        assert te.spec.factor_layout == (0, -1, 0.0)
     rs = np.random.default_rng(11)
+    feeds = {ax[0]: ax for ax in layout}
     cols = []
-    for (lo, hi), (_, _, l0, dl, n, _) in zip(te.bound.ranges, layout):
-        nodes = np.exp(np.float64(l0) + np.arange(n) * np.float64(dl))
+    for col, (lo, hi) in enumerate(te.bound.ranges):
+        nodes = []
+        if col in feeds:
+            _, _, l0, dl, n, _ = feeds[col]
+            nodes = np.exp(np.float64(l0) + np.arange(n) * np.float64(dl))
         cols.append(np.concatenate([
             np.exp(rs.uniform(np.log(lo), np.log(hi), 150)), nodes,
             [lo, hi, lo / 10, hi * 10, 0.0, -hi, np.nan]]))
     if axes == 2:       # every special radius with every kind of aspect
         cols = [np.concatenate([cols[0], rs.permutation(cols[0])]),
                 np.concatenate([cols[1], cols[1]])]
+    if worm:            # the radius's specials beside every axis value
+        n_c = len(cols[1])
+        cols = [np.resize(rs.permutation(cols[0]), n_c), cols[1],
+                rs.permutation(cols[2][:n_c] if len(cols[2]) >= n_c
+                               else np.resize(cols[2], n_c))]
     cands = np.stack(cols, axis=1).astype(np.float32)
     t_cands = torch.as_tensor(cands)
     want = te.kern.row(t_cands).numpy()
@@ -571,6 +607,10 @@ def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
         np.testing.assert_array_equal(
             sw, mc_kernel.sqrt_weights(te.spec, t_cands).numpy())
     values = te.kern.table.values.numpy()
+    pcs = None
+    if worm:
+        from mcsas_tpu_torch.ops.special import j1_over_x
+        pcs = (2.0 * j1_over_x(te.kern.grid * t_cands[:, :1])).numpy()
     assert sw.shape == (len(cands),) and sw.dtype == np.float32
     # a NaN candidate, and a negative one (its volume to a fractional
     # power, so its sqrt(w), is a NaN): their rows are NaN
@@ -579,7 +619,7 @@ def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
     assert np.isfinite(want[~nan_rows]).all()
 
     ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp,
-                        log=_torch_log, intensity=intensity)
+                        log=_torch_log, intensity=intensity, pcs=pcs)
     np.testing.assert_array_equal(ours, want)
 
     with np.errstate(all="ignore"):
@@ -587,7 +627,7 @@ def test_kernel_blend_model_equals_the_row(sphere_path, axes, monkeypatch):
         same_log = (np.log(pos).view(np.int32)
                     == _torch_log(pos).view(np.int32)).all(axis=1)
     ours = kernel_blend(values, layout, cands, sw, te.kern.row_clamp,
-                        intensity=intensity)
+                        intensity=intensity, pcs=pcs)
     np.testing.assert_array_equal(ours[same_log], want[same_log])
     other = ~same_log & ~nan_rows
     print(f"{int(other.sum())} of {len(cands)} candidates where numpy's "
