@@ -114,7 +114,31 @@ Phases (any failure raises and the script exits nonzero):
      reference's intDiv=100 rule in the loop (the plain chunk), held to
      its fixture as the JAX package's test_crossval_cylinder_local_moves
      holds it; then through K2's table entry at two axes, converged and
-     its fit curve held the same way, its bars printed beside the limit.
+     its fit curve held the same way, its bars printed beside the limit;
+ 18. the ψ-grid cylinders' table rows (mcsas_tpu_torch/tools/suite.py,
+     PSI_ROWS: 'cylinders-aspect' and 'cylinders-radial', each on a
+     probe-gated table of two axes): ``fit()`` on device="cuda" — the
+     cold fit with the probe and the bake, then 10/10 converged, max
+     χ² ≤ 1 (the Aspect row, whose one-size golden has sinc zeros its
+     table cannot place: χ² descends), only K2's table entry launched,
+     two runs of one seed equal, the table's miss at the golden's
+     parameters printed, the vol-weighted mean radius (Aspect:
+     half-length radius·aspect)
+     within 10 % of the golden's; one segment of each engine against the
+     plain versions bit for bit and timed; K2 on ψ tables at the ragged
+     shapes K2_RAGGED; the radial model with three axes through the
+     rows-in entry from the engine, bit for bit; the bake's rows equal
+     bit for bit whatever the block size;
+ 19. the configurations no kernel runs: the ψ tables the interpolation
+     probe declines (both models on the wide default ranges) and the
+     tilted model raise under use_pallas='auto' on the card, naming the
+     reason; under 'off' the plain chunk runs a few steps at the rows'
+     shape, descends, and is timed (µs per step);
+ 20. the 2D (q, ψ) fit 'cylinders-2d' (a 100 × 36 image): 'auto' raises
+     naming 2D; ``fit()`` under 'off' at 300 × 10, K=128 and 1024 steps
+     an attempt — χ² descends on every repetition, the orientation lands
+     within 0.3 rad of ψ₀ (mod π), no kernel launched; the card's float64
+     post pass equals the CPU's to 1e-10 relative, timed.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -541,19 +565,22 @@ def check_k2(torch, mc_kernel, name, eng, state0, cands, need=True):
 
 
 def check_k2_ragged(torch, mc_kernel, engine_cls, load, data_config,
-                    get_model, cyl_cfg, card, smearing=None):
+                    get_model, cyl_cfg, card, smearing=None,
+                    model="CylindersIsotropic", tag=None):
     """Both entries of K2 against their plain versions at the K2_RAGGED
     shapes, 64 steps each (with local moves at most N, a segment visiting
-    each slot once), without and with local moves: the cylinder model on
-    the headline data rebinned to the shape's bins, its table baked at
-    that grid; with a *smearing* config the data is smeared and the table
+    each slot once), without and with local moves: the cylinder model (or
+    *model*, a ψ-grid cylinder, with radius and aspect active) on the
+    headline data rebinned to the shape's bins, its table baked at that
+    grid; with a *smearing* config the data is smeared and the table
     holds intensities.  Returns the compared windows and the largest
     |delta chi2|."""
     windows, worst = [], 0.0
-    tag = "K2" if smearing is None else "K2 intensity"
+    if tag is None:
+        tag = "K2" if smearing is None else "K2 intensity"
     for label, (reps, k, n_bin, n) in K2_RAGGED.items():
         two = label.endswith("2axes")
-        bound = get_model("CylindersIsotropic").bind(
+        bound = get_model(model).bind(
             active=("radius", "aspect") if two else ("radius",),
             active_ranges=dict({"radius": (1e-10, 5e-8)},
                                **({"aspect": (1.0, 30.0)} if two else {})))
@@ -1539,6 +1566,421 @@ def cylinder_crossval_phase(torch, mc_kernel, fit, suite, card):
     return out[False]
 
 
+# ------------------------------------------------ the ψ-grid cylinders
+
+# what each ψ table row's vol-weighted mean is held to (10 % of the
+# golden's): the radial row's radius; the Aspect model's ψ grid spans
+# 0-π DEGREES read as radians (sin ψ ≤ 0.055), so its rows hardly see the
+# radius and fix only the half-length radius·aspect (its fits end near
+# radius 10 nm, aspect 1 against the golden's 5 nm and 2): that product
+# is held there, the radius printed beside it
+PSI_GATED = {"cylinders-aspect": ("half_length", 5e-9 * 2.0),
+             "cylinders-radial": ("radius", 10e-9)}
+# the parameters of the ψ rows' goldens (suite.cylinder_aspect_golden,
+# suite.cylinder_radial_golden)
+PSI_GOLDEN = {"cylinders-aspect": {"radius": 5e-9, "aspect": 2.0},
+              "cylinders-radial": {"radius": 10e-9, "psiAngle": 0.17}}
+# the ψ rows held to chi2 <= 1 on every repetition.  'cylinders-aspect'
+# is not: its golden (one size, 1 % uncertainty) has the deep sinc zeros
+# of an aligned rod, which the 512 x 64 table cannot place (the phase
+# prints the blend's miss at the golden's parameters, psi_golden_misfit),
+# so its fit stalls well above chi2 = 1 within any budget: the phase
+# holds it to descent and runs it for its bounded budget
+PSI_CONVERGES = ("cylinders-radial",)
+
+
+class table_env:
+    """MCSAS_TPU_TABLE_RES_CAP=*cap* and the interpolation probe bypassed
+    for the block: small tables for the route and ragged-shape checks,
+    which hold K2 to its plain version on whatever table it reads."""
+
+    def __init__(self, cap):
+        self.set = {"MCSAS_TPU_TABLE_RES_CAP": str(cap),
+                    "MCSAS_TPU_TABLE_PROBE": "off"}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.set}
+        os.environ.update(self.set)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def vol_mean(res, values):
+    """The volume-weighted mean of *values* (R, N) over each repetition's
+    contributions (res.fractions.fraction['vol'] is (N, R)), averaged
+    over the repetitions: the histograms' vol-weighted mean of any
+    function of the parameters."""
+    f = res.fractions.fraction["vol"].T
+    return float(np.mean((f * values).sum(axis=1) / f.sum(axis=1)))
+
+
+def psi_bake_blocks(torch, cylinders, tables, card):
+    """The ψ bake's rows on the card at several block sizes, bit for bit:
+    44 rows of the radial model's converged rule on 100, 101 and 30 q
+    points in blocks of 4, 8, 12, the factory's own size and one block of
+    all (the factory's blocks are whole multiples of 4 rows:
+    cylinders._psi_bake_block)."""
+    for nq in (100, 101, 30):
+        q32 = torch.tensor(np.geomspace(1e7, 1e9, nq), dtype=torch.float32,
+                           device="cuda")
+
+        def row_fn(vals):
+            return cylinders._cyl_radial_ff(q32, dict(
+                radius=vals[:, 0:1], psiAngle=vals[:, 1:2], aspect=10.0,
+                psiAngleDivisions=3001.0))
+
+        grids = [tables.log_grid(1e-9, 3e-8, 11),
+                 tables.log_grid(0.01, 6.29, 4)]
+        blocks = (44, 4, 8, 12, cylinders._psi_bake_block(nq, 3001))
+        outs = [tables.build_param_table(row_fn, grids, block=b,
+                                         device="cuda").values
+                for b in blocks]
+        for b, o in zip(blocks[1:], outs[1:]):
+            if not torch.equal(o, outs[0]):
+                raise AssertionError(f"[psi bake] Nq={nq}: rows in blocks "
+                                     f"of {b} differ from one block")
+        # blocks that are no multiple of 4 rows: printed, not held
+        odd = {}
+        for b in (1, 3, 5, 7):
+            o = tables.build_param_table(row_fn, grids, block=b,
+                                         device="cuda").values
+            odd[b] = float(((o - outs[0]).abs()
+                            / outs[0].abs().clamp_min(1e-30)).max())
+        print(f"[psi bake] Nq={nq}: blocks of 1, 3, 5, 7 rows against one "
+              f"block, max relative difference {odd}", flush=True)
+    print(f"[psi bake] 44 rows of the 3001-node radial rule on 100, 101 and "
+          f"30 q points, in blocks of 4, 8, 12 and the factory's "
+          f"{cylinders._psi_bake_block(100, 3001)} (at 100 points): bit for "
+          f"bit one block's; {card}", flush=True)
+
+
+def psi_golden_misfit(torch, eng, data, golden):
+    """The table's blend at the golden's parameters against the exact
+    converged rule there, in float64 on the fit grid: (max, rms) of the
+    probe's metric |Δff²| / (ff² + 1e-6·max ff²) — how closely the table
+    tier can represent the golden at all."""
+    bound, kern = eng.bound, eng.kern
+    pv = torch.tensor([[golden[n] for n in bound.active]],
+                      dtype=torch.float32, device="cuda")
+    blend = kern.table_fn(kern.table, bound.pdict(pv))[0].double()
+    p = dict(bound.fixed, psiAngleDivisions=3001.0)
+    p.update({n: float(golden[n]) for n in bound.active})
+    exact = bound.model.ff(torch.tensor(data.q, dtype=torch.float64,
+                                        device="cuda"), p)
+    e2, a2 = exact ** 2, blend ** 2
+    err = (a2 - e2).abs() / (e2 + 1e-6 * e2.max())
+    return float(err.max()), float(err.pow(2).mean().sqrt())
+
+
+def psi_table_rows_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
+                         load, data_config, get_model, suite, card,
+                         profiling):
+    """Phase 18: the ψ-grid cylinders' table rows (suite.PSI_ROWS
+    'cylinders-aspect', 'cylinders-radial') through ``fit()`` on the
+    card: the cold fit with the probe and the bake, five warm fits, the
+    launch counts over the first (K2's table entry only, 2 axes); 10/10
+    converged with max chi2 <= 1 (PSI_CONVERGES; the Aspect row: chi2
+    descends on every repetition), two runs of one seed equal, finite
+    values of the expected shape, the vol-weighted mean of PSI_GATED
+    within 10 %;
+    one segment of each engine against the plain versions, bit for bit,
+    and timed (k2_segment).  Then K2 on ψ tables at the ragged shapes
+    (32 nodes an axis, probe bypassed), the radial model with three axes
+    through the rows-in entry from the engine, bit for bit, and the bake's
+    block invariance.  Returns {row: numbers}."""
+    from mcsas_tpu_torch.models import cylinders
+    from mcsas_tpu_torch.ops import tables
+    out = {}
+    for name in ("cylinders-aspect", "cylinders-radial"):
+        row = suite.PSI_ROWS[name]
+        data = row.load()
+        bound = row.bound(data)
+        cfg = row.config()
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_ = fit(data, bound, cfg, device="cuda")
+            torch.cuda.synchronize()
+            return r_, time.perf_counter() - t0
+
+        first, cold = timed()               # probes and bakes the table
+        reset_counts(mc_kernel)
+        res, wall = timed()
+        counts = (mc_kernel.run_prefetch_table_chunk.launches,
+                  mc_kernel.run_prefetch_chunk.launches,
+                  mc_kernel.run_chunk.launches)
+        walls = [wall] + [timed()[1] for _ in range(4)]
+        e = res.engine
+        eng = engine_cls(data, bound, cfg, device="cuda")
+        eng.gen.manual_seed(cfg.seed)
+        chi0 = eng._init_batch().conval.double().cpu().numpy()
+        for r_ in (first, res):
+            if name in PSI_CONVERGES:
+                ok = (r_.engine.converged.all()
+                      and r_.engine.conval.max() <= 1.0)
+            else:
+                ok = (r_.engine.conval < chi0).all()
+            if not ok:
+                raise AssertionError(
+                    f"[fit {name}] {int(r_.engine.converged.sum())}/10 "
+                    f"converged, chi2 {r_.engine.conval} from {chi0}")
+        if counts[0] <= 0 or counts[1:] != (0, 0):
+            raise AssertionError(f"[fit {name}] launches (table in, rows "
+                                 f"in, K1) {counts}")
+        if not (e.used_table and e.used_prefetch and e.used_pallas):
+            raise AssertionError(f"[fit {name}] used_table/used_prefetch "
+                                 "not both set")
+        if not np.array_equal(first.engine.contribs, e.contribs):
+            raise AssertionError(f"[fit {name}] two runs of one seed "
+                                 "differ")
+        if not (e.contribs.shape == (10, 300, 2)
+                and np.isfinite(e.contribs).all()
+                and np.isfinite(res.fractions.measval).all()
+                and res.fractions.measval.shape == (10, data.count)):
+            raise AssertionError(f"[fit {name}] wrong shape or non-finite "
+                                 "values")
+        if not (eng.prefetch_entry == "table"
+                and len(eng.spec.table_layout) == 2
+                and eng.spec.factor_layout == (0, -1, 0.0)):
+            raise AssertionError(f"[fit {name}] entry {eng.prefetch_entry},"
+                                 f" layout {eng.spec.table_layout}")
+        means = {h.spec.param: float(h.moments.mean[0])
+                 for h in res.histograms if h.spec.yweight == "vol"}
+        c = e.contribs
+        means["half_length"] = (vol_mean(res, c[:, :, 0] * c[:, :, 1])
+                                if bound.active[1] == "aspect" else None)
+        key, want = PSI_GATED[name]
+        if not abs(means[key] - want) <= 0.1 * want:
+            raise AssertionError(f"[fit {name}] vol-weighted mean {key} "
+                                 f"{means[key]!r}, golden {want!r}")
+        misfit = psi_golden_misfit(torch, eng, data, PSI_GOLDEN[name])
+        win, err, seg = k2_segment(torch, mc_kernel, f"K2 {name}", eng,
+                                   card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        histogram_all(e.contribs, data, bound, cfg, None, device=eng.device)
+        torch.cuda.synchronize()
+        post_s = time.perf_counter() - t0
+        median = float(np.median(walls))
+        print(f"[fit {name}] {int(e.converged.sum())}/10 converged, chi2 "
+              f"{chi0.min():.1f}-{chi0.max():.1f} -> {e.conval.min():.4f}-"
+              f"{e.conval.max():.4f} (held to "
+              f"{'<= 1' if name in PSI_CONVERGES else 'descent'}), attempts "
+              f"{e.attempts.tolist()}, launches (table in, rows in, K1) "
+              f"{counts} (2 table axes, {eng.kern.table.values.shape[0]} "
+              f"rows), total_iters {e.total_iters}, cold wall with the "
+              f"probe and the bake {cold:.4f} s, warm walls of 5 fits "
+              f"{walls}, median {median:.4f} s (engine {e.elapsed:.4f} s, "
+              f"{e.total_iters / e.elapsed:.4g} proposals/s); post pass "
+              f"and histograms {post_s:.4f} s; the table's blend at the "
+              f"golden's parameters against the exact rule, |dff2|/ff2 max "
+              f"{misfit[0]:.4g}, rms {misfit[1]:.4g}; vol-weighted means "
+              f"{means} "
+              f"(gated: {key} within 10 % of {want!r}); on {card}",
+              flush=True)
+        if profiling:
+            profile_fit(torch, lambda: fit(data, bound, cfg, device="cuda"),
+                        card, name, "mc_prefetch")
+        out[name] = dict(seg, launches=counts[0], max_abs_err=err,
+                         compared=win, median=median,
+                         total_iters=e.total_iters)
+    with table_env(32):
+        for model in ("CylindersIsotropicAspect",
+                      "CylindersRadiallyIsotropic"):
+            win, worst = check_k2_ragged(
+                torch, mc_kernel, engine_cls, load, data_config, get_model,
+                suite.PSI_ROWS["cylinders-aspect"].config(), card,
+                model=model, tag=f"K2 psi {model}")
+            out[model] = dict(compared=win, max_abs_err=worst)
+            print(f"[psi ragged] K2 on {model}'s tables (32 nodes an axis) "
+                  f"against its plain versions at {len(K2_RAGGED)} ragged "
+                  f"shapes x 2 proposal modes x 2 entries: max |chi2 kernel "
+                  f"- plain| {worst}; {card}", flush=True)
+        row = suite.PSI_ROWS["cylinders-radial"]
+        data = row.load()
+        bound = get_model(row.model).bind(
+            active=("radius", "aspect", "psiAngle"),
+            active_ranges={"radius": (1e-9, 1e-8), "aspect": (1.0, 4.0)})
+        eng = engine_cls(data, bound, row.config(), device="cuda")
+        if not (eng.prefetch_entry == "rows"
+                and len(eng.kern.table.axes) == 3):
+            raise AssertionError("[psi 3 axes] not the rows-in entry")
+        eng.gen.manual_seed(2)
+        state = eng._init_batch()
+        gen_state = eng.gen.get_state()
+        cands = mc_kernel.segment_candidates(
+            state, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+        ts, _ = mc_kernel.prefetch_table_reference(
+            state.clone(), 0, eng.consts, eng.spec, cands)
+        eng.gen.set_state(gen_state)
+        reset_counts(mc_kernel)
+        ks, _ = eng._segment(state.clone(), 0)
+        torch.cuda.synchronize()
+        if (mc_kernel.run_prefetch_chunk.launches,
+                mc_kernel.run_prefetch_table_chunk.launches) != (1, 0):
+            raise AssertionError("[psi 3 axes] launches")
+        states_equal(torch, "psi 3 axes rows in", ks, ts)
+        if not (ks.n_moves > 0).all():
+            raise AssertionError("[psi 3 axes] a repetition accepted "
+                                 "nothing")
+        print(f"[psi 3 axes] CylindersRadiallyIsotropic with radius, aspect "
+              f"and psiAngle active ({eng.kern.table.values.shape[0]}-row "
+              f"table, 3 axes): the engine's {eng.seg_steps}-step segment "
+              f"at R=10 N=300 K=128 launches K2's rows-in entry, bit for "
+              f"bit its plain version; {card}", flush=True)
+    psi_bake_blocks(torch, cylinders, tables, card)
+    return out
+
+
+def declined_route_phase(torch, mc_kernel, engine_cls, get_model, suite,
+                         card):
+    """Phase 19: the configurations no kernel runs — the ψ tables the
+    probe declines (both models on the wide default ranges, 0.5-300 nm)
+    and the tilted model, which has no table: at the ψ rows' shape (R=10,
+    N=300, K=128, Nq=100) the engine raises under use_pallas='auto',
+    naming the reason and use_pallas='off'; under 'off' the plain chunk
+    runs a bounded number of steps (the verbatim 303-node rule in the
+    loop), descends, launches nothing, and the phase prints the us a
+    step."""
+    nm = 1e-9
+    cases = (
+        ("CylindersIsotropicAspect", ("radius", "aspect"),
+         {"radius": (0.5 * nm, 300 * nm), "aspect": (1.0, 20.0)},
+         "declined", 8),
+        ("CylindersRadiallyIsotropic", ("radius", "psiAngle"),
+         {"radius": (0.5 * nm, 300 * nm)}, "declined", 8),
+        ("CylindersRadiallyIsotropicTilted", ("radius", "psiAngle"),
+         {"radius": (1.0, 20.0)}, "no device function", 4))
+    out = {}
+    row = suite.PSI_ROWS["cylinders-radial"]
+    data = row.load()
+    for name, active, ranges, reason, steps in cases:
+        bound = get_model(name).bind(active=active, active_ranges=ranges)
+        cfg = row.config(chunk_steps=steps)
+        try:
+            engine_cls(data, bound, cfg, device="cuda")
+        except ValueError as exc:
+            text = str(exc)
+            if reason not in text or "use_pallas='off'" not in text:
+                raise AssertionError(f"[declined {name}] error text "
+                                     f"{text!r}")
+        else:
+            raise AssertionError(f"[declined {name}] use_pallas='auto' on "
+                                 "the card did not raise")
+        eng = engine_cls(data, bound, cfg.replace(use_pallas="off"),
+                         device="cuda")
+        if eng.uses_table or eng.runs_cuda_kernel:
+            raise AssertionError(f"[declined {name}] a table or a kernel")
+        eng.gen.manual_seed(1)
+        state0 = eng._init_batch()
+        props = eng._draw_chunk_proposals(n_steps=steps)
+        work = state0.clone()
+        reset_counts(mc_kernel)
+        ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+            work.copy_(state0), 0, eng.consts, eng.spec, props), 2)
+        if (mc_kernel.run_chunk.launches
+                or mc_kernel.run_prefetch_chunk.launches
+                or mc_kernel.run_prefetch_table_chunk.launches):
+            raise AssertionError(f"[declined {name}] a kernel launched")
+        if not (torch.isfinite(work.conval).all()
+                and (work.conval <= state0.conval).all()):
+            raise AssertionError(f"[declined {name}] chi2 did not descend")
+        us = ms * 1e3 / steps
+        out[name] = us
+        print(f"[declined {name}] {reason}: use_pallas='auto' raises on "
+              f"the card; the plain chunk (use_pallas='off'), {steps} "
+              f"steps at R=10 N=300 K=128 Nq={data.count} with the "
+              f"verbatim {int(dict(bound.fixed)['psiAngleDivisions'])}-"
+              f"node rule in the loop: {ms:.2f} ms, {us:.1f} us per step; "
+              f"{card}", flush=True)
+    return out
+
+
+def two_d_phase(torch, mc_kernel, fit, engine_cls, suite, card, profiling):
+    """Phase 20: the 2D (q, psi) fit 'cylinders-2d' (CylindersRadially-
+    Isotropic on a 100 x 36 image, 300 x 10, K=128, 1024 steps an
+    attempt): use_pallas='auto' raises on the card naming 2D; ``fit()``
+    under 'off' runs the plain chunk, launches nothing, chi2 descends on
+    every repetition, and the recovered orientation lands within 0.3 rad
+    of psi0 (mod pi); the card's float64 post pass equals the CPU's to
+    1e-10 relative, and is timed."""
+    from mcsas_tpu_torch.post import histogram
+    row = suite.PSI_ROWS["cylinders-2d"]
+    data = row.load()
+    bound = row.bound(data)
+    cfg = row.config()
+    try:
+        engine_cls(data, bound, cfg.replace(use_pallas="auto"),
+                   device="cuda")
+    except ValueError as exc:
+        if "2D" not in str(exc) or "use_pallas='off'" not in str(exc):
+            raise AssertionError(f"[2d] error text {str(exc)!r}")
+    else:
+        raise AssertionError("[2d] use_pallas='auto' on the card did not "
+                             "raise")
+    eng = engine_cls(data, bound, cfg, device="cuda")
+    eng.gen.manual_seed(cfg.seed)
+    chi0 = eng._init_batch().conval.double().cpu().numpy()
+    reset_counts(mc_kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(data, bound, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    e = res.engine
+    if (mc_kernel.run_chunk.launches or mc_kernel.run_prefetch_chunk.launches
+            or mc_kernel.run_prefetch_table_chunk.launches
+            or e.used_pallas or e.used_table):
+        raise AssertionError("[2d] a table or a kernel")
+    if not (np.isfinite(e.conval).all() and (e.conval < chi0).all()):
+        raise AssertionError(f"[2d] chi2 {e.conval} against the start "
+                             f"{chi0}")
+    delta = suite.orientation_error(e.contribs)
+    if not delta < 0.3:
+        raise AssertionError(f"[2d] orientation off by {delta:.3f} rad")
+    c = e.contribs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_post = histogram._post_pass_f64(bound, data, cfg, c, device="cuda")
+    torch.cuda.synchronize()
+    post_ms = (time.perf_counter() - t0) * 1e3
+    cpu_post = histogram._post_pass_f64(bound, data, cfg, c, device="cpu")
+    worst = 0.0
+    for a, b in zip(card_post, cpu_post):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        fin = np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), fin):
+            raise AssertionError("[2d] post pass: finite entries differ")
+        rel = np.abs(a - b)[fin] / np.maximum(np.abs(b[fin]), 1e-300)
+        worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    if not worst <= 1e-10:
+        raise AssertionError(f"[2d] post pass card vs CPU: {worst:.3g}")
+    steps = e.total_iters // (cfg.num_reps * cfg.candidates_per_step)
+    print(f"[2d] cylinders-2d ({data.count} pixels, 300 x 10, K=128, "
+          f"budget {cfg.max_iterations // 128} steps an attempt) under "
+          f"use_pallas='off' on the card: chi2 {chi0.min():.1f}-"
+          f"{chi0.max():.1f} -> {e.conval.min():.3f}-{e.conval.max():.3f}, "
+          f"{int(e.converged.sum())}/10 converged, attempts "
+          f"{e.attempts.tolist()}, total_iters {e.total_iters} ({steps} "
+          f"steps of 10 repetitions), wall {wall:.3f} s (engine "
+          f"{e.elapsed:.3f} s, {e.elapsed * 1e6 / max(steps, 1):.1f} us per "
+          f"step), orientation {suite.orientation(c):.4f} rad (psi0 "
+          f"{suite.PSI0}, off by {delta:.4f}); float64 post pass on the "
+          f"card {post_ms:.2f} ms, against the CPU's max rel {worst:.3g}; "
+          f"{card}", flush=True)
+    if profiling:
+        profile_fit(torch, lambda: fit(data, bound, cfg, device="cuda"),
+                    card, "cylinders-2d", "mc_")
+    return dict(wall=wall, post_ms=post_ms, delta=delta)
+
+
+
 def kern_probe_entries():
     """The K2 entries of the probe's runner (tools/kern_probe.py)."""
     from mcsas_tpu_torch.tools import kern_probe
@@ -1955,6 +2397,18 @@ def main():
     crossval_launches = cylinder_crossval_phase(torch, mc_kernel, fit, suite,
                                                 card)
 
+    # ---- phase 18: the ψ-grid cylinders' table rows through K2's table entry
+    psi_rows = psi_table_rows_phase(torch, mc_kernel, fit, McSASEngine,
+                                    histogram_all, load, DataConfig,
+                                    get_model, suite, card, profiling)
+
+    # ---- phase 19: the declined ψ tables and the tilted model (no kernel)
+    declined_route_phase(torch, mc_kernel, McSASEngine, get_model, suite,
+                         card)
+
+    # ---- phase 20: 2D (q, ψ) fitting through the plain chunk
+    two_d_phase(torch, mc_kernel, fit, McSASEngine, suite, card, profiling)
+
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
     # PyTorch call computes an MC chunk; mc_prefetch: the numbers of its
@@ -2043,6 +2497,22 @@ def main():
         "entry": "table in, one table axis (the ellipsoids-isotropic fit "
                  "path)",
         "compared": ell["compared"]})
+    for name, model in (("cylinders-aspect", "CylindersIsotropicAspect"),
+                        ("cylinders-radial", "CylindersRadiallyIsotropic")):
+        k = psi_rows[name]
+        kernels.append({
+            "name": f"mc_prefetch[psi table, {model}]", "route": "cuda",
+            "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",
+            "replaces": "mcsas_tpu/ops/mc_kernel.py:719",
+            "launches": k["launches"],
+            "max_abs_err": max(k["max_abs_err"],
+                               psi_rows[model]["max_abs_err"]),
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "shape": k["shape"],
+            "entry": f"table in, a probe-gated psi table of two axes (the "
+                     f"{name} fit path)",
+            "compared": k["compared"] + psi_rows[model]["compared"]})
     kernels.append({
         "name": "mc_probe", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_probe.cu",

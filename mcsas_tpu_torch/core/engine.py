@@ -162,9 +162,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def magnitude_probe(bound: BoundModel, probe_grid) -> float:
+def magnitude_probe(bound: BoundModel, probe_grid, two_d_psi=None) -> float:
     """Float64 form-factor-magnitude normalization probe at the geometric
-    midpoint of the active ranges: i_ref = max |ff²| on the given grid.
+    midpoint of the active ranges: i_ref = max |ff²| on the given grid
+    (with *two_d_psi*, of ``ff2d`` on the (q, ψ) pairs of a 2D grid).
 
     The form factor can carry huge constant factors which overflow float32
     just as SI volume weights underflow it; scaling device rows by 1/i_ref
@@ -172,8 +173,13 @@ def magnitude_probe(bound: BoundModel, probe_grid) -> float:
     Evaluated in float64 on the CPU."""
     mids = np.asarray([np.sqrt(max(lo, 1e-300) * hi) if hi > 0 else lo
                        for lo, hi in bound.ranges], np.float64)
-    ffp = bound.ff(torch.as_tensor(np.asarray(probe_grid, np.float64)),
-                   torch.as_tensor(mids))
+    grid = torch.as_tensor(np.asarray(probe_grid, np.float64))
+    if two_d_psi is not None:
+        ffp = bound.model.ff2d(
+            grid, torch.as_tensor(np.asarray(two_d_psi, np.float64)),
+            bound.pdict(torch.as_tensor(mids)))
+    else:
+        ffp = bound.ff(grid, torch.as_tensor(mids))
     probe = np.abs(np.asarray(ffp * ffp, np.float64))
     i_ref = float(np.nanmax(probe))
     if not np.isfinite(i_ref) or i_ref <= 0.0:
@@ -195,7 +201,9 @@ class IntensityKernel:
     and the row is ((ffv·√w)²) @ smear_w; a smeared table
     (``table_is_intensity``) holds ff²(locs) @ smear_w already, and its
     row is blend·w (reference smearing path:
-    src/mcsas/bases/model/sasmodel.py:56-73).  The scalars are what the
+    src/mcsas/bases/model/sasmodel.py:56-73).  For 2D (q, ψ) data
+    (``psi`` set) ffv is the model's anisotropic ``ff2d`` on the (q, ψ)
+    pairs of the fit grid.  The scalars are what the
     CUDA kernels need to compute or consume the same rows.  The volume is
     scaled by a multiplication with the host reciprocal of v_ref, which
     eager PyTorch performs identically on the CPU and on CUDA (PyTorch
@@ -218,6 +226,11 @@ class IntensityKernel:
     smear_w: Optional[torch.Tensor] = None
     # the table's rows are smeared intensities, not amplitudes
     table_is_intensity: bool = False
+    # 2D (q, ψ) data: the ψ of each fit-grid point, engine dtype and device
+    psi: Optional[torch.Tensor] = None
+    # the model's table factory was asked and made no table (the ψ-grid
+    # cylinders' interpolation probe declined this binding)
+    table_declined: bool = False
 
     def weight(self, pd: dict):
         """w = (v·inv_v_ref)^comp2 / i_ref of a parameter dict: a tensor,
@@ -250,6 +263,9 @@ class IntensityKernel:
         s = self.sqrt_weight(pvec)
         if self.table is not None:
             ffv = self.table_fn(self.table, self.bound.pdict(pvec))
+        elif self.psi is not None:
+            ffv = self.bound.model.ff2d(self.grid, self.psi,
+                                        self.bound.pdict(pvec[..., None, :]))
         elif self.locs is not None:
             # two grid axes (Nq, n_off) behind the parameter batch
             ffv = self.model_ff(self.locs,
@@ -274,8 +290,11 @@ def _takes_smear(factory) -> bool:
 def make_intensity_kernels(bound: BoundModel, data: SASData,
                            cfg: McSASConfig, dtype=torch.float32,
                            device="cpu") -> IntensityKernel:
-    """Builds the intensity row for the fit grid of 1D data, smeared
-    (``data.locs`` and ``data.smear_w``) or not.
+    """Builds the intensity row for the fit grid: of 1D data, smeared
+    (``data.locs`` and ``data.smear_w``) or not, or of 2D (q, ψ) data
+    (``data.psi``) with the model's ``ff2d``, where smearing is ignored
+    and no table is made (the JAX package's 2D branch,
+    mcsas_tpu/core/engine.py:183-205,315-318).
 
     A float32 engine of a model with a table factory reads its form
     factor from a parameter table baked on *device* when
@@ -283,10 +302,11 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
     smeared intensity, baked against the dataset's own contraction, and
     only a factory that declares the ``smear`` keyword is asked for one
     (the JAX package's table branch, mcsas_tpu/core/engine.py:236-279)."""
-    if data.psi is not None and bound.model.ff2d is not None:
-        raise NotImplementedError(
-            "2D (q, psi) fitting is not ported to PyTorch yet")
-    smearing = data.uses_smearing and bound.model.can_smear
+    two_d = data.psi is not None and bound.model.ff2d is not None
+    if two_d and data.uses_smearing and bound.model.can_smear:
+        log.warning("2D (q, psi) fitting ignores the smearing config: "
+                    "the anisotropic kernel has no smeared variant")
+    smearing = data.uses_smearing and bound.model.can_smear and not two_d
     comp2 = 2.0 * cfg.compensation_exponent
     v_ref = bound.reference_volume()
     grid = torch.as_tensor(np.asarray(data.q, np.float64)).to(
@@ -297,16 +317,21 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
             device=device, dtype=dtype)
         smear_w = torch.as_tensor(np.asarray(data.smear_w, np.float64)).to(
             device=device, dtype=dtype)
-    i_ref = magnitude_probe(bound, data.locs if smearing else data.q)
+    psi = None
+    if two_d:
+        psi = torch.as_tensor(np.asarray(data.psi, np.float64)).to(
+            device=device, dtype=dtype)
+    i_ref = magnitude_probe(bound, data.locs if smearing else data.q,
+                            two_d_psi=data.psi if two_d else None)
     model_ff = bound.model.ff
     if dtype == torch.float32 and bound.model.ff_fast is not None:
         model_ff = bound.model.ff_fast
     table = table_fn = None
-    table_is_intensity = False
+    table_is_intensity = table_declined = False
     factory = bound.model.ff_table_factory
     if smearing and factory is not None and not _takes_smear(factory):
         factory = None      # a factory that predates smeared tables
-    if (dtype == torch.float32 and factory is not None
+    if (dtype == torch.float32 and factory is not None and not two_d
             and cfg.table_ff_enabled()):
         kw = {}
         if smearing:
@@ -317,6 +342,7 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
         if made is not None:
             table_fn, table = made[:2]
             table_is_intensity = len(made) == 3 and made[2] == "intensity"
+        table_declined = made is None
 
     # float32 overflow guard: candidate rows at extreme range corners can
     # reach (v/v_ref)^(2c)·(ff/ff_ref)² ≈ 1e20, and the solve's Σu·x²
@@ -339,7 +365,8 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
                            inv_i_ref=1.0 / i_ref, row_clamp=row_clamp,
                            table=table, table_fn=table_fn, locs=locs,
                            smear_w=smear_w,
-                           table_is_intensity=table_is_intensity)
+                           table_is_intensity=table_is_intensity, psi=psi,
+                           table_declined=table_declined)
 
 
 class McSASEngine:
@@ -406,17 +433,38 @@ class McSASEngine:
         ok = (self.prefetch_entry is not None if self.uses_table
               else mc_kernel.supports(self))
         if not ok and (mode == "on" or on_card):
-            smeared = (self.kern.locs is not None and not self.uses_table)
             raise ValueError(
                 f"use_pallas={mode!r} on {self.device.type} but this "
                 "model/config is not eligible for a chunk kernel (K1: "
                 "Sphere, LMADenseSphere, GaussianChain or "
                 "SphericalCoreShell, unsmeared, float32; K2: the "
-                "parameter-table tier, float32, smeared tables included)"
-                + ("; this fit is smeared and its model has no parameter "
-                   "table, so no kernel runs its rows" if smeared else "")
-                + "; pass use_pallas='off' for the plain PyTorch chunk")
+                "parameter-table tier, float32, smeared tables included); "
+                f"{self._no_kernel_reason()}; pass use_pallas='off' for "
+                "the plain PyTorch chunk")
         return on_card
+
+    def _no_kernel_reason(self) -> str:
+        """Why neither chunk kernel runs this configuration, for the
+        error of :meth:`_kernel_route`."""
+        kern, name = self.kern, self.bound.model.name
+        if kern.psi is not None:
+            return ("this is a 2D (q, psi) fit: its rows come from the "
+                    f"anisotropic ff2d of {name}, which no kernel "
+                    "evaluates, and 2D takes no table")
+        if self.dtype != torch.float32:
+            return f"the config asks for {self.cfg.dtype}"
+        if kern.locs is not None and not self.uses_table:
+            return (f"this fit is smeared and {name} has no parameter "
+                    "table, so no kernel runs its rows")
+        if kern.table_declined:
+            return (f"the interpolation probe declined {name}'s parameter "
+                    "table for this binding (its rows oscillate along the "
+                    "parameter axes faster than the table's nodes can "
+                    "follow), and the model has no device function")
+        if self.uses_table:
+            return f"K2 takes 1 to {mc_kernel.MAX_P} active parameters"
+        return (f"{name} has no device function and, in this config, no "
+                "parameter table")
 
     def _k_local(self) -> int:
         """Number of candidates per step drawn as local moves."""

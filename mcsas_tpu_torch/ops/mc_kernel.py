@@ -268,11 +268,12 @@ def model_id(model) -> int:
 def supports(engine) -> bool:
     """True when the fused kernel K1 can run this engine's configuration
     (the JAX package's eligibility, mcsas_tpu/ops/mc_kernel.py:38-44, for
-    the models with a device function): unsmeared, float32, 1 ≤ P ≤
+    the models with a device function): 1D, unsmeared, float32, 1 ≤ P ≤
     MAX_P."""
     model = engine.bound.model
     return (any(model is m for m in K1_MODELS)
             and len(model.params) <= MAX_MODEL_P
+            and engine.kern.psi is None
             and not (engine.data.uses_smearing and model.can_smear)
             and engine.dtype == torch.float32
             and 1 <= engine.bound.n_active <= MAX_P)

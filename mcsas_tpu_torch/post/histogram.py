@@ -160,23 +160,31 @@ def _bank_f64(bound: BoundModel, data: SASData, comp2: float,
     """The float64 partial-intensity bank (R, N, Nq) of contributions
     *rset* (R, N, P): ff²·w on the fit grid, or for smeared data
     (ff²(locs) @ smear_w)·w on the (Nq, n_off) grid of smearing offsets
-    (reference: sasmodel.py:56-73), with w = volume^comp2.
+    (reference: sasmodel.py:56-73), or for 2D (q, ψ) data ff2d²·w on the
+    fit grid's (q, ψ) pairs (no smearing), with w = volume^comp2.
 
     Evaluated *block* contributions at a time, so that the temporaries
     (block × Nq × n_off × the model's quadrature nodes) stay bounded: a
     smeared cylinder's whole bank would take gigabytes per temporary.
     *block* None sizes the blocks to :data:`BANK_BLOCK_VALUES`; the
-    result does not depend on it (each contribution's row is its own)."""
+    result does not depend on it (each contribution's row is its own), up
+    to the last bit where a block moves where a row of quadrature nodes
+    starts in memory (the vectorized sums read from there)."""
     model, dev = bound.model, rset.device
-    smearing = data.uses_smearing and model.can_smear
+    two_d = data.psi is not None and model.ff2d is not None
+    smearing = data.uses_smearing and model.can_smear and not two_d
     grid = torch.as_tensor(np.asarray(data.locs if smearing else data.q,
                                       np.float64)).to(dev)
     smear_w = (torch.as_tensor(np.asarray(data.smear_w, np.float64)).to(dev)
                if smearing else None)
+    psi = (torch.as_tensor(np.asarray(data.psi, np.float64)).to(dev)
+           if two_d else None)
     flat = rset.reshape(-1, rset.shape[-1])
     if block is None:
-        nodes = 1 if model.elementwise_q else int(
-            dict(bound.fixed).get("intDiv", 1))
+        # the quadrature nodes behind each grid point (ff2d has none)
+        fixed = dict(bound.fixed)
+        nodes = 1 if (model.elementwise_q or two_d) else int(
+            fixed.get("intDiv", fixed.get("psiAngleDivisions", 1)))
         block = max(1, BANK_BLOCK_VALUES // (grid.numel() * max(nodes, 1)))
     out = []
     for i in range(0, len(flat), block):
@@ -184,7 +192,7 @@ def _bank_f64(bound: BoundModel, data: SASData, comp2: float,
         # entries (B, 1) against the fit grid, (B, 1, 1) against locs
         pd = bound.pdict(part[:, None, None, :] if smearing
                          else part[:, None, :])
-        ffv = model.ff(grid, pd)
+        ffv = model.ff2d(grid, psi, pd) if two_d else model.ff(grid, pd)
         it = (ffv * ffv) @ smear_w if smearing else ffv * ffv
         w = model.volume(bound.pdict(part[:, None, :])) ** comp2
         out.append(it * w)
@@ -201,9 +209,6 @@ def _post_pass_f64(bound: BoundModel, data: SASData, cfg: McSASConfig,
     the per-contribution Python loops of mcsas.py:549-594).  Returns
     numpy float64 arrays (wset, vset, sset (R, N), a, b (R,), measval
     (R, Nq), agofs (R,), minq (R, N))."""
-    if data.psi is not None and bound.model.ff2d is not None:
-        raise NotImplementedError(
-            "2D (q, psi) post analysis is not ported to PyTorch yet")
     f64 = torch.float64
     comp2 = 2.0 * cfg.compensation_exponent
     n_params = contribs.shape[2]

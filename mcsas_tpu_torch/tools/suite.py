@@ -16,6 +16,12 @@ K2's table entry: 'ellipsoids-isotropic' and 'core-shell-ellipsoid' on
 synthetic goldens made here (:func:`ellipsoid_golden`,
 :func:`core_shell_ellipsoid_golden`) and 'kholodenko-worm', whose lookup
 multiplies the blend by the worm's cross-section (bench.py:155-222).
+:data:`PSI_ROWS` are the legacy ψ-grid cylinders on synthetic goldens
+made here: 'cylinders-aspect' and 'cylinders-radial' on the ranges where
+the interpolation probe engages their tables (K2's table entry at two
+axes), and 'cylinders-2d', an anisotropic (q, ψ) image, which has no
+table and no kernel: the plain chunk under ``use_pallas='off'``, for a
+bounded budget of steps.
 """
 from __future__ import annotations
 
@@ -35,7 +41,9 @@ from ..data import (DataConfig, SASData, TrapezoidSmearing, from_raw,
                     load)
 from ..models import get_model
 from ..models.base import BoundModel
-from ..models.cylinders import _cyl_iso_ff_ab, _cyl_iso_table_factory
+from ..models.cylinders import (_cyl_iso_aspect_ff, _cyl_iso_ff_ab,
+                                _cyl_iso_table_factory, _cyl_radial_ff,
+                                _cyl_radial_ff2d)
 from ..models.ellipsoids import _ell_cs_ff, _ell_iso_ff_uv
 from ..ops import tables
 from ..post.histogram import HistogramSpec, histogram_all
@@ -59,6 +67,8 @@ class SuiteRow:
     truth: dict
     # SI values of parameters the row fixes (bench.py:213-214)
     fixed: Optional[dict] = None
+    # 'off' where no kernel runs the row (the plain chunk on the card)
+    use_pallas: str = "auto"
 
     def load(self) -> SASData:
         """The row's data: a file under testdata/, or 'synth:<kind>', a
@@ -84,7 +94,8 @@ class SuiteRow:
                     max_iterations=self.budget, chunk_steps=1024,
                     candidates_per_step=self.k_cand, seed=2026,
                     max_retries=1, convergence_criterion=1.0,
-                    local_moves=self.local_moves, show_incomplete=True)
+                    local_moves=self.local_moves, show_incomplete=True,
+                    use_pallas=self.use_pallas)
         base.update(kw)
         return McSASConfig(**base)
 
@@ -194,8 +205,99 @@ def core_shell_ellipsoid_golden() -> SASData:
     return _synthetic(q_nm, ff.numpy(), "ellcoreshell")
 
 
+def cylinder_aspect_golden() -> SASData:
+    """The 'cylinders-aspect' golden: q = geomspace(0.01, 1, 100) nm⁻¹,
+    CylindersIsotropicAspect at radius 5 nm, aspect 2 with the converged
+    rule of its table (psiAngleDivisions 3001), in float64."""
+    q_nm = np.geomspace(0.01, 1.0, 100)
+    p = dict(radius=5e-9, aspect=2.0, psiAngleDivisions=3001.0)
+    ff = _cyl_iso_aspect_ff(torch.as_tensor(q_nm * 1e9,
+                                            dtype=torch.float64), p)
+    return _synthetic(q_nm, ff.numpy(), "cylinder-aspect")
+
+
+def cylinder_radial_golden() -> SASData:
+    """The 'cylinders-radial' golden: the same q grid,
+    CylindersRadiallyIsotropic at radius 10 nm, aspect 10, psiAngle at
+    its default 0.17 rad, with the converged rule (3001 ψ nodes)."""
+    q_nm = np.geomspace(0.01, 1.0, 100)
+    p = dict(radius=10e-9, aspect=10.0, psiAngle=0.17,
+             psiAngleDivisions=3001.0)
+    ff = _cyl_radial_ff(torch.as_tensor(q_nm * 1e9, dtype=torch.float64),
+                        p)
+    return _synthetic(q_nm, ff.numpy(), "cylinder-radial")
+
+
+PSI0 = 0.8      # the 2D golden's in-plane orientation [rad]
+
+
+def cylinder_2d_golden(n_q: int = 100, n_psi: int = 36,
+                       rel_sigma: float = 0.01) -> SASData:
+    """An anisotropic detector image (the JAX package's
+    tests/test_2d.py::synth_2d): *n_q* q values geomspace(0.05, 1.5) nm⁻¹
+    × *n_psi* azimuths linspace(0.05, 2π) without the end, the in-plane
+    cylinder (radius 5 nm, aspect 10, ψ₀ = :data:`PSI0`) as (ff·v)²
+    normalized to max 1 plus 1e-4, σ = *rel_sigma*·I, flattened to raw
+    rows (q, I, σ, ψ in degrees) and loaded with ``fit_2d``."""
+    q_nm = np.geomspace(0.05, 1.5, n_q)
+    psi = np.linspace(0.05, 2 * math.pi, n_psi, endpoint=False)
+    qg, pg = np.meshgrid(q_nm * 1e9, psi, indexing="ij")
+    r, asp = 5e-9, 10.0
+    ff = _cyl_radial_ff2d(torch.as_tensor(qg.ravel()),
+                          torch.as_tensor(pg.ravel()),
+                          {"radius": r, "aspect": asp,
+                           "psiAngle": PSI0}).numpy()
+    i = (ff * (math.pi * r ** 2 * 2 * r * asp)) ** 2
+    i = i / i.max() + 1e-4
+    raw = np.column_stack([qg.ravel() / 1e9, i, rel_sigma * i,
+                           np.degrees(pg.ravel())])
+    return from_raw(raw, title="synthetic-2d",
+                    config=DataConfig(n_bin=0, fit_2d=True))
+
+
+def orientation(contribs: np.ndarray) -> float:
+    """The volume-weighted circular mean of the fitted psiAngle (column
+    1) of contributions (R, N, P) with the radius in column 0, mod π
+    (the cylinder is symmetric): the 2D fit's recovered ψ₀."""
+    ang = 2.0 * contribs[:, :, 1]
+    w = contribs[:, :, 0] ** 3                 # ~volume weight
+    return math.atan2((w * np.sin(ang)).sum(),
+                      (w * np.cos(ang)).sum()) / 2.0
+
+
+def orientation_error(contribs: np.ndarray, psi0: float = PSI0) -> float:
+    """|recovered ψ₀ − *psi0*| mod π, in radians."""
+    return abs((orientation(contribs) - psi0 + math.pi / 2) % math.pi
+               - math.pi / 2)
+
+
 _GOLDENS = {"ellipsoid": ellipsoid_golden,
-            "ellcoreshell": core_shell_ellipsoid_golden}
+            "ellcoreshell": core_shell_ellipsoid_golden,
+            "cylinder-aspect": cylinder_aspect_golden,
+            "cylinder-radial": cylinder_radial_golden,
+            "cylinder-2d": cylinder_2d_golden}
+
+# the ψ-grid rows: 2 active parameters each, local moves 0.5; the 1D rows
+# on the narrow ranges where the probe engages their tables
+# (tests/test_tables.py:368-374).  'cylinders-aspect' runs a bounded
+# budget of 1 M proposals an attempt: its one-size golden has the deep
+# sinc zeros of an aligned rod, which its table cannot place, so its χ²
+# stalls above 1 (PERF.md §6); 'cylinders-2d' 1024 steps (K=128)
+# an attempt through the plain chunk
+PSI_ROWS = {row.name: row for row in (
+    SuiteRow("cylinders-aspect", "synth:cylinder-aspect",
+             "CylindersIsotropicAspect", ("radius", "aspect"),
+             {"radius": (1 * _NM, 20 * _NM), "aspect": (1.0, 4.0)}, 128,
+             1_000_000, 0.5, {"radius": 5e-9, "aspect": 2.0}),
+    SuiteRow("cylinders-radial", "synth:cylinder-radial",
+             "CylindersRadiallyIsotropic", ("radius", "psiAngle"),
+             {"radius": (1 * _NM, 30 * _NM)}, 128, 8_000_000, 0.5,
+             {"radius": 10e-9}),
+    SuiteRow("cylinders-2d", "synth:cylinder-2d",
+             "CylindersRadiallyIsotropic", ("radius", "psiAngle"),
+             {"radius": (1 * _NM, 20 * _NM)}, 128, 1024 * 128, 0.5,
+             {"radius": 5e-9, "psiAngle": PSI0}, use_pallas="off"),
+)}
 
 
 def cylinder_bound() -> BoundModel:

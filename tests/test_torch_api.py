@@ -94,6 +94,7 @@ def test_port_never_imports_jax(tmp_path, refdata):
         "import sys\n"
         "import mcsas_tpu_torch as mt\n"
         "import mcsas_tpu_torch.ops.tables, mcsas_tpu_torch.models.cylinders\n"
+        "import mcsas_tpu_torch.post.histogram\n"
         "import mcsas_tpu_torch.models.chains\n"
         "import mcsas_tpu_torch.models.ellipsoids\n"
         "import mcsas_tpu_torch.tools.kern_probe\n"

@@ -921,3 +921,202 @@ def test_engines_route_each_model_to_the_kernel(elementwise):
         with pytest.raises(ValueError, match="eligible"):
             McSASEngine(eng.data, eng.bound, small.replace(dtype="float64"),
                         device="cuda")
+
+
+# ------------------------------------------------ the ψ-grid cylinders
+
+_PSI_MODELS = ("CylindersIsotropicAspect", "CylindersRadiallyIsotropic")
+_PSI_CASES = [("r3-k48-bins100", "1-axis"), ("r1-k8-bins5", "1-axis"),
+              ("r3-k48-bins100", "2-axis"), ("r2-k200-bins200", "2-axis")]
+
+
+@pytest.fixture
+def psi_tables(small_tables, monkeypatch):
+    """ψ tables of 32 nodes an axis with the interpolation probe bypassed
+    (it declines such coarse spacings): K2 is held to its plain version
+    on whatever table it reads."""
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "32")
+    monkeypatch.setenv("MCSAS_TPU_TABLE_PROBE", "off")
+
+
+def _psi_engine(model, shape, mode, axes):
+    key = ("psi", model, shape, mode, axes)
+    if key not in _ENGINES:
+        reps, k, n_bin, n = K2_SHAPES[shape]
+        cfg = McSASConfig(num_contribs=n, num_reps=reps, chunk_steps=60,
+                          candidates_per_step=k, seed=5,
+                          max_iterations=1_000_000, table_ff="on",
+                          local_moves=0.5 if mode == "local" else 0.0)
+        _ENGINES[key] = McSASEngine(
+            load(DATA, config=DataConfig(n_bin=n_bin)),
+            get_model(model).bind(**K2_AXES[axes]), cfg, device="cuda")
+    return _ENGINES[key]
+
+
+@pytest.mark.parametrize("entry", ["rows", "table"])
+@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("shape,axes", _PSI_CASES)
+@pytest.mark.parametrize("model", _PSI_MODELS)
+def test_psi_table_entries_equal_plain_versions(psi_tables, model, shape,
+                                                axes, mode, entry):
+    """Both entries of K2 on the ψ-grid cylinders' tables (radius, or
+    radius and aspect) against their plain versions over one segment:
+    every decision and every bit of the state equal."""
+    eng = _psi_engine(model, shape, mode, axes)
+    assert eng.prefetch_entry == "table" and eng.runs_cuda_kernel
+    assert len(eng.spec.table_layout) == (1 if axes == "1-axis" else 2)
+    state, ri, cands = _k2_segment(eng)
+    ks, kt = state.clone(), {}
+    _run_k2_entry(eng, entry, ks, ri, cands, kt)
+    ts, tt = state.clone(), {}
+    if entry == "table":
+        mc_kernel.prefetch_table_reference(ts, ri, eng.consts, eng.spec,
+                                           cands, trace=tt)
+    else:
+        mc_kernel.prefetch_reference(ts, ri, eng.consts, eng.spec,
+                                     eng.kern.row(cands), cands, trace=tt)
+    torch.cuda.synchronize()
+    assert (tt["choice"] >= 0).any()
+    assert torch.equal(kt["choice"], tt["choice"])
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+
+
+@pytest.mark.parametrize("name", ["cylinders-aspect", "cylinders-radial"])
+def test_psi_rows_route_to_the_table_entry(psi_tables, name):
+    """The ψ rows' engines on the card launch K2's table entry only, at
+    two table axes, over a short run."""
+    row = suite.PSI_ROWS[name]
+    d = row.load()
+    cfg = row.config(num_contribs=64, num_reps=3, max_iterations=128 * 150,
+                     max_retries=0, table_ff="on")
+    eng = McSASEngine(d, row.bound(d), cfg, device="cuda")
+    assert eng.prefetch_entry == "table" and eng.runs_cuda_kernel
+    assert len(eng.spec.table_layout) == 2
+    counts = (mc_kernel.run_prefetch_table_chunk.launches,
+              mc_kernel.run_prefetch_chunk.launches,
+              mc_kernel.run_chunk.launches)
+    res = eng.run()
+    assert res.used_table and res.used_prefetch and res.used_pallas
+    assert mc_kernel.run_prefetch_table_chunk.launches > counts[0]
+    assert (mc_kernel.run_prefetch_chunk.launches,
+            mc_kernel.run_chunk.launches) == counts[1:]
+    assert np.isfinite(res.conval).all() and (res.n_moves > 0).all()
+
+
+def test_psi_three_axes_run_the_rows_entry(psi_tables, monkeypatch):
+    """The radial model with radius, aspect and psiAngle active has three
+    table axes: its segments go through K2's rows-in entry, bit for bit
+    the plain version."""
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    row = suite.PSI_ROWS["cylinders-radial"]
+    cfg = McSASConfig(num_contribs=64, num_reps=3, chunk_steps=60,
+                      candidates_per_step=48, seed=5, local_moves=0.5,
+                      max_iterations=1_000_000, table_ff="on")
+    eng = McSASEngine(row.load(), get_model(row.model).bind(
+        active=("radius", "aspect", "psiAngle"),
+        active_ranges={"radius": (1e-9, 1e-8), "aspect": (1.0, 4.0)}),
+        cfg, device="cuda")
+    assert eng.prefetch_entry == "rows" and len(eng.kern.table.axes) == 3
+    eng.gen.manual_seed(2)
+    state = eng._init_batch()
+    gen_state = eng.gen.get_state()
+    cands = mc_kernel.segment_candidates(
+        state, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    ts, _ = mc_kernel.prefetch_table_reference(state.clone(), 0, eng.consts,
+                                               eng.spec, cands)
+    eng.gen.set_state(gen_state)
+    rows_in = mc_kernel.run_prefetch_chunk.launches
+    ks, _ = eng._segment(state.clone(), 0)
+    torch.cuda.synchronize()
+    assert mc_kernel.run_prefetch_chunk.launches == rows_in + 1
+    for f in ("rset", "ibank", "ft", "conval", "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+
+
+@pytest.mark.parametrize("name,active,ranges,reason", [
+    ("CylindersIsotropicAspect", ("radius", "aspect"),
+     {"radius": (0.5e-9, 3e-7), "aspect": (1.0, 20.0)}, "declined"),
+    ("CylindersRadiallyIsotropic", ("radius", "psiAngle"),
+     {"radius": (0.5e-9, 3e-7)}, "declined"),
+    ("CylindersRadiallyIsotropicTilted", ("radius",),
+     {"radius": (1.0, 20.0)}, "no device function")])
+def test_psi_configs_without_a_kernel(small_tables, monkeypatch, name,
+                                      active, ranges, reason):
+    """A ψ table the probe declines (the wide default ranges) and the
+    tilted model have no kernel: on the card use_pallas='auto' raises
+    naming the reason and use_pallas='off', which runs the plain chunk
+    and launches nothing."""
+    monkeypatch.delenv("MCSAS_TPU_TABLE_RES_CAP", raising=False)
+    monkeypatch.delenv("MCSAS_TPU_TABLE_PROBE", raising=False)
+    d = suite.PSI_ROWS["cylinders-radial"].load()
+    bound = get_model(name).bind(active=active, active_ranges=ranges)
+    cfg = McSASConfig(num_contribs=32, num_reps=2, chunk_steps=8,
+                      candidates_per_step=16, max_iterations=16 * 16,
+                      max_retries=0, table_ff="on", seed=3)
+    with pytest.raises(ValueError, match=reason) as err:
+        McSASEngine(d, bound, cfg, device="cuda")
+    assert "use_pallas='off'" in str(err.value)
+    counts = (mc_kernel.run_chunk.launches,
+              mc_kernel.run_prefetch_chunk.launches,
+              mc_kernel.run_prefetch_table_chunk.launches)
+    res = McSASEngine(d, bound, cfg.replace(use_pallas="off"),
+                      device="cuda").run()
+    assert not (res.used_pallas or res.used_table)
+    assert (mc_kernel.run_chunk.launches,
+            mc_kernel.run_prefetch_chunk.launches,
+            mc_kernel.run_prefetch_table_chunk.launches) == counts
+    assert np.isfinite(res.conval).all()
+
+
+def test_2d_fit_on_the_card(small_tables):
+    """A 2D (q, ψ) fit has no kernel: use_pallas='auto' raises naming 2D;
+    under 'off' the plain chunk runs and descends, and the card's float64
+    post pass equals the CPU's to 1e-10 relative."""
+    from mcsas_tpu_torch.post import histogram
+    d = suite.cylinder_2d_golden(24, 16, rel_sigma=0.02)
+    bound = get_model("CylindersRadiallyIsotropic").bind(
+        active=("radius", "psiAngle"), active_ranges={"radius": (1e-9,
+                                                                 2e-8)})
+    cfg = McSASConfig(num_contribs=20, num_reps=2, max_iterations=1000,
+                      chunk_steps=250, candidates_per_step=4, seed=9,
+                      max_retries=0, show_incomplete=True)
+    with pytest.raises(ValueError, match="2D") as err:
+        McSASEngine(d, bound, cfg, device="cuda")
+    assert "use_pallas='off'" in str(err.value)
+    eng = McSASEngine(d, bound, cfg.replace(use_pallas="off"),
+                      device="cuda")
+    eng.gen.manual_seed(cfg.seed)
+    chi0 = eng._init_batch().conval.cpu().numpy()
+    res = eng.run()
+    assert np.all(res.conval < chi0) and res.n_moves.min() > 0
+    card = histogram._post_pass_f64(bound, d, cfg, res.contribs,
+                                    device="cuda")
+    cpu = histogram._post_pass_f64(bound, d, cfg, res.contribs,
+                                   device="cpu")
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=0.0)
+
+
+def test_psi_bake_is_the_same_whatever_the_block(small_tables):
+    """The ψ bake's rows on the card in blocks of 4, 8 and 12 rows (whole
+    multiples of 4, as the factory's) and in one block of all 21, on 100,
+    101 and 30 q points: bit for bit."""
+    from mcsas_tpu_torch.models import cylinders
+    for nq in (100, 101, 30):
+        q32 = torch.tensor(np.geomspace(1e7, 1e9, nq), dtype=torch.float32,
+                           device="cuda")
+
+        def row_fn(vals):
+            return cylinders._cyl_radial_ff(q32, dict(
+                radius=vals[:, 0:1], psiAngle=vals[:, 1:2], aspect=10.0,
+                psiAngleDivisions=3001.0))
+
+        grids = [tables.log_grid(1e-9, 3e-8, 7),
+                 tables.log_grid(0.01, 6.29, 3)]
+        outs = [tables.build_param_table(row_fn, grids, block=b,
+                                         device="cuda").values
+                for b in (21, 4, 8, 12)]
+        for o in outs[1:]:
+            assert torch.equal(o, outs[0])

@@ -21,12 +21,13 @@ from mcsas_tpu import data as jax_data  # noqa: E402
 from mcsas_tpu.config import McSASConfig as JaxConfig  # noqa: E402
 from mcsas_tpu.core import engine as jax_engine  # noqa: E402
 from mcsas_tpu.models import chains as jax_chains  # noqa: E402
+from mcsas_tpu.models import REGISTRY as JAX_REGISTRY  # noqa: E402
 from mcsas_tpu.models import get_model as jax_get_model  # noqa: E402
 from mcsas_tpu.ops import special as jax_special  # noqa: E402
 from mcsas_tpu_torch import api, data  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
-from mcsas_tpu_torch.models import chains, get_model  # noqa: E402
+from mcsas_tpu_torch.models import REGISTRY, chains, get_model  # noqa: E402
 from mcsas_tpu_torch.models.sphere import lma_coefficients  # noqa: E402
 from mcsas_tpu_torch.ops import mc_kernel, special  # noqa: E402
 
@@ -262,10 +263,13 @@ def test_registry_has_the_elementwise_models():
     for name in MODELS:
         assert get_model(name).name == name
         assert get_model(name).param_names == jax_get_model(name).param_names
-    for name in ("CylindersIsotropicAspect", "CylindersRadiallyIsotropic",
-                 "CylindersRadiallyIsotropicTilted"):
-        with pytest.raises(KeyError, match="later PR"):
-            get_model(name)
+    # every model of the JAX package is ported: the same eleven names,
+    # each with the JAX package's parameters
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY) and len(REGISTRY) == 11
+    for name, model in REGISTRY.items():
+        assert model.param_names == JAX_REGISTRY[name].param_names
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model("NoSuchModel")
 
 
 # -------------------------------------------------- engines and rows

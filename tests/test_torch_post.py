@@ -142,14 +142,23 @@ def test_smeared_bank_in_blocks_equals_the_whole(refdata, model):
 
 
 def test_2d_post_pass_still_raises(refdata):
+    # 2D data is ported: the post pass no longer raises, its bank is the
+    # model's ff2d on the (q, ψ) pairs (here q·r + ψ), ff2d²·w
     d = data.load(refdata / "sasfit_sphere-10-1.dat")
     model = get_model("Sphere")
     import dataclasses
-    two_d = dataclasses.replace(d, psi=np.zeros_like(d.q))
-    bound = dataclasses.replace(model, ff2d=lambda q, psi, p: q).bind()
-    with pytest.raises(NotImplementedError, match="2D"):
-        histogram._post_pass_f64(bound, two_d, McSASConfig(),
-                                 np.full((1, 2, 1), 1e-8))
+    psi = np.linspace(0.0, 1.0, d.count)
+    two_d = dataclasses.replace(d, psi=psi)
+    bound = dataclasses.replace(
+        model, ff2d=lambda q, ps, p: q * p["radius"] + ps).bind()
+    contribs = np.array([[[1e-8], [2e-8]]])
+    cfg = McSASConfig()
+    out = histogram._post_pass_f64(bound, two_d, cfg, contribs)
+    a, b, measval = out[3], out[4], out[5]
+    comp2 = 2.0 * cfg.compensation_exponent
+    ft = sum((d.q * r + psi) ** 2 * model.volume({"radius": r}) ** comp2
+             for r in contribs[0, :, 0])
+    np.testing.assert_allclose(measval[0], a[0] * ft + b[0], rtol=1e-12)
 
 
 def test_post_pass_matches_jax(post_inputs):
