@@ -138,7 +138,23 @@ Phases (any failure raises and the script exits nonzero):
      naming 2D; ``fit()`` under 'off' at 300 × 10, K=128 and 1024 steps
      an attempt — χ² descends on every repetition, the orientation lands
      within 0.3 rad of ψ₀ (mod π), no kernel launched; the card's float64
-     post pass equals the CPU's to 1e-10 relative, timed.
+     post pass equals the CPU's to 1e-10 relative, timed;
+ 21. the result files and the command line at the headline config:
+     ``run_files`` over a Sphere series (testdata/sasfit_sphere-10-1.dat,
+     the same with I and σ scaled × 2 and × 0.5, and a byte copy of the
+     first) with series statistics — each fit 10/10 converged, max
+     χ² ≤ 1, K1 launched for every file and K2 never, 3 engines built for
+     4 files (the copy reuses the cached engine, and its contributions
+     equal the first file's bit for bit), every output file present,
+     fit.dat equal to the in-memory curve (rtol 1e-6), the series table 4
+     rows × the histograms, the HDF5 archive reloaded where h5py imports
+     (whether it was written is printed); the cylinder golden written to
+     a file through ``run_files`` — 10/10, K2's table entry launched, the
+     mean radius within 10 % of 10 nm; ``cli.main`` and
+     ``python -m mcsas_tpu_torch`` in a subprocess on the Sphere file —
+     exit 0, converged, the files written; the per-file walls (the first
+     with the engine's set-up, the cached copy), write_all alone and the
+     subprocess's wall.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -1981,6 +1997,280 @@ def two_d_phase(torch, mc_kernel, fit, engine_cls, suite, card, profiling):
 
 
 
+# phase 21's Sphere series: the dataset, the same with I and σ scaled
+# × 2 and × 0.5, and a byte copy of the first under another name
+SERIES = (("sphere-x2", 2.0), ("sphere-x0.5", 0.5), ("sphere-copy", None))
+CLI_FLAGS = ("--candidates", "128", "--local-moves", "0.5", "--seed",
+             "2026", "--max-iter", "8e6", "--nolog")
+
+
+def _output_set(written):
+    """The files of one OutputFiles.write_all, each asserted present."""
+    paths = [p for v in written.values()
+             for p in (v if isinstance(v, list) else [v])]
+    missing = [p for p in paths if not os.path.isfile(p)]
+    if missing or not {"settings", "fit", "distributions", "statistics",
+                       "contributions"} <= set(written):
+        raise AssertionError(f"output set incomplete: {sorted(written)}, "
+                             f"missing {missing}")
+    return paths
+
+
+def _cli_files(out_dir):
+    """The files one CLI run wrote under *out_dir* (one subdirectory),
+    the output set's kinds asserted present."""
+    import glob
+    paths = glob.glob(os.path.join(out_dir, "*", "*"))
+    kinds = {os.path.basename(p).rsplit("_", 1)[-1] for p in paths}
+    want = {"fit.dat", "settings.cfg", "contributions.pickle", "log.txt",
+            "radius.dat"}                     # radius.dat: stats_radius
+    if not (want <= kinds and any(k.startswith("hist-") for k in kinds)):
+        raise AssertionError(f"CLI output in {out_dir}: {sorted(kinds)}")
+    return paths
+
+
+def _held_converged(label, res):
+    e = res.engine
+    if not (e.converged.all() and e.conval.max() <= 1.0
+            and np.isfinite(e.contribs).all()):
+        raise AssertionError(f"{label}: {int(e.converged.sum())}/"
+                             f"{len(e.converged)} converged, max chi2 "
+                             f"{e.conval.max()}")
+
+
+class series_probe:
+    """Reads a run_files series from outside: the kernels each fit()
+    launched and its wall, each write_all's wall and when it ended, and
+    the engines built (api.fit, OutputFiles.write_all and the engine
+    class api builds, wrapped for the block and restored after)."""
+
+    def __init__(self, api, mc_kernel, engine_cls):
+        self.api, self.mc, self.engine_cls = api, mc_kernel, engine_cls
+        self.fits, self.writes, self.ends, self.engines = [], [], [], []
+
+    def _k2(self):
+        return (self.mc.run_prefetch_table_chunk.launches
+                + self.mc.run_prefetch_chunk.launches)
+
+    def __enter__(self):
+        api, probe = self.api, self
+        self.saved = (api.fit, api.OutputFiles.write_all, api.McSASEngine)
+        fit, write_all, engine_cls = self.saved
+
+        def counted_fit(*args, **kw):
+            k1, k2 = probe.mc.run_chunk.launches, probe._k2()
+            t0 = time.perf_counter()
+            res = fit(*args, **kw)
+            probe.fits.append((probe.mc.run_chunk.launches - k1,
+                               probe._k2() - k2, time.perf_counter() - t0))
+            return res
+
+        def timed_write_all(out, plot=False):
+            t0 = time.perf_counter()
+            written = write_all(out, plot=plot)
+            t1 = time.perf_counter()
+            probe.writes.append(t1 - t0)
+            probe.ends.append(t1)
+            return written
+
+        class Counted(engine_cls):
+            def __init__(self, *args, **kw):
+                probe.engines.append(self)
+                super().__init__(*args, **kw)
+
+        api.fit, api.OutputFiles.write_all = counted_fit, timed_write_all
+        api.McSASEngine = Counted
+        return self
+
+    def __exit__(self, *exc):
+        (self.api.fit, self.api.OutputFiles.write_all,
+         self.api.McSASEngine) = self.saved
+
+
+def files_phase(torch, mc_kernel, card):
+    """Phase 21: run_files over a Sphere series (K1) and the cylinder
+    golden (K2), cli.main and ``python -m mcsas_tpu_torch``, at the
+    headline width; returns the launches of K1 and K2."""
+    import glob
+    import shutil
+    import tempfile
+    from mcsas_tpu_torch import api, cli
+    from mcsas_tpu_torch.config import McSASConfig
+    from mcsas_tpu_torch.core.engine import McSASEngine
+    from mcsas_tpu_torch.data import DataConfig
+    from mcsas_tpu_torch.io import load_raw, write_ascii
+    from mcsas_tpu_torch.tools import suite
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        # ---- the Sphere series through K1
+        raw, _ = load_raw(DATA)
+        files = [DATA]
+        for name, factor in SERIES:
+            fn = os.path.join(tmp, f"{name}.dat")
+            if factor is None:
+                shutil.copyfile(DATA, fn)
+            else:
+                scaled = np.array(raw, np.float64)
+                scaled[:, 1:3] *= factor
+                write_ascii(fn, scaled)
+            files.append(fn)
+        cfg = headline_config(McSASConfig).replace(series_stats=True)
+        out_dir = os.path.join(tmp, "series")
+        os.makedirs(out_dir)
+        api._ENGINE_CACHE.clear()
+        reset_counts(mc_kernel)
+        with series_probe(api, mc_kernel, McSASEngine) as probe:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = api.run_files(files, "Sphere", cfg, out_dir=out_dir,
+                                    device="cuda")
+        k1_series = mc_kernel.run_chunk.launches
+        k2_series = (mc_kernel.run_prefetch_table_chunk.launches
+                     + mc_kernel.run_prefetch_chunk.launches)
+        for fn, res in zip(files, results):
+            _held_converged(f"series {os.path.basename(fn)}", res)
+        per_file_k1 = [k1 for k1, _, _ in probe.fits]
+        if (k2_series or any(k2 for _, k2, _ in probe.fits)
+                or min(per_file_k1) <= 0
+                or sum(per_file_k1) != k1_series):
+            raise AssertionError(f"series: K1 launches per file "
+                                 f"{per_file_k1}, K2 {k2_series}")
+        if len(probe.engines) != 3:
+            raise AssertionError(f"series: {len(probe.engines)} engines "
+                                 "built for 4 files (3 contents)")
+        if not np.array_equal(results[3].engine.contribs,
+                              results[0].engine.contribs):
+            raise AssertionError("series: the byte copy's contributions "
+                                 "differ from the first file's")
+        n_files = 0
+        for res in results:
+            n_files += len(_output_set(res.output_files))
+            fitted, _ = load_raw(res.output_files["fit"])
+            if not (np.allclose(fitted[:, 0], res.fit_x0, rtol=1e-6,
+                                atol=0)
+                    and np.allclose(fitted[:, 3], res.fit_measval_mean,
+                                    rtol=1e-6, atol=0)):
+                raise AssertionError("series: fit.dat differs from the "
+                                     "in-memory fit_measval_mean")
+        series_tables = glob.glob(os.path.join(out_dir,
+                                               "series statistics *.dat"))
+        n_hist = len(results[0].histograms)
+        if len(series_tables) != 1:
+            raise AssertionError(f"series: {len(series_tables)} tables")
+        with open(series_tables[0], encoding="utf-8") as fd:
+            rows = fd.read().strip().splitlines()[1:]
+        if len(rows) != 4 * n_hist:
+            raise AssertionError(f"series table: {len(rows)} rows, want "
+                                 f"4 x {n_hist}")
+        try:
+            import h5py  # noqa: F401
+            have_h5py = True
+        except ImportError:
+            have_h5py = False
+        if have_h5py:
+            from mcsas_tpu_torch.io.hdf import load_archive
+            for res in results:
+                state = load_archive(res.output_files["archive"])
+                if not np.array_equal(state["contribs"], res.contribs):
+                    raise AssertionError("series: the archive reloads to "
+                                         "other contributions")
+            archive = "written, and reloads to the same contributions"
+        elif any("archive" in r.output_files for r in results):
+            raise AssertionError("an archive was written without h5py")
+        else:
+            archive = "not written (h5py is not importable here)"
+        walls = np.diff([t0] + probe.ends)
+        conv = [f"{int(r.engine.converged.sum())}/{cfg.num_reps}"
+                for r in results]
+        print(f"[files] Sphere series through run_files: 4 files, "
+              f"converged {conv} (max chi2 "
+              f"{max(r.engine.conval.max() for r in results):.4f}), K1 "
+              f"launches per file {per_file_k1}, K2 0, 3 engines built for"
+              f" 4 files, the copy bitwise equal to the first, {n_files} "
+              f"output files, series table {len(rows)} rows; HDF5 archive "
+              f"{archive}", flush=True)
+        print(f"[time files] per-file wall of the series (load, fit, "
+              f"writes) {[round(float(w), 4) for w in walls]} s: first "
+              f"file with engine set-up {walls[0]:.4f} s, the cached copy "
+              f"{walls[3]:.4f} s; fit() alone "
+              f"{[round(f[2], 4) for f in probe.fits]} s; write_all alone "
+              f"{[round(w, 4) for w in probe.writes]} s (median "
+              f"{float(np.median(probe.writes)) * 1e3:.2f} ms); on {card}",
+              flush=True)
+
+        # ---- the cylinder golden from a file through K2
+        golden = suite.cylinder_golden()
+        cyl_file = os.path.join(tmp, "synthetic-cylinder.dat")
+        write_ascii(cyl_file, golden.raw)
+        reset_counts(mc_kernel)
+        t0 = time.perf_counter()
+        (cres,) = api.run_files(
+            [cyl_file], suite.cylinder_bound(), suite.cylinder_config(),
+            out_dir=os.path.join(tmp, "cylinder"),
+            data_config=DataConfig(n_bin=0), device="cuda")
+        cyl_wall = time.perf_counter() - t0
+        k2_cyl = mc_kernel.run_prefetch_table_chunk.launches
+        _held_converged("cylinder file", cres)
+        _output_set(cres.output_files)
+        if (k2_cyl <= 0 or mc_kernel.run_prefetch_chunk.launches
+                or mc_kernel.run_chunk.launches):
+            raise AssertionError(
+                f"cylinder file: {k2_cyl} launches of K2's table entry, "
+                f"{mc_kernel.run_prefetch_chunk.launches} of its rows "
+                f"entry, {mc_kernel.run_chunk.launches} of K1")
+        mean_r = float(cres.histograms[0].moments.mean[0])
+        if not abs(mean_r - GOLDEN_RADIUS) <= 0.1 * GOLDEN_RADIUS:
+            raise AssertionError(f"cylinder file: vol-weighted mean radius "
+                                 f"{mean_r!r} m, golden {GOLDEN_RADIUS} m")
+        print(f"[files] cylinder golden through run_files: "
+              f"{int(cres.engine.converged.sum())}/"
+              f"{len(cres.engine.converged)} converged, max chi2 "
+              f"{cres.engine.conval.max():.4f}, "
+              f"{k2_cyl} launches of K2's table entry, mean radius "
+              f"{mean_r * 1e9:.4f} nm (golden 10), wall with the bake "
+              f"{cyl_wall:.4f} s; on {card}", flush=True)
+
+        # ---- the CLI, in this process and as the module entry
+        cli_dir = os.path.join(tmp, "cli")
+        reset_counts(mc_kernel)
+        rc = cli.main([DATA, *CLI_FLAGS, "-o", cli_dir])
+        k1_cli = mc_kernel.run_chunk.launches
+        cli_out = _cli_files(cli_dir)
+        if rc != 0 or k1_cli <= 0:
+            raise AssertionError(f"cli.main: rc {rc}, {k1_cli} K1 "
+                                 "launches")
+        sub_dir = os.path.join(tmp, "module")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (HERE, env.get("PYTHONPATH", "")) if p)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mcsas_tpu_torch", DATA, *CLI_FLAGS,
+             "-o", sub_dir], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=600)
+        sub_wall = time.perf_counter() - t0
+        summary = [ln for ln in out.stdout.splitlines()
+                   if ln.startswith("sasfit_sphere-10-1: chi2=")]
+        if (out.returncode != 0 or len(summary) != 1
+                or "[converged]" not in summary[0]):
+            raise AssertionError(
+                f"python -m mcsas_tpu_torch: rc {out.returncode}, summary "
+                f"{summary}; stderr {out.stderr[-2000:]}")
+        _cli_files(sub_dir)
+        print(f"[files] cli.main rc 0, {k1_cli} K1 launches, "
+              f"{len(cli_out)} files; python -m mcsas_tpu_torch rc 0: "
+              f"{summary[0]}", flush=True)
+        print(f"[time files] python -m mcsas_tpu_torch subprocess wall "
+              f"{sub_wall:.4f} s (interpreter, torch import, kernel "
+              f"libraries loaded, one headline fit, writes); phase 21 "
+              f"{time.perf_counter() - t_phase:.2f} s; on {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"k1": k1_series + k1_cli, "k2": k2_cyl}
+
+
 def kern_probe_entries():
     """The K2 entries of the probe's runner (tools/kern_probe.py)."""
     from mcsas_tpu_torch.tools import kern_probe
@@ -2409,6 +2699,9 @@ def main():
     # ---- phase 20: 2D (q, ψ) fitting through the plain chunk
     two_d_phase(torch, mc_kernel, fit, McSASEngine, suite, card, profiling)
 
+    # ---- phase 21: the result files, run_files and the CLI
+    files = files_phase(torch, mc_kernel, card)
+
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
     # PyTorch call computes an MC chunk; mc_prefetch: the numbers of its
@@ -2424,6 +2717,7 @@ def main():
         "max_abs_err": max(err_inj, err_phx, ragged_errs["Sphere"]),
         "ms": ms_philox, "plain_ms": ms_plain, "bound_ms": k1_bound_ms,
         "bound_by": k1_bound_by, "library_ms": None, "shape": k1_shape,
+        "files_launches": files["k1"],
         "compared": [win_inj, win_phx] + ragged["Sphere"]}]
     for name, row in ROWS.items():
         k = rows_k1[name]
@@ -2446,6 +2740,7 @@ def main():
         "bound_ms": k2["table"]["bound_ms"],
         "bound_by": k2["table"]["bound_by"], "library_ms": None,
         "shape": k2["table"]["shape"], "entry": "table in (the fit path)",
+        "files_launches": files["k2"],
         "rows_in": k2["rows"], "compared": k2_windows})
     kernels.append({
         "name": "mc_prefetch[intensity]", "route": "cuda",

@@ -6,6 +6,9 @@ Quick start::
 
     import mcsas_tpu_torch as mt
     result = mt.fit("mydata.csv", model="Sphere", device="cuda")
+    mt.run_files(["a.dat", "b.dat"], model="Sphere", out_dir="out")
+
+or from the shell: ``python -m mcsas_tpu_torch a.dat b.dat -o out``.
 
 The package imports torch and numpy only; the JAX package ``mcsas_tpu``
 beside it is the reference it is tested against.
@@ -13,7 +16,7 @@ beside it is the reference it is tested against.
 
 __version__ = "0.1.0"
 
-from .api import McSASResult, fit                    # noqa: E402
+from .api import McSASResult, OutputFiles, fit, run_files  # noqa: E402
 from .config import McSASConfig                      # noqa: E402
 from .data import DataConfig, SASData, load          # noqa: E402
 from .models import REGISTRY, get_model              # noqa: E402
@@ -22,4 +25,5 @@ from .post.histogram import HistogramSpec            # noqa: E402
 __all__ = [
     "__version__", "McSASConfig", "DataConfig", "SASData", "load",
     "REGISTRY", "get_model", "HistogramSpec", "McSASResult", "fit",
+    "OutputFiles", "run_files",
 ]

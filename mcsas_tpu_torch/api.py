@@ -1,17 +1,24 @@
 # -*- coding: utf-8 -*-
-"""Headless user API: fit a dataset and inspect the result::
+"""Headless user API: fit a dataset, inspect results, write output files::
 
     result = fit(data, model="Sphere", cfg=McSASConfig(...), device="cuda")
 
 Replaces the reference's GUI-driven Calculator orchestration
-(src/mcsas/gui/calc.py:219-331) with a pure function.  The compute device
-is explicit: ``device="cuda"`` (the default) raises when there is no card.
+(src/mcsas/gui/calc.py:219-331) with a pure function, plus
+:func:`run_files` for the per-file pipeline including the reference's
+output-file set (settings .cfg, fit/distribution/statistics .dat files,
+contributions pickle, HDF5 state archive and optional plot; reference
+writers: gui/calc.py:381-462, output set documented in
+doc/source/quickstart.rst:164-177).  The compute device is explicit:
+``device="cuda"`` (the default) raises when there is no card.
 """
 from __future__ import annotations
 
+import configparser
 import logging
 import math
 import os
+import pickle
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Union
 
@@ -20,12 +27,14 @@ import torch
 
 from . import data as data_mod
 from .config import McSASConfig
-from .core.engine import EngineResult, McSASEngine
+from .core.engine import EngineResult, McSASEngine, resolve_device
 from .data import SASData
+from .io.ascii import format_value, write_ascii
 from .models import get_model
 from .models.base import BoundModel, SASModel
-from .post.histogram import (FractionsResult, HistogramSpec,
+from .post.histogram import (FractionsResult, HistogramSpec, Moments,
                              histogram_all)
+from .utils.log import RunLogFile, timestamp_formatted
 
 log = logging.getLogger(__name__)
 
@@ -166,6 +175,37 @@ def _default_unbounded_ranges(bound: BoundModel, data: SASData
                             fixed=dict(bound.fixed))
 
 
+# engines built for one (data content, model, config, device) — reused
+# across fit() calls so a series of same-content files pays the engine's
+# set-up once.  An engine restarts its generator from cfg.seed on every
+# run, so a reused engine gives the result a fresh one would.
+_ENGINE_CACHE: dict = {}
+_ENGINE_CACHE_CAP = 8
+
+
+def _cached_engine(engine_cls, data: SASData, bound: BoundModel,
+                   cfg: McSASConfig, device):
+    device = resolve_device(device)
+    try:
+        # construction-environment inputs that shape the engine (a table
+        # baked under MCSAS_TPU_TABLE_RES_CAP, or with the interpolation
+        # probe switched by MCSAS_TPU_TABLE_PROBE) must not be silently
+        # reused after the environment changes
+        env = tuple(os.environ.get(k, "") for k in
+                    ("MCSAS_TPU_TABLE_RES_CAP", "MCSAS_TPU_TABLE_PROBE"))
+        key = (engine_cls, data.content_key(), bound, cfg, device, env)
+        hash(key)    # a custom model piece may not be hashable
+    except TypeError:
+        return engine_cls(data, bound, cfg, device=device)
+    eng = _ENGINE_CACHE.get(key)
+    if eng is None:
+        eng = engine_cls(data, bound, cfg, device=device)
+        if len(_ENGINE_CACHE) >= _ENGINE_CACHE_CAP:
+            _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+        _ENGINE_CACHE[key] = eng
+    return eng
+
+
 def fit(data: Union[SASData, str, os.PathLike],
         model=None,
         cfg: Optional[McSASConfig] = None,
@@ -184,13 +224,17 @@ def fit(data: Union[SASData, str, os.PathLike],
     - *progress*: callable receiving per-rep χ² and counters per chunk
     - *device*: where the MC loop and the float64 post pass run; "cuda"
       raises when torch.cuda.is_available() is False
+
+    The engine comes from :func:`_cached_engine`: a repeat fit of the
+    same (data content, model, config, device) skips the engine's set-up
+    (magnitude probe, table bake and probe) and gives the same result.
     """
     if not isinstance(data, SASData):
         data = data_mod.load(data)
     bound = _resolve_model(model)
     bound = _default_unbounded_ranges(bound, data)
     cfg = cfg or McSASConfig()
-    engine = McSASEngine(data, bound, cfg, device=device)
+    engine = _cached_engine(McSASEngine, data, bound, cfg, device)
     eng_result = engine.run(stop=stop, progress=progress)
     if not eng_result.converged.all() and not cfg.show_incomplete:
         log.warning(
@@ -201,3 +245,203 @@ def fit(data: Union[SASData, str, os.PathLike],
     return McSASResult(data=data, bound=bound, cfg=cfg, engine=eng_result,
                        fractions=fractions, histograms=hists,
                        device=engine.device)
+
+
+# ------------------------------------------------------------------ output
+
+class OutputFiles:
+    """Result-file naming and writing (reference OutputFilename +
+    Calculator writers: gui/calc.py:58-155, 381-462)."""
+
+    def __init__(self, result: McSASResult, out_dir=None, basename=None,
+                 create_dir: bool = True):
+        self.result = result
+        title = result.data.title or "mcsas"
+        self.basename = basename or f"{title} {timestamp_formatted()}"
+        base = out_dir
+        if base is None:
+            base = (os.path.dirname(result.data.filename)
+                    if result.data.filename else ".")
+        target = os.path.join(str(base), self.basename)
+        if create_dir:
+            os.makedirs(target, exist_ok=True)
+            self.out_dir = target
+        else:
+            self.out_dir = str(base)
+
+    def path(self, kind: str, extension: str = ".dat") -> str:
+        return os.path.join(self.out_dir,
+                            f"{self.basename}_{kind}{extension}")
+
+    # --- individual writers --------------------------------------------
+    def write_fit(self) -> str:
+        """q, data, σ, fit mean, fit std (reference _writeFit)."""
+        r = self.result
+        fn = self.path("fit")
+        cols = np.column_stack([
+            r.fit_x0, r.data.f, r.data.fu,
+            r.fit_measval_mean, r.fit_measval_std])
+        write_ascii(fn, cols, header=("fitX0", "dataMean", "dataStd",
+                                      "fitMeasValMean", "fitMeasValStd"))
+        return fn
+
+    def write_distributions(self) -> list:
+        """One file per histogram: xMean xWidth yMean yStd Obs cdfMean
+        cdfStd (reference _writeDistrib)."""
+        out = []
+        for h in self.result.histograms:
+            tag = (f"hist-{h.spec.param}-{h.spec.lower:g}-{h.spec.upper:g}"
+                   f"-{h.spec.bin_count}-{h.spec.xscale}-{h.spec.yweight}")
+            fn = self.path(tag)
+            write_ascii(fn, histogram_columns(h), header=HIST_HEADER)
+            out.append(fn)
+        return out
+
+    def write_statistics(self) -> list:
+        """Per-parameter moments table (reference _writeStatistics)."""
+        out = []
+        by_param = {}
+        for h in self.result.histograms:
+            by_param.setdefault(h.spec.param, []).append(h)
+        header = ("lower", "upper", "weighting") + Moments.FIELD_NAMES
+        for param, hists in by_param.items():
+            fn = self.path(f"stats_{param}")
+            lines = [" ".join(header)]
+            for h in hists:
+                vals = ([format_value(h.spec.lower),
+                         format_value(h.spec.upper), h.spec.yweight]
+                        + [format_value(v) for v in h.moments.fields])
+                lines.append(" ".join(str(v) for v in vals))
+            with open(fn, "w", encoding="utf-8") as fd:
+                fd.write("\n".join(lines) + "\n")
+            out.append(fn)
+        return out
+
+    def write_contribs(self) -> str:
+        """Pickled contributions in the reference (N, P, R) layout —
+        reusable for re-histogramming without re-optimization
+        (reference _writeContribs: gui/calc.py:419-426)."""
+        fn = self.path("contributions", ".pickle")
+        with open(fn, "wb") as fd:
+            pickle.dump(self.result.contribs, fd)
+        return fn
+
+    def write_settings(self) -> str:
+        """ini-style settings dump (reference _writeSettings)."""
+        r = self.result
+        config = configparser.RawConfigParser()
+        config.add_section("I/O Settings")
+        config.set("I/O Settings", "fileName", str(r.data.filename))
+        config.set("I/O Settings", "outputBaseName", self.basename)
+        config.add_section("MCSAS Settings")
+        for key, value in r.cfg.to_dict().items():
+            config.set("MCSAS Settings", key, value)
+        config.set("MCSAS Settings", "model", r.bound.model.name)
+        config.set("MCSAS Settings", "X0 limits", str(list(r.data.q_limit)))
+        config.add_section("Model Settings")
+        for name, (lo, hi) in zip(r.bound.active, r.bound.ranges):
+            config.set("Model Settings", f"{name}_min", lo)
+            config.set("Model Settings", f"{name}_max", hi)
+        for name, value in r.bound.fixed:
+            config.set("Model Settings", name, value)
+        fn = self.path("settings", ".cfg")
+        with open(fn, "w", encoding="utf-8") as fd:
+            config.write(fd)
+        return fn
+
+    def write_archive(self) -> Optional[str]:
+        """HDF5 state archive (reference hdfStore: gui/calc.py:302-309);
+        raises ImportError without h5py."""
+        from .io.hdf import write_archive
+        fn = self.path("hdf5archive", ".hdf5")
+        return write_archive(fn, self.result)
+
+    def write_all(self, plot: bool = False) -> dict:
+        written = dict(
+            settings=self.write_settings(),
+            fit=self.write_fit(),
+            distributions=self.write_distributions(),
+            statistics=self.write_statistics(),
+            contributions=self.write_contribs(),
+        )
+        try:
+            written["archive"] = self.write_archive()
+        except ImportError:
+            log.warning("h5py unavailable; skipping HDF5 archive")
+        if plot:
+            from .plotting import plot_results
+            fn = self.path("plot", ".pdf")
+            plot_results(self.result, output_filename=fn,
+                         auto_close=True)
+            written["plot"] = fn
+        return written
+
+
+HIST_HEADER = ("xMean", "xWidth", "yMean", "yStd", "Obs", "cdfMean",
+               "cdfStd")
+
+
+def histogram_columns(h) -> np.ndarray:
+    """The columns of a distribution file, in :data:`HIST_HEADER` order."""
+    return np.column_stack([h.x_mean, h.x_width, h.bins.mean, h.bins.std,
+                            h.observability, h.cdf.mean, h.cdf.std])
+
+
+def run_files(filenames: Sequence, model=None,
+              cfg: Optional[McSASConfig] = None, histograms=None,
+              out_dir=None, plot: bool = False, data_config=None,
+              device="cuda") -> list:
+    """Runs a series of data files: fits each on *device* and
+    writes the full output-file set; accumulates series statistics when
+    cfg.series_stats (reference Calculator.__call__ per-file pipeline +
+    series handling: gui/calc.py:276-379).  Files of the same content,
+    model and config share one cached engine (:func:`_cached_engine`)."""
+    cfg = cfg or McSASConfig()
+    results = []
+    series = {}
+    for fn in filenames:
+        d = data_mod.load(fn, config=data_config)
+        # pre-create the output dir so the per-run log file (reference:
+        # gui/calc.py:283-288) captures the whole fit
+        probe = McSASResult(data=d, bound=_resolve_model(model), cfg=cfg,
+                            engine=None, fractions=None, histograms=[])
+        out = OutputFiles(probe, out_dir=out_dir)
+        with RunLogFile(out.path("log", ".txt")):
+            res = fit(d, model=model, cfg=cfg, histograms=histograms,
+                      device=device)
+            out.result = res
+            res.output_files = out.write_all(plot=plot)
+        results.append(res)
+        if cfg.series_stats:
+            for h in res.histograms:
+                key = (h.spec.param, h.spec.lower, h.spec.upper,
+                       h.spec.yweight)
+                series.setdefault(key, []).append(
+                    (d.title, h.moments.fields))
+    if cfg.series_stats and series:
+        fn = write_series_stats(series, out_dir or ".")
+        if plot:
+            from .plotting import plot_series_stats
+            plot_series_stats(series, output_filename=str(fn).replace(
+                ".dat", ".pdf"))
+    return results
+
+
+def write_series_stats(series: dict, out_dir) -> str:
+    """Cross-file moments table (reference processSeries/postProcess:
+    gui/calc.py:161-217, 333-379)."""
+    fn = os.path.join(str(out_dir),
+                      f"series statistics {timestamp_formatted()}.dat")
+    lines = []
+    header = ("param", "lower", "upper", "weighting", "sample") + \
+        Moments.FIELD_NAMES
+    lines.append(" ".join(header))
+    for (param, lo, hi, weight), entries in series.items():
+        for title, fields in entries:
+            row = [param, f"{lo:g}", f"{hi:g}", weight,
+                   str(title).replace(" ", "_")]
+            row += [f"{v: 14.6E}" for v in fields]
+            lines.append(" ".join(row))
+    with open(fn, "w", encoding="utf-8") as fd:
+        fd.write("\n".join(lines) + "\n")
+    return fn

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import McSASConfig
+from ..core.engine import resolve_device
 from ..core.fitcore import agofs as agofs_fn
 from ..core.fitcore import make_constants, solve_scale_bg
 from ..data import SASData
@@ -397,13 +398,15 @@ def compute_histogram(spec: HistogramSpec, contribs: np.ndarray,
 def histogram_all(contribs: np.ndarray, data: SASData, bound: BoundModel,
                   cfg: McSASConfig,
                   specs: Optional[Sequence[HistogramSpec]] = None,
-                  device="cpu"):
+                  device="cuda"):
     """Full post-fit pipeline: fractions once, then every histogram.
 
     *contribs* has shape (R, N, P) — e.g. ``EngineResult.contribs`` or a
     stored contributions array for re-analysis; the float64 bank is
-    evaluated on *device*.
+    evaluated on *device*, which, as for ``fit()``, is the card unless
+    the caller asks for the CPU ("cuda" raises without a card).
     """
+    device = resolve_device(device)
     specs = (default_histograms(bound) if specs is None
              else tuple(s.resolved(bound) for s in specs))
     fractions = compute_fractions(contribs, data, bound, cfg, device)

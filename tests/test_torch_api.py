@@ -99,6 +99,9 @@ def test_port_never_imports_jax(tmp_path, refdata):
         "import mcsas_tpu_torch.models.ellipsoids\n"
         "import mcsas_tpu_torch.tools.kern_probe\n"
         "import mcsas_tpu_torch.tools.suite\n"
+        "import mcsas_tpu_torch.api, mcsas_tpu_torch.cli\n"
+        "import mcsas_tpu_torch.io.hdf, mcsas_tpu_torch.utils.log\n"
+        "import mcsas_tpu_torch.plotting\n"
         "cfg = mt.McSASConfig(num_contribs=20, num_reps=1, chunk_steps=20,"
         " max_iterations=400, max_retries=0, candidates_per_step=4)\n"
         f"r = mt.fit({str(refdata / 'sasfit_sphere-10-1.dat')!r}, "

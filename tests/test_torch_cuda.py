@@ -9,6 +9,7 @@ without JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 import dataclasses
+import os
 import pathlib
 
 import numpy as np
@@ -1120,3 +1121,133 @@ def test_psi_bake_is_the_same_whatever_the_block(small_tables):
                 for b in (21, 4, 8, 12)]
         for o in outs[1:]:
             assert torch.equal(o, outs[0])
+
+
+# ------------------------------ run_files, plugin models and the post pass
+
+def _counts():
+    return (mc_kernel.run_chunk.launches,
+            mc_kernel.run_prefetch_table_chunk.launches,
+            mc_kernel.run_prefetch_chunk.launches)
+
+
+def test_run_files_routes_sphere_to_k1_and_the_cylinder_to_k2(
+        small_tables, tmp_path):
+    """run_files on the card: the Sphere file's fit launches K1 and no
+    K2, the cylinder golden's (written to a file, 64-row table) K2's
+    table entry and no K1; both write their output sets."""
+    from mcsas_tpu_torch.api import run_files
+    from mcsas_tpu_torch.data import DataConfig
+    from mcsas_tpu_torch.io import write_ascii
+    cfg = McSASConfig(num_contribs=64, num_reps=3, chunk_steps=256,
+                      candidates_per_step=48, seed=5, max_iterations=2048,
+                      max_retries=0, show_incomplete=True)
+    before = _counts()
+    (res,) = run_files([str(DATA)], "Sphere", cfg, out_dir=tmp_path / "s",
+                       device="cuda")
+    after = _counts()
+    assert after[0] > before[0] and after[1:] == before[1:]
+    assert res.engine.used_pallas and os.path.exists(
+        res.output_files["fit"])
+    golden = suite.cylinder_golden()
+    fn = tmp_path / "cylinder.dat"
+    write_ascii(fn, golden.raw)
+    (cres,) = run_files([str(fn)], suite.cylinder_bound(),
+                        suite.cylinder_config(num_contribs=64, num_reps=3,
+                                              max_iterations=128 * 200,
+                                              max_retries=0, table_ff="on"),
+                        out_dir=tmp_path / "c",
+                        data_config=DataConfig(n_bin=0), device="cuda")
+    final = _counts()
+    assert final[1] > after[1] and (final[0], final[2]) == (after[0],
+                                                            after[2])
+    assert cres.engine.used_prefetch and os.path.exists(
+        cres.output_files["fit"])
+
+
+def _plugin(name="CardPlugin", factory=None):
+    """A plugin model in torch: ff = (q·r)⁻², the volume of a sphere."""
+    import math
+    from mcsas_tpu_torch.models import ParamSpec, SASModel
+    from mcsas_tpu_torch.utils.units import NM
+    return SASModel(
+        name=name, elementwise_q=factory is None, doc="card plugin",
+        params=(ParamSpec("radius", NM.to_si(1.0), NM, (0.0, float("inf")),
+                          active_range=NM.to_si((0.1, 100.0)),
+                          generator="logdec1", is_fit=True),),
+        default_active=("radius",),
+        ff=lambda q, p: (q * p["radius"]) ** -2,
+        volume=lambda p: 4.0 / 3.0 * math.pi * p["radius"] ** 3,
+        ff_table_factory=factory)
+
+
+def test_plugin_model_needs_use_pallas_off(small_tables):
+    """A plugin has no device function: under 'auto' the card raises and
+    names it, even for a plugin registered under a built-in's name; under
+    'off' it fits through the plain chunk and launches no kernel."""
+    from mcsas_tpu_torch import fit
+    from mcsas_tpu_torch.models import REGISTRY, register_model
+    plugin = _plugin("Sphere")
+    saved = REGISTRY["Sphere"]
+    register_model(plugin, overwrite=True)
+    try:
+        cfg = McSASConfig(num_contribs=32, num_reps=2, chunk_steps=64,
+                          candidates_per_step=8, seed=5, max_iterations=256,
+                          max_retries=0, show_incomplete=True)
+        with pytest.raises(ValueError, match="no device function"):
+            fit(load(DATA), "Sphere", cfg, device="cuda")
+        before = (_counts(), dict(mc_kernel.run_chunk.model_launches))
+        res = fit(load(DATA), "Sphere", cfg.replace(use_pallas="off"),
+                  device="cuda")
+        assert (_counts(), mc_kernel.run_chunk.model_launches) == before
+        assert res.bound.model is plugin and not res.engine.used_pallas
+        assert np.isfinite(res.engine.conval).all()
+    finally:
+        REGISTRY["Sphere"] = saved
+
+
+def test_plugin_model_with_a_lookup_table_launches_k2(small_tables):
+    """A plugin that bakes a table for tables.make_lookup runs through
+    K2's table entry on the card under 'auto'."""
+    from mcsas_tpu_torch import fit
+    base = _plugin()
+
+    def factory(bound, q_grid, dtype, device):
+        q = torch.as_tensor(np.asarray(q_grid, np.float64), dtype=dtype,
+                            device=device)
+        grid = tables.log_grid(*bound.ranges[0], 64)
+        tab = tables.build_param_table(
+            lambda v: base.ff(q, {"radius": v[:, :1]}), [grid], dtype,
+            device=device)
+        return tables.make_lookup(("radius",)), tab
+
+    model = _plugin(factory=factory)
+    cfg = McSASConfig(num_contribs=32, num_reps=2, chunk_steps=64,
+                      candidates_per_step=8, seed=5, max_iterations=1024,
+                      max_retries=0, show_incomplete=True, table_ff="on")
+    before = _counts()
+    res = fit(load(DATA), model, cfg, device="cuda")
+    after = _counts()
+    assert after[1] > before[1] and (after[0], after[2]) == (before[0],
+                                                             before[2])
+    assert res.engine.used_prefetch and np.isfinite(res.engine.conval).all()
+
+
+def test_histogram_all_defaults_to_the_card(small_tables):
+    """histogram_all without a device evaluates its float64 bank on the
+    card: the same result as device='cuda', device memory allocated."""
+    from mcsas_tpu_torch.post.histogram import histogram_all
+    d = load(DATA)
+    bound = get_model("Sphere").bind()
+    cfg = McSASConfig(num_contribs=300, num_reps=10)
+    contribs = np.random.default_rng(3).uniform(2e-9, 4e-8, (10, 300, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    frac, hists = histogram_all(contribs, d, bound, cfg)
+    torch.cuda.synchronize()
+    bank_bytes = contribs.size * d.count * 8
+    assert torch.cuda.max_memory_allocated() - mem0 >= bank_bytes
+    frac_c, hists_c = histogram_all(contribs, d, bound, cfg, device="cuda")
+    np.testing.assert_array_equal(frac.measval, frac_c.measval)
+    np.testing.assert_array_equal(hists[0].bins.full, hists_c[0].bins.full)

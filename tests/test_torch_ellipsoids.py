@@ -386,7 +386,8 @@ def test_fit_and_post_pass_on_the_cpu(name, monkeypatch):
     jspecs = [jax_hist.HistogramSpec(s.param, s.lower, s.upper,
                                      bin_count=10, xscale="log",
                                      yweight=s.yweight) for s in specs]
-    _, ours = histogram.histogram_all(e.contribs, d, bound, cfg, specs)
+    _, ours = histogram.histogram_all(e.contribs, d, bound, cfg, specs,
+                                      device="cpu")
     _, ref = jax_hist.histogram_all(e.contribs, jd, jb, jcfg, jspecs)
     for h, jh in zip(ours, ref):
         np.testing.assert_array_equal(h.x_lower_edge, jh.x_lower_edge)

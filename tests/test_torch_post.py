@@ -96,7 +96,7 @@ def _check_histograms(post_inputs):
     jspecs = [jax_hist.HistogramSpec("radius", 1e-9, 5e-8, bin_count=12,
                                      xscale="log", yweight=w)
               for w in ("vol", "num")]
-    _, ours = histogram.histogram_all(c, d, b, cfg, specs)
+    _, ours = histogram.histogram_all(c, d, b, cfg, specs, device="cpu")
     _, ref = jax_hist.histogram_all(c, jd, jb, jcfg, jspecs)
     for h, jh in zip(ours, ref):
         np.testing.assert_array_equal(h.x_lower_edge, jh.x_lower_edge)
