@@ -154,7 +154,24 @@ Phases (any failure raises and the script exits nonzero):
      ``python -m mcsas_tpu_torch`` in a subprocess on the Sphere file —
      exit 0, converged, the files written; the per-file walls (the first
      with the engine's set-up, the cached copy), write_all alone and the
-     subprocess's wall.
+     subprocess's wall;
+ 22. the sharded ensemble (mcsas_tpu_torch/parallel) on this one card:
+     the Sphere headline ``fit(mesh=...)`` on 2 and on 3 repetition
+     shards of cuda:0 (5 + 5 and 4 + 3 + 3 repetitions, each shard on its
+     own stream) — contributions bitwise equal to phase 5's, K1 launched
+     once a chunk per shard (2x and 3x phase 5's launches), 10/10
+     converged, the median warm wall of 5 beside phase 5's; the cylinder
+     row on 2 shards through K2's table entry — bitwise equal to phase
+     7's with twice its launches; the q axis (a 1x2 mesh): under
+     use_pallas='auto' it raises naming the q axis, under 'off' 1024
+     plain steps descend and agree with the unsharded plain chunk under
+     the JAX package's near-tie rule, ms a step of both; a mesh larger
+     than the cards raises; ``cli.main(... --mesh 1)`` exits 0 with
+     phase 5's K1 launches, a too large --mesh exits 2;
+     ``utils.profiling.trace`` of one headline fit writes its trace with
+     the annotated span; the native ASCII parser builds with the host
+     compiler and parses testdata/*.dat and *.csv byte for byte as the
+     Python parser.  No two-card figure exists: the machine has one card.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -327,19 +344,27 @@ def time_chunk(torch, fn, reps):
 
 
 def profile_fit(torch, run, card, label, kernel):
-    """``--profile``: one more warm fit under torch.profiler.  Prints the
-    device's busy time (the sum of its kernels' self times), the chunk
-    kernel's part of it (*kernel*: a name fragment), the idle share of
-    the fit's wall time (the fit runs on one stream, so kernels do not
+    """``--profile``: one more warm fit under torch.profiler, through
+    ``mcsas_tpu_torch.utils.profiling`` (``trace``, ``annotate``).  Prints
+    the device's busy time (the sum of its kernels' self times), the
+    chunk kernel's part of it (*kernel*: a name fragment), the idle share
+    of the fit's wall time (the fit runs on one stream, so kernels do not
     overlap) and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    import shutil
+    import tempfile
+    from mcsas_tpu_torch.utils.profiling import annotate, trace
+    tmp = tempfile.mkdtemp(prefix="mcsas_profile_")
+    span = f"{label} fit"
+    try:
+        with trace(tmp) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with annotate(span):
+                run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # device-side events only: the profiler also books each kernel's time
     # on the operator that launched it (aten::mul, ...), and summing both
     # would count the eager kernels twice
@@ -349,7 +374,8 @@ def profile_fit(torch, run, card, label, kernel):
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if us > 0 and ev.device_type == on_device:
+        # the annotated span is booked on the device's timeline too
+        if us > 0 and ev.device_type == on_device and ev.key != span:
             rows.append((us, ev.count, ev.key))
     if not rows:
         raise AssertionError("[profile] the profiler saw no device time")
@@ -2271,6 +2297,227 @@ def files_phase(torch, mc_kernel, card):
     return {"k1": k1_series + k1_cli, "k2": k2_cyl}
 
 
+def contribs_match(label, res, base):
+    """The JAX package's near-tie rule (tests/test_sharding.py:39-60):
+    exact contributions, or every repetition but one bitwise equal and
+    the sorted chi2 within 2e-2.  Returns the repetitions equal."""
+    same = [np.array_equal(a, b) for a, b in zip(res.contribs,
+                                                  base.contribs)]
+    if all(same):
+        return len(same)
+    if sum(same) < max(1, len(same) - 1) or not np.allclose(
+            np.sort(res.conval), np.sort(base.conval), rtol=2e-2):
+        raise AssertionError(f"{label}: {sum(same)}/{len(same)} "
+                             "repetitions equal, not a near-tie cascade")
+    return sum(same)
+
+
+def mesh_phase(torch, mc_kernel, fit, load, cfg, sphere_contribs,
+               sphere_launches, sphere_median, cyl, cyl_contribs,
+               cyl_launches, native_s, card):
+    """Phase 22: the sharded ensemble on one card, the CLI's --mesh,
+    profiling.trace and the native parser.  Returns the launches of K1
+    and K2 per mesh."""
+    import glob
+    import shutil
+    import tempfile
+    from mcsas_tpu_torch import cli
+    from mcsas_tpu_torch.core.engine import McSASEngine
+    from mcsas_tpu_torch.io import ascii as ascii_mod
+    from mcsas_tpu_torch.io import native
+    from mcsas_tpu_torch.models import get_model
+    from mcsas_tpu_torch.parallel import (ShardedEnsemble, make_mesh,
+                                          rep_slices)
+    from mcsas_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    dev0 = torch.device("cuda", 0)
+    out = {}
+
+    def sharded_fit(shape, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(*args, mesh=make_mesh(shape, [dev0] * shape[0]))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # ---- (a), (b): the Sphere headline on 2 and 3 repetition shards
+    for shape in ((2, 1), (3, 1)):
+        sharded_fit(shape, DATA, "Sphere", cfg)                 # cold
+        reset_counts(mc_kernel)
+        res, wall = sharded_fit(shape, DATA, "Sphere", cfg)
+        k1 = mc_kernel.run_chunk.launches
+        k2 = (mc_kernel.run_prefetch_table_chunk.launches
+              + mc_kernel.run_prefetch_chunk.launches)
+        walls = [wall] + [sharded_fit(shape, DATA, "Sphere", cfg)[1]
+                          for _ in range(4)]
+        _held_converged(f"mesh {shape} Sphere", res)
+        if not np.array_equal(res.engine.contribs, sphere_contribs):
+            raise AssertionError(f"mesh {shape}: the Sphere contributions "
+                                 "differ from phase 5's")
+        if k1 != shape[0] * sphere_launches or k2:
+            raise AssertionError(f"mesh {shape}: {k1} K1 launches (want "
+                                 f"{shape[0]} x {sphere_launches}), {k2} "
+                                 "of K2")
+        out[f"{shape[0]}x1"] = k1
+        reps = [sl.stop - sl.start for sl in rep_slices(
+            cfg.num_reps, make_mesh(shape, [dev0] * shape[0]))]
+        print(f"[mesh] Sphere headline on a {shape[0]}x1 mesh of one card "
+              f"(repetitions {reps}): contributions bitwise equal to "
+              f"phase 5, 10/10 converged, max chi2 "
+              f"{res.engine.conval.max():.4f}, {k1} K1 launches "
+              f"({shape[0]} x {sphere_launches}); warm walls of 5 "
+              f"{walls}, median {float(np.median(walls)):.4f} s against "
+              f"phase 5's {sphere_median:.4f} s; on {card}", flush=True)
+
+    # ---- (c): the cylinder row on 2 repetition shards, K2's table entry
+    golden, cyl_bound, cyl_cfg = cyl
+    sharded_fit((2, 1), golden, cyl_bound, cyl_cfg)             # cold
+    reset_counts(mc_kernel)
+    cres, cwall = sharded_fit((2, 1), golden, cyl_bound, cyl_cfg)
+    k2 = mc_kernel.run_prefetch_table_chunk.launches
+    if (mc_kernel.run_chunk.launches or mc_kernel.run_prefetch_chunk.launches
+            or k2 != 2 * cyl_launches):
+        raise AssertionError(f"mesh 2x1 cylinder: {k2} launches of K2's "
+                             f"table entry (want 2 x {cyl_launches})")
+    _held_converged("mesh 2x1 cylinder", cres)
+    if not np.array_equal(cres.engine.contribs, cyl_contribs):
+        raise AssertionError("mesh 2x1: the cylinder contributions differ "
+                             "from phase 7's")
+    cwalls = [cwall] + [sharded_fit((2, 1), golden, cyl_bound, cyl_cfg)[1]
+                        for _ in range(4)]
+    out["k2_2x1"] = k2
+    print(f"[mesh] cylinder row on a 2x1 mesh of one card: contributions "
+          f"bitwise equal to phase 7, {k2} launches of K2's table entry "
+          f"(2 x {cyl_launches}); warm walls of 5 {cwalls}, median "
+          f"{float(np.median(cwalls)):.4f} s; on {card}", flush=True)
+
+    # ---- (d): the q axis, the plain chunk only
+    bound = get_model("Sphere").bind()
+    data = load(DATA)
+    qcfg = cfg.replace(use_pallas="off", chunk_steps=1024, max_retries=0,
+                       max_iterations=1024 * cfg.candidates_per_step,
+                       show_incomplete=True)
+    try:
+        ShardedEnsemble(data, bound, cfg, mesh=make_mesh((1, 2), [dev0] * 2))
+    except ValueError as e:
+        if "q axis" not in str(e):
+            raise
+        print(f"[mesh] q axis under use_pallas='auto' raises: {e}",
+              flush=True)
+    else:
+        raise AssertionError("a 1x2 mesh under 'auto' did not raise")
+    plain = McSASEngine(data, bound, qcfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = plain.run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    qeng = ShardedEnsemble(data, bound, qcfg,
+                           mesh=make_mesh((1, 2), [dev0] * 2))
+    qeng.gen.manual_seed(qcfg.seed)
+    start = qeng.whole_state(qeng._init_batch()).conval.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qres = qeng.run()
+    torch.cuda.synchronize()
+    q_wall = time.perf_counter() - t0
+    if not (np.isfinite(qres.conval).all() and (qres.conval < start).all()
+            and (qres.n_moves > 0).all()):
+        raise AssertionError(f"q-sharded plain chunk did not descend: "
+                             f"{start} -> {qres.conval}")
+    same = contribs_match("mesh 1x2 plain chunk", qres, base)
+    print(f"[mesh] Sphere headline on a 1x2 (q) mesh under "
+          f"use_pallas='off', 1024 steps: chi2 {start.min():.4g}-"
+          f"{start.max():.4g} -> {qres.conval.min():.4g}-"
+          f"{qres.conval.max():.4g}, {same}/10 repetitions equal to the "
+          f"unsharded plain chunk (near-tie rule); "
+          f"{q_wall * 1e3 / 1024:.3f} ms a step against "
+          f"{plain_wall * 1e3 / 1024:.3f} ms unsharded (walls {q_wall:.3f}"
+          f" / {plain_wall:.3f} s); on {card}", flush=True)
+    # the chunks alone, without the engine around them: 64 steps each
+    # from one start state, CUDA events
+    props = plain._draw_chunk_proposals(64)
+    s0 = plain._init_batch()
+    work = s0.clone()
+    sh = qeng.shards[0]
+    cells0 = qeng.shard_state(s0)[0]
+    cells = [c.clone() for c in cells0]
+    un_ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+        work.copy_(s0), 0, plain.consts, plain.spec, props), 2) / 64
+    q_ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+        [w.copy_(c) for w, c in zip(cells, cells0)], 0, list(sh.consts),
+        list(sh.specs), props), 2) / 64
+    print(f"[time] plain chunk alone, 64 steps at the headline shape "
+          f"(reset copy included): unsharded {un_ms:.3f} ms a step, "
+          f"on the 1x2 (q) mesh {q_ms:.3f} ms a step; on {card}",
+          flush=True)
+    out["q_ms_step"] = q_wall * 1e3 / 1024
+    out["plain_ms_step"] = plain_wall * 1e3 / 1024
+
+    # ---- (e): mesh errors on one card, the CLI's --mesh
+    n_cards = torch.cuda.device_count()
+    try:
+        make_mesh((n_cards + 1, 1))
+    except ValueError as e:
+        print(f"[mesh] make_mesh(({n_cards + 1}, 1)) on {n_cards} card(s) "
+              f"raises: {e}", flush=True)
+    else:
+        raise AssertionError("a mesh larger than the cards did not raise")
+    tmp = tempfile.mkdtemp(prefix="mcsas_mesh_")
+    try:
+        reset_counts(mc_kernel)
+        rc = cli.main([DATA, *CLI_FLAGS, "-o", os.path.join(tmp, "cli"),
+                       "--mesh", "1"])
+        k1_cli = mc_kernel.run_chunk.launches
+        _cli_files(os.path.join(tmp, "cli"))
+        if rc != 0 or k1_cli != sphere_launches:
+            raise AssertionError(f"cli --mesh 1: rc {rc}, {k1_cli} K1 "
+                                 f"launches (want {sphere_launches})")
+        rc_big = cli.main([DATA, *CLI_FLAGS, "-o", os.path.join(tmp, "x"),
+                           "--mesh", str(n_cards + 1)])
+        if rc_big != 2:
+            raise AssertionError(f"cli --mesh {n_cards + 1}: rc {rc_big}")
+        print(f"[mesh] cli --mesh 1: rc 0, {k1_cli} K1 launches; --mesh "
+              f"{n_cards + 1}: rc 2", flush=True)
+
+        # ---- (f): profiling.trace of one headline fit
+        with profiling.trace(os.path.join(tmp, "trace")):
+            with profiling.annotate("headline fit"):
+                fit(DATA, "Sphere", cfg, device="cuda")
+            torch.cuda.synchronize()
+        traces = glob.glob(os.path.join(tmp, "trace", "*.json"))
+        with open(traces[0], encoding="utf-8") as fd:
+            text = fd.read()
+        if len(traces) != 1 or '"headline fit"' not in text:
+            raise AssertionError(f"profiling.trace wrote {traces}")
+        print(f"[profile] utils.profiling.trace of one headline fit: "
+              f"{os.path.basename(traces[0])}, {len(text)} bytes, the "
+              f"annotated span inside", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (g): the native ASCII parser (built in phase 2)
+    lib = native.build()
+    checked = 0
+    for fn in sorted(glob.glob(os.path.join(HERE, "testdata", "*.dat"))
+                     + glob.glob(os.path.join(HERE, "testdata", "*.csv"))):
+        try:
+            py = ascii_mod.load_ascii(fn, use_native=False)
+        except ascii_mod.FileReadError:
+            continue
+        if ascii_mod.load_ascii(fn, use_native=True).tobytes() != \
+                py.tobytes():
+            raise AssertionError(f"native parser differs on {fn}")
+        checked += 1
+    if checked < 15:
+        raise AssertionError(f"native parser: only {checked} files parsed")
+    print(f"[native] {lib.name} built in {native_s:.2f} s; {checked} "
+          f"testdata files parsed byte for byte as the Python parser; "
+          f"phase 22 {time.perf_counter() - t_phase:.2f} s; on {card}",
+          flush=True)
+    return out
+
+
 def kern_probe_entries():
     """The K2 entries of the probe's runner (tools/kern_probe.py)."""
     from mcsas_tpu_torch.tools import kern_probe
@@ -2310,6 +2557,14 @@ def main():
         print(f"[build] {build.path.name}: nvcc {build.seconds:.2f} s",
               flush=True)
     print(f"[build] {len(builds)} kernels in {build_wall:.2f} s wall",
+          flush=True)
+    # the native ASCII parser, built by the host C++ compiler before the
+    # first data file is read
+    from mcsas_tpu_torch.io import native
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native_s = time.perf_counter() - t0
+    print(f"[build] {native_lib.name}: host C++ compiler {native_s:.2f} s",
           flush=True)
     spills = ptxas_spills(builds["mc_chunk"].log)
 
@@ -2702,6 +2957,12 @@ def main():
     # ---- phase 21: the result files, run_files and the CLI
     files = files_phase(torch, mc_kernel, card)
 
+    # ---- phase 22: the sharded ensemble, profiling, the native parser
+    mesh = mesh_phase(torch, mc_kernel, fit, load, cfg, e.contribs, launches,
+                      float(np.median(walls)),
+                      (golden, cyl_bound, cyl_cfg), ce.contribs, k2_launches,
+                      native_s, card)
+
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
     # PyTorch call computes an MC chunk; mc_prefetch: the numbers of its
@@ -2718,6 +2979,9 @@ def main():
         "ms": ms_philox, "plain_ms": ms_plain, "bound_ms": k1_bound_ms,
         "bound_by": k1_bound_by, "library_ms": None, "shape": k1_shape,
         "files_launches": files["k1"],
+        "rep_base": "Philox keyed by (seed, rep_base + r); launched once a "
+                    "chunk per repetition shard (phase 22)",
+        "mesh_launches": {k: mesh[k] for k in ("2x1", "3x1")},
         "compared": [win_inj, win_phx] + ragged["Sphere"]}]
     for name, row in ROWS.items():
         k = rows_k1[name]
@@ -2741,6 +3005,7 @@ def main():
         "bound_by": k2["table"]["bound_by"], "library_ms": None,
         "shape": k2["table"]["shape"], "entry": "table in (the fit path)",
         "files_launches": files["k2"],
+        "mesh_launches": {"2x1": mesh["k2_2x1"]},
         "rows_in": k2["rows"], "compared": k2_windows})
     kernels.append({
         "name": "mc_prefetch[intensity]", "route": "cuda",

@@ -32,6 +32,7 @@ from .data import SASData
 from .io.ascii import format_value, write_ascii
 from .models import get_model
 from .models.base import BoundModel, SASModel
+from .parallel import ShardedEnsemble
 from .post.histogram import (FractionsResult, HistogramSpec, Moments,
                              histogram_all)
 from .utils.log import RunLogFile, timestamp_formatted
@@ -183,9 +184,33 @@ _ENGINE_CACHE: dict = {}
 _ENGINE_CACHE_CAP = 8
 
 
+def _fit_device(device, mesh) -> torch.device:
+    """Where a fit runs: *device* ("cuda" when None) or, with a *mesh*,
+    the mesh's first device; a *device* that disagrees with the mesh
+    raises."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    first = resolve_device(mesh.devices[0])
+    if device is not None:
+        want = torch.device(device)
+        if want.type != first.type or (want.index is not None
+                                       and want != first):
+            raise ValueError(f"device={str(device)!r} disagrees with the "
+                             f"mesh, whose first device is {first}")
+    return first
+
+
 def _cached_engine(engine_cls, data: SASData, bound: BoundModel,
-                   cfg: McSASConfig, device):
-    device = resolve_device(device)
+                   cfg: McSASConfig, device, mesh=None):
+    """The engine of (data content, model, config, device, mesh) from the
+    cache, built on a miss: a :class:`ShardedEnsemble` over *mesh* where
+    one is given, else an *engine_cls* on *device*."""
+    device = _fit_device(device, mesh)
+
+    def build():
+        if mesh is not None:
+            return ShardedEnsemble(data, bound, cfg, mesh=mesh)
+        return engine_cls(data, bound, cfg, device=device)
     try:
         # construction-environment inputs that shape the engine (a table
         # baked under MCSAS_TPU_TABLE_RES_CAP, or with the interpolation
@@ -193,13 +218,14 @@ def _cached_engine(engine_cls, data: SASData, bound: BoundModel,
         # reused after the environment changes
         env = tuple(os.environ.get(k, "") for k in
                     ("MCSAS_TPU_TABLE_RES_CAP", "MCSAS_TPU_TABLE_PROBE"))
-        key = (engine_cls, data.content_key(), bound, cfg, device, env)
+        key = (engine_cls, data.content_key(), bound, cfg, device, mesh,
+               env)
         hash(key)    # a custom model piece may not be hashable
     except TypeError:
-        return engine_cls(data, bound, cfg, device=device)
+        return build()
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
-        eng = engine_cls(data, bound, cfg, device=device)
+        eng = build()
         if len(_ENGINE_CACHE) >= _ENGINE_CACHE_CAP:
             _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
         _ENGINE_CACHE[key] = eng
@@ -212,7 +238,7 @@ def fit(data: Union[SASData, str, os.PathLike],
         histograms: Optional[Sequence[HistogramSpec]] = None,
         stop: Optional[Callable[[], bool]] = None,
         progress: Optional[Callable[[dict], None]] = None,
-        device="cuda") -> McSASResult:
+        device=None, mesh=None) -> McSASResult:
     """Runs the full MC analysis on one dataset.
 
     - *data*: a SASData or a path to a data file
@@ -223,18 +249,23 @@ def fit(data: Union[SASData, str, os.PathLike],
       (reference stop flag: mcsas.py:240-245,357)
     - *progress*: callable receiving per-rep χ² and counters per chunk
     - *device*: where the MC loop and the float64 post pass run; "cuda"
-      raises when torch.cuda.is_available() is False
+      (the default without a mesh) raises when torch.cuda.is_available()
+      is False
+    - *mesh*: a ``parallel.Mesh`` to shard the ensemble over (a
+      :class:`ShardedEnsemble`; the post pass runs on its first device);
+      a *device* that disagrees with it raises
 
     The engine comes from :func:`_cached_engine`: a repeat fit of the
-    same (data content, model, config, device) skips the engine's set-up
-    (magnitude probe, table bake and probe) and gives the same result.
+    same (data content, model, config, device, mesh) skips the engine's
+    set-up (magnitude probe, table bake and probe) and gives the same
+    result.
     """
     if not isinstance(data, SASData):
         data = data_mod.load(data)
     bound = _resolve_model(model)
     bound = _default_unbounded_ranges(bound, data)
     cfg = cfg or McSASConfig()
-    engine = _cached_engine(McSASEngine, data, bound, cfg, device)
+    engine = _cached_engine(McSASEngine, data, bound, cfg, device, mesh)
     eng_result = engine.run(stop=stop, progress=progress)
     if not eng_result.converged.all() and not cfg.show_incomplete:
         log.warning(
@@ -390,12 +421,13 @@ def histogram_columns(h) -> np.ndarray:
 def run_files(filenames: Sequence, model=None,
               cfg: Optional[McSASConfig] = None, histograms=None,
               out_dir=None, plot: bool = False, data_config=None,
-              device="cuda") -> list:
-    """Runs a series of data files: fits each on *device* and
-    writes the full output-file set; accumulates series statistics when
-    cfg.series_stats (reference Calculator.__call__ per-file pipeline +
-    series handling: gui/calc.py:276-379).  Files of the same content,
-    model and config share one cached engine (:func:`_cached_engine`)."""
+              device=None, mesh=None) -> list:
+    """Runs a series of data files: fits each on *device* (or over
+    *mesh*, as :func:`fit` takes them) and writes the full output-file
+    set; accumulates series statistics when cfg.series_stats (reference
+    Calculator.__call__ per-file pipeline + series handling:
+    gui/calc.py:276-379).  Files of the same content, model and config
+    share one cached engine (:func:`_cached_engine`)."""
     cfg = cfg or McSASConfig()
     results = []
     series = {}
@@ -408,7 +440,7 @@ def run_files(filenames: Sequence, model=None,
         out = OutputFiles(probe, out_dir=out_dir)
         with RunLogFile(out.path("log", ".txt")):
             res = fit(d, model=model, cfg=cfg, histograms=histograms,
-                      device=device)
+                      device=device, mesh=mesh)
             out.result = res
             res.output_files = out.write_all(plot=plot)
         results.append(res)

@@ -9,6 +9,9 @@ flags (mcsas_tpu/cli.py) and an explicit compute device.
 
 The fits run on the card unless ``--device cpu`` asks for the CPU;
 ``--device cuda`` (the default) without a card is an error (exit code 2).
+``--mesh REP[,Q]`` shards the ensemble over that many distinct devices of
+``--device`` (``parallel.make_mesh``); a malformed or too large mesh is
+an error too (exit code 2).
 """
 from __future__ import annotations
 
@@ -118,6 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the fits and the float64 post pass run "
                         "(default cuda: an error without a card; cpu "
                         "runs the kernels' plain PyTorch versions)")
+    p.add_argument("--mesh", default=None, metavar="REP[,Q]",
+                   help="shard the ensemble over a device mesh of distinct "
+                        "--device devices: repetition-axis size and an "
+                        "optional q-axis size (e.g. --mesh 2 or --mesh "
+                        "2,2; the product must not exceed the visible "
+                        "cards, 1 for --device cpu; on the card a q axis "
+                        "runs only under use_pallas 'off' in --config)")
     p.add_argument("--list-models", action="store_true",
                    help="list available models and exit")
     p.add_argument("-l", "--nolog", action="store_true",
@@ -221,16 +231,37 @@ def main(argv=None) -> int:
         from .post.histogram import default_histograms
         specs = (list(default_histograms(bound)) if specs is None
                  else specs) + extra
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = _build_mesh(args.mesh, args.device)
+        except ValueError as e:
+            print(f"error: bad --mesh: {e}", file=sys.stderr)
+            return 2
     results = run_files(args.filenames, model=bound, cfg=cfg,
                         histograms=specs, data_config=data_config,
                         out_dir=args.outdir, plot=args.plot,
-                        device=args.device)
+                        device=args.device, mesh=mesh)
     failures = sum(0 if r.converged else 1 for r in results)
     for r in results:
         status = "converged" if r.converged else "NOT CONVERGED"
         print(f"{r.data.title}: chi2={r.engine.conval.round(3).tolist()} "
               f"[{status}], {r.engine.iters_per_sec:,.0f} proposals/s")
     return 1 if failures else 0
+
+
+def _build_mesh(text: str, device: str):
+    """The mesh of a --mesh value REP[,Q] over the distinct devices of
+    *device*: every visible card, or the one CPU."""
+    import torch
+    from .parallel import make_mesh
+    dims = [int(x) for x in text.split(",")]
+    if len(dims) not in (1, 2) or any(x < 1 for x in dims):
+        raise ValueError(f"{text!r}: want REP or REP,Q, each >= 1")
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if device == "cuda" else [torch.device("cpu")])
+    return make_mesh((dims[0], dims[1] if len(dims) == 2 else 1), devices)
 
 
 def _parse_hist_spec(text, model, active):

@@ -47,14 +47,16 @@ from ..data import SASData
 from ..models.base import BoundModel
 from ..ops import mc_kernel
 from ..ops.tables import ParamTable
+from ..utils import profiling
 from .fitcore import FitConstants, make_constants, solve_scale_bg
-from .rng import draw_params, local_candidates
+from .rng import draw_params, local_candidates, whole_vectors
 
 log = logging.getLogger(__name__)
 
 __all__ = ["RepState", "EngineResult", "IntensityKernel", "McSASEngine",
-           "local_candidates", "magnitude_probe", "make_intensity_kernels",
-           "resolve_device", "state_from_numpy", "state_to_numpy"]
+           "chunk_vectors", "fresh_state", "local_candidates",
+           "magnitude_probe", "make_intensity_kernels", "resolve_device",
+           "state_from_numpy", "state_to_numpy"]
 
 
 @dataclass
@@ -116,6 +118,73 @@ def state_to_numpy(state: RepState) -> dict:
     """The state's fields as host numpy arrays (dtype kept)."""
     return {f.name: getattr(state, f.name).detach().cpu().numpy()
             for f in fields(state)}
+
+
+# the quantities debug_guards checks once a chunk, by bit of the flag
+_GUARDED = ("chi2", "ft", "scale", "background")
+
+
+def chunk_vectors(state: RepState, guard=None) -> torch.Tensor:
+    """What the host reads of a state once a chunk, as one float64 (k, R)
+    tensor on the state's device: χ², the proposals consumed and, with
+    *guard* (the ``(nans, infs)`` of ``utils.profiling.debug_guards``), a
+    flag per repetition whose bit i is set where ``_GUARDED[i]`` holds a
+    value the guard forbids."""
+    rows = [state.conval.double(), state.n_iter.double()]
+    if guard:
+        nans, infs = guard
+        flag = torch.zeros_like(rows[0])
+        for bit, t in enumerate((state.conval, state.ft, state.scale,
+                                 state.background)):
+            v = t.reshape(t.shape[0], -1)
+            bad = torch.zeros_like(flag, dtype=torch.bool)
+            if nans:
+                bad |= torch.isnan(v).any(dim=1)
+            if infs:
+                bad |= torch.isinf(v).any(dim=1)
+            flag += bad.double() * float(2 ** bit)
+        rows.append(flag)
+    return torch.stack(rows)
+
+
+def _raise_guarded(flags: np.ndarray, chunk: int, guard) -> None:
+    """Raises FloatingPointError for the first repetition *flags* (R,)
+    marks (:func:`chunk_vectors`)."""
+    bad = np.flatnonzero(flags)
+    if not bad.size:
+        return
+    rep = int(bad[0])
+    what = [name for bit, name in enumerate(_GUARDED)
+            if int(flags[rep]) >> bit & 1]
+    kinds = " or ".join(k for k, on in zip(("NaN", "inf"), guard) if on)
+    raise FloatingPointError(
+        f"debug_guards: after chunk {chunk}, repetition {rep} holds a "
+        f"{kinds} in {', '.join(what)} ({bad.size} repetition(s) in all)")
+
+
+def fresh_state(rset: torch.Tensor, kern, consts, cfg: McSASConfig):
+    """A fresh state of the repetitions in *rset* (R, N, P): their rows,
+    ft (a float64 sum) and the solve.  With lists of q-shard kernels and
+    constants (``parallel.spmd``) it returns one RepState per shard, on
+    the shard kernel's device: each holds its columns of the bank and of
+    ft and a copy of the rest, the solve joined across the shards."""
+    shards = isinstance(kern, (list, tuple))
+    kerns, cs = (kern, consts) if shards else ([kern], [consts])
+    banks = [k.row(rset.to(k.grid.device)).contiguous() for k in kerns]
+    fts = [b.double().sum(dim=1).to(rset.dtype) for b in banks]
+    sol = solve_scale_bg(fts, cs, cfg.find_background,
+                         cfg.positive_background)
+    cells = []
+    for k, bank, ft in zip(kerns, banks, fts):
+        dev, copy = k.grid.device, len(kerns) > 1
+        zero = torch.zeros(rset.shape[0], dtype=torch.int32, device=dev)
+        cells.append(RepState(
+            rset=rset.to(dev, copy=copy), ibank=bank, ft=ft,
+            scale=sol.scale.to(dev, copy=copy).contiguous(),
+            background=sol.background.to(dev, copy=copy).contiguous(),
+            conval=sol.chisqr.to(dev, copy=copy).contiguous(),
+            n_iter=zero, n_moves=zero.clone()))
+    return cells if shards else cells[0]
 
 
 @dataclass
@@ -242,7 +311,10 @@ class IntensityKernel:
     def row_weight(self, pvec: torch.Tensor) -> torch.Tensor:
         """w of parameter vectors (..., P) in the engine dtype: shape
         (..., 1), or 0-dim when the volume depends on no active
-        parameter."""
+        parameter; one batch of whole CPU vectors, as :meth:`row`."""
+        return whole_vectors(self._row_weight, pvec)
+
+    def _row_weight(self, pvec: torch.Tensor) -> torch.Tensor:
         w = self.weight(self.bound.pdict(pvec[..., None, :]))
         return torch.as_tensor(w, dtype=self.grid.dtype,
                                device=self.grid.device)
@@ -253,6 +325,12 @@ class IntensityKernel:
         return torch.sqrt(self.row_weight(pvec))
 
     def row(self, pvec: torch.Tensor) -> torch.Tensor:
+        """The rows (..., Nq) of parameter vectors (..., P), evaluated as
+        one batch of whole CPU vectors (``rng.whole_vectors``): a row
+        does not depend on the batch it is evaluated in."""
+        return whole_vectors(self._row, pvec)
+
+    def _row(self, pvec: torch.Tensor) -> torch.Tensor:
         if self.table_is_intensity:
             row = (self.table_fn(self.table, self.bound.pdict(pvec))
                    * self.row_weight(pvec))
@@ -289,7 +367,8 @@ def _takes_smear(factory) -> bool:
 
 def make_intensity_kernels(bound: BoundModel, data: SASData,
                            cfg: McSASConfig, dtype=torch.float32,
-                           device="cpu") -> IntensityKernel:
+                           device="cpu", table_grid_width_only=False
+                           ) -> IntensityKernel:
     """Builds the intensity row for the fit grid: of 1D data, smeared
     (``data.locs`` and ``data.smear_w``) or not, or of 2D (q, ψ) data
     (``data.psi``) with the model's ``ff2d``, where smearing is ignored
@@ -301,7 +380,14 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
     ``cfg.table_ff_enabled()``; for smeared data the table holds the
     smeared intensity, baked against the dataset's own contraction, and
     only a factory that declares the ``smear`` keyword is asked for one
-    (the JAX package's table branch, mcsas_tpu/core/engine.py:236-279)."""
+    (the JAX package's table branch, mcsas_tpu/core/engine.py:236-279).
+
+    *table_grid_width_only* takes only a table whose rows lie on the fit
+    grid, one value column per q point: the layout a q shard can slice by
+    columns.  A table on another inner grid (the smeared worm's rows on
+    the flattened ``locs``, contracted inside its lookup) is then left
+    out, and the rows come from the model's own rule, as the JAX package
+    decides (mcsas_tpu/core/engine.py:171-180,266)."""
     two_d = data.psi is not None and bound.model.ff2d is not None
     if two_d and data.uses_smearing and bound.model.can_smear:
         log.warning("2D (q, psi) fitting ignores the smearing config: "
@@ -339,7 +425,9 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
                            np.asarray(data.smear_w, np.float64))
         made = factory(bound, np.asarray(data.q, np.float64), dtype,
                        torch.device(device), **kw)
-        if made is not None:
+        if made is not None and not (
+                table_grid_width_only
+                and made[1].values.shape[1] != grid.shape[0]):
             table_fn, table = made[:2]
             table_is_intensity = len(made) == 3 and made[2] == "intensity"
         table_declined = made is None
@@ -375,6 +463,8 @@ class McSASEngine:
     Reusable across runs: a run restarts the engine's generator from
     ``cfg.seed``, so two runs of one engine give the same result.
     """
+    # a q-sharded engine takes only tables that lie on the fit grid
+    _table_grid_width_only = False
 
     def __init__(self, data: SASData, bound: BoundModel, cfg: McSASConfig,
                  device="cuda"):
@@ -396,8 +486,9 @@ class McSASEngine:
         self.n_contribs = cfg.num_contribs
         self.consts: FitConstants = make_constants(
             data.f, data.fu, self.dtype, self.device)
-        self.kern = make_intensity_kernels(bound, data, cfg, self.dtype,
-                                           self.device)
+        self.kern = make_intensity_kernels(
+            bound, data, cfg, self.dtype, self.device,
+            table_grid_width_only=self._table_grid_width_only)
         self.grid = self.kern.grid
         self.w_ref = self.kern.w_ref
         self.uses_table = self.kern.table is not None
@@ -430,9 +521,7 @@ class McSASEngine:
         if mode == "off":
             return False
         on_card = self.device.type == "cuda"
-        ok = (self.prefetch_entry is not None if self.uses_table
-              else mc_kernel.supports(self))
-        if not ok and (mode == "on" or on_card):
+        if not self._kernel_eligible() and (mode == "on" or on_card):
             raise ValueError(
                 f"use_pallas={mode!r} on {self.device.type} but this "
                 "model/config is not eligible for a chunk kernel (K1: "
@@ -442,6 +531,12 @@ class McSASEngine:
                 f"{self._no_kernel_reason()}; pass use_pallas='off' for "
                 "the plain PyTorch chunk")
         return on_card
+
+    def _kernel_eligible(self) -> bool:
+        """True when K1 (an engine without a table) or K2 (a table engine)
+        can run this configuration."""
+        return (self.prefetch_entry is not None if self.uses_table
+                else mc_kernel.supports(self))
 
     def _no_kernel_reason(self) -> str:
         """Why neither chunk kernel runs this configuration, for the
@@ -472,8 +567,9 @@ class McSASEngine:
                          * self.cfg.local_moves))
 
     # ------------------------------------------------------------- build
-    def _init_batch(self) -> RepState:
-        """Fresh state for every repetition, drawn from the generator."""
+    def _init_rset(self) -> torch.Tensor:
+        """The parameters (R, N, P) of a fresh state, drawn from the
+        generator."""
         cfg, bound = self.cfg, self.bound
         r, n, p = cfg.num_reps, self.n_contribs, bound.n_active
         if cfg.start_from_minimum:
@@ -490,16 +586,12 @@ class McSASEngine:
         else:
             rset = draw_params(self.gen, bound, count=r * n,
                                dtype=self.dtype).reshape(r, n, p)
-        ibank = self.kern.row(rset).contiguous()
-        ft = ibank.double().sum(dim=1).to(self.dtype)
-        sol = solve_scale_bg(ft, self.consts, cfg.find_background,
-                             cfg.positive_background)
-        zero = torch.zeros(r, dtype=torch.int32, device=self.device)
-        return RepState(rset=rset, ibank=ibank, ft=ft,
-                        scale=sol.scale.contiguous(),
-                        background=sol.background.contiguous(),
-                        conval=sol.chisqr.contiguous(),
-                        n_iter=zero, n_moves=zero.clone())
+        return rset
+
+    def _init_batch(self) -> RepState:
+        """Fresh state for every repetition, drawn from the generator."""
+        return fresh_state(self._init_rset(), self.kern, self.consts,
+                           self.cfg)
 
     def _draw_chunk_proposals(self, n_steps=None) -> torch.Tensor:
         """All proposals of one chunk in one draw: (S, R, K, P).  The last
@@ -561,6 +653,22 @@ class McSASEngine:
             mc_kernel.segment_rows(self.spec, cands), cands)
 
     # --------------------------------------------------------------- run
+    def _read(self, state, guard) -> torch.Tensor:
+        """What the host reads once a chunk, in one transfer:
+        :func:`chunk_vectors` of the state."""
+        return chunk_vectors(state, guard)
+
+    def _retry(self, state, need_retry: np.ndarray):
+        """The state with the repetitions of *need_retry* (R,) started
+        afresh (the whole batch is drawn, as every retry draws it)."""
+        mask = torch.as_tensor(need_retry, device=self.device)
+        return state.merge(self._init_batch(), mask)
+
+    def _host_state(self, state) -> dict:
+        """The state's fields but the bank, as host numpy arrays."""
+        return {k: v for k, v in state_to_numpy(state).items()
+                if k != "ibank"}
+
     def run(self, stop: Optional[Callable[[], bool]] = None,
             progress: Optional[Callable[[dict], None]] = None
             ) -> EngineResult:
@@ -577,13 +685,19 @@ class McSASEngine:
         total_iters = 0
         t0 = time.perf_counter()
 
+        guard = profiling.guard_flags()
         state = self._init_batch()
         ri = 0
         prev_iter = None
+        n_chunks = 0
         while True:
             state, ri = self._chunk(state, ri)
-            conval = state.conval.double().cpu().numpy()
-            n_iter = state.n_iter.cpu().numpy().astype(np.int64)
+            n_chunks += 1
+            host = self._read(state, guard).cpu().numpy()
+            conval = host[0]
+            n_iter = host[1].astype(np.int64)
+            if guard:
+                _raise_guarded(host[2], n_chunks, guard)
             converged = conval <= cfg.convergence_criterion
             # non-finite χ² or a stalled counter can never converge: treat
             # as an exhausted attempt so the retry/abort budget applies
@@ -608,8 +722,7 @@ class McSASEngine:
             need_retry = ~converged & exhausted & (attempts < max_attempts)
             if need_retry.any():
                 total_iters += int(n_iter[need_retry].sum())
-                mask = torch.as_tensor(need_retry, device=self.device)
-                state = state.merge(self._init_batch(), mask)
+                state = self._retry(state, need_retry)
                 attempts[need_retry] += 1
                 prev_iter = None   # fresh attempt: counters restart
                 log.warning("%d repetition(s) did not converge within "
@@ -621,7 +734,7 @@ class McSASEngine:
                 break
 
         host = {k: np.asarray(v, np.float64)
-                for k, v in state_to_numpy(state).items() if k != "ibank"}
+                for k, v in self._host_state(state).items()}
         elapsed = time.perf_counter() - t0
         conval = host["conval"]
         n_iter = host["n_iter"].astype(np.int64)

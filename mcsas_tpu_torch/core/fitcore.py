@@ -62,7 +62,40 @@ class ScaleBg:
     chisqr: torch.Tensor   # reduced χ²
 
 
-def solve_scale_bg(x: torch.Tensor, c: FitConstants, find_background: bool,
+def _shards(x, c):
+    """*x* and *c* as lists of q shards: one tensor and one FitConstants
+    are one shard."""
+    if isinstance(x, (list, tuple)):
+        if not isinstance(c, (list, tuple)) or len(c) != len(x):
+            raise ValueError("q shards need one FitConstants each")
+        return list(x), list(c)
+    return [x], [c]
+
+
+def _shard_sum(parts):
+    """Σ over the last axis of each shard's float64 values, the shards'
+    partial sums added in shard order on the first shard's device."""
+    home = parts[0].device
+    total = None
+    for v in parts:
+        s = v.to(torch.float64).sum(dim=-1).to(home)
+        total = s if total is None else total + s
+    return total
+
+
+def moments(x, c):
+    """The float64 sums (s_x, s_xx, s_xy) of the solve: Σu·x, Σu·x², Σu·x·y
+    over the q grid, of one tensor or of its q shards (lists of tensors
+    and of FitConstants, as :func:`solve_scale_bg` takes them); products
+    in x's dtype."""
+    xs, cs = _shards(x, c)
+    ux = [ci.u * xi for xi, ci in zip(xs, cs)]
+    return (_shard_sum(ux),
+            _shard_sum([a * xi for a, xi in zip(ux, xs)]),
+            _shard_sum([a * ci.y for a, ci in zip(ux, cs)]))
+
+
+def solve_scale_bg(x, c, find_background: bool,
                    positive_background: bool) -> ScaleBg:
     """Exact weighted least-squares for y ≈ A·x + b, plus reduced χ².
 
@@ -70,20 +103,24 @@ def solve_scale_bg(x: torch.Tensor, c: FitConstants, find_background: bool,
     float64, the same operation order as the JAX package's solve under
     its package-wide x64 (mcsas_tpu/core/fitcore.py:62-131).  χ² is
     evaluated in residual form so it stays stable near convergence.
+
+    *x* may also be a list of q shards (..., Nq_j), with *c* a list of
+    their FitConstants (their columns of y and u; ``s_u``, ``s_uy`` and
+    ``n`` of the whole grid): the counterpart of the JAX solve's ``psum``
+    over the mesh's "q" axis.  Each shard's float64 partial sums are
+    added in shard order on the first shard's device, where the scale
+    and background are solved; they go back to every shard for the
+    second round, the χ² sum.  The result lies on the first shard's
+    device.  One shard is the unsharded solve, bit for bit.
     """
-    dt = x.dtype
+    xs, cs = _shards(x, c)
+    dt = xs[0].dtype
     acc = torch.float64
+    home = xs[0].device
 
-    def reduce(v):
-        return v.to(acc).sum(dim=-1)
-
-    u, y = c.u, c.y
-    ux = u * x
-    s_x = reduce(ux)
-    s_xx = reduce(ux * x)
-    s_xy = reduce(ux * y)
-    s_u = torch.tensor(c.s_u, dtype=acc, device=x.device)
-    s_uy = torch.tensor(c.s_uy, dtype=acc, device=x.device)
+    s_x, s_xx, s_xy = moments(xs, cs)
+    s_u = torch.tensor(cs[0].s_u, dtype=acc, device=home)
+    s_uy = torch.tensor(cs[0].s_uy, dtype=acc, device=home)
 
     # scale-invariant guards: x may span absurd absolute magnitudes
     # (SI intensities ~1e-30), so degeneracy is judged relative to
@@ -113,8 +150,12 @@ def solve_scale_bg(x: torch.Tensor, c: FitConstants, find_background: bool,
 
     a = a.to(dt)
     b = b.to(dt)
-    r = y - a[..., None] * x - b[..., None]
-    chisqr = (reduce(u * r * r) / c.n).to(dt)
+    sq = []
+    for xi, ci in zip(xs, cs):
+        ai, bi = a.to(xi.device), b.to(xi.device)
+        r = ci.y - ai[..., None] * xi - bi[..., None]
+        sq.append(ci.u * r * r)
+    chisqr = (_shard_sum(sq) / cs[0].n).to(dt)
     return ScaleBg(scale=a, background=b, chisqr=chisqr)
 
 

@@ -63,5 +63,35 @@ def local_candidates(cur: torch.Tensor, uniforms: torch.Tensor,
 
     *cur* is (..., P); *uniforms* is (..., k_local, P) unit uniforms.
     """
-    factor = torch.exp((2.0 * uniforms - 1.0) * local_scale)
+    factor = whole_vectors(
+        lambda u: torch.exp((2.0 * u - 1.0) * local_scale), uniforms)
     return torch.clamp(cur[..., None, :] * factor, lo, hi)
+
+
+# PyTorch's CPU elementwise loops run two vectors (32 float32 lanes at
+# AVX-512) at a time and finish a tensor's remainder one element at a
+# time, and there pow, exp, sin and cos round differently (libm) from the
+# vector loop (Sleef): a value would depend on where it sits in its batch.
+CPU_VECTOR_ROWS = 32
+
+
+def whole_vectors(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an *fn* that maps each row x[..., :] of x (..., P) on
+    its own to a row (..., W), or to one 0-dim value.  On the CPU, x runs
+    as one flat batch (B, P) padded with copies of its last row to a
+    multiple of :data:`CPU_VECTOR_ROWS` rows, so that every tensor of
+    fn's that keeps the batch in front runs through whole vectors and a
+    row's result does not depend on the batch it came in (a repetition
+    shard computes what the whole ensemble computes for it); the result
+    is shaped back to (..., W).  On the card it is ``fn(x)``."""
+    if x.device.type != "cpu":
+        return fn(x)
+    flat = x.reshape(-1, x.shape[-1])
+    n = flat.shape[0]
+    pad = (-n) % CPU_VECTOR_ROWS
+    if pad and n:
+        flat = torch.cat([flat, flat[-1:].expand(pad, -1)])
+    out = fn(flat)
+    if out.dim() == 0:
+        return out
+    return out[:n].reshape(*x.shape[:-1], out.shape[-1])

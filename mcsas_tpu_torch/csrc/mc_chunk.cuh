@@ -59,8 +59,10 @@
 // * Best-of-K: lowest chi2 wins, the lowest k on ties; a NaN chi2 counts
 //   as +inf and so is never accepted.
 // * Proposals: injected (S, R, K, P) tensor, or Philox4x32-10 keyed by
-//   (seed, rep) and counted by (step, k, parameter, 0); the top 24 bits of
-//   word 0 make a unit uniform.
+//   (seed, rep_base + rep) and counted by (step, k, parameter, 0); the top
+//   24 bits of word 0 make a unit uniform.  A launch on a shard of the
+//   repetitions (rep_base its first) draws what the launch on all of them
+//   draws for its repetitions.
 // * The launcher returns cudaGetLastError(); it neither synchronizes nor
 //   allocates.
 #pragma once
@@ -141,6 +143,7 @@ struct ChunkParams {
   int32_t find_bg;
   int32_t pos_bg;
   int32_t device;
+  int32_t rep_base;        // global index of repetition 0 of this launch
   uint32_t seed;
 };
 
@@ -174,7 +177,8 @@ __device__ __forceinline__ float mc_propose(const ChunkParams& p, int s,
                     + ip];
   } else {
     const uint32_t bits = philox_x0((uint32_t)s, (uint32_t)k, (uint32_t)ip,
-                                    0u, p.seed, (uint32_t)r);
+                                    0u, p.seed,
+                                    (uint32_t)(p.rep_base + r));
     v = __fmul_rn((float)(bits >> 8), 5.9604644775390625e-08f);
     if (k < p.k_global)
       v = __fadd_rn(__fmul_rn(gen_transform(v, p.gen[ip]),

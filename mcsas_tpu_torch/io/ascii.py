@@ -18,6 +18,8 @@ unicode headers, CR-only line endings, and extra columns.  The strategy:
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -77,12 +79,27 @@ def read_array(lines, start_line: int = 0, end_line=None,
     return np.array(records, dtype=np.float64)
 
 
-def load_ascii(filename, skip_lines: int = 0) -> np.ndarray:
-    """Reads a raw (rows, cols) float64 array from an ASCII file with the
-    pure-Python parser."""
+def load_ascii(filename, skip_lines: int = 0,
+               use_native: bool = None) -> np.ndarray:
+    """Reads a raw (rows, cols) float64 array from an ASCII file.
+
+    Uses the C++ tokenizer (``io/native.py``, built at first use; a build
+    that fails raises) unless *use_native* is False or, by default,
+    MCSAS_TPU_NO_NATIVE=1 asks for the pure-Python parser.  A text in which
+    the tokenizer finds no table goes to the Python parser, which raises
+    FileReadError as before.
+    """
+    if use_native is None:
+        use_native = os.environ.get("MCSAS_TPU_NO_NATIVE", "") != "1"
     with open(filename, "rb") as fd:
         raw = fd.read()
-    return read_array(_decode(raw).splitlines(), start_line=skip_lines,
+    text = _decode(raw)
+    if use_native:
+        from . import native
+        arr = native.parse_text(text, skip_lines)
+        if arr is not None:
+            return arr
+    return read_array(text.splitlines(), start_line=skip_lines,
                       filename=str(filename))
 
 

@@ -383,7 +383,16 @@ def _kho_table_factory(bound, q_grid, dtype, device, smear=None):
 
     q32 = torch.tensor(np.asarray(q_grid, np.float64), dtype=dtype,
                        device=device)
+    return _kho_lookup(blend, q32), tab
 
+
+def _kho_lookup(blend, q32):
+    """The unsmeared worm's lookup on the fit grid *q32*: the backbone's
+    blend times the exact cross-section 2·j1_over_x(q·radius).  It
+    declares what it does besides the blend (``tab_params``,
+    ``row_factor``) and how to move to the columns of another grid
+    (``on_grid(q)``: a q shard's points, or the same grid on another
+    device, with the table's matching columns)."""
     def lookup(table, pdict):
         # backbone rows are valid only on the baked fit grid (the engine
         # always passes it); the cross-section factor is exact in q
@@ -393,7 +402,8 @@ def _kho_table_factory(bound, q_grid, dtype, device, smear=None):
 
     lookup.tab_params = blend.tab_params
     lookup.row_factor = ("cross_section", "radius")
-    return lookup, tab
+    lookup.on_grid = lambda q: _kho_lookup(blend, q)
+    return lookup
 
 
 def _kho_volume(p):

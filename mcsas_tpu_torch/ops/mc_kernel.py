@@ -348,55 +348,87 @@ def prefetch_seg_steps(engine) -> int:
 _TRACE_KEYS = ("choice", "chi", "conval", "slot")
 
 
-def _step(state, ri_s: int, consts: FitConstants, spec: ChunkSpec,
-          cands: torch.Tensor, rows: torch.Tensor, trace: Optional[dict]):
+def _as_shards(state, *per_shard):
+    """*state* and each of *per_shard* (constants, specs, rows) as lists
+    of q shards: a state of the whole grid is one shard.  A q shard is a
+    RepState whose ibank and ft hold its columns of the grid and whose
+    other fields are copies of every other shard's; its FitConstants hold
+    its columns of y and u, and its spec's kernel evaluates its columns
+    of a row (``parallel.spmd``)."""
+    if isinstance(state, (list, tuple)):
+        return [list(state)] + [list(p) for p in per_shard]
+    return [[state]] + [[p] for p in per_shard]
+
+
+def _step(state, ri_s: int, consts, spec, cands: torch.Tensor, rows,
+          trace: Optional[dict]):
     """One accept/reject step of every repetition at slot *ri_s*, on
     candidates (R, K, P) and their rows (R, K, Nq); state updated in
-    place.  Shared by both plain versions."""
-    r_idx = torch.arange(state.rset.shape[0], device=state.rset.device)
-    active = (state.conval > spec.crit) & (state.n_iter < spec.max_iter)
-    old = state.ibank[:, ri_s, :]
-    x = (state.ft - old)[:, None, :] + rows
-    sol = solve_scale_bg(x, consts, spec.find_bg, spec.pos_bg)
+    place.  Shared by both plain versions.
+
+    On q shards (lists of states, constants and rows, one per shard, as
+    :func:`_as_shards` takes them; *spec* and *cands* are the first
+    shard's) the solve's sums cross the shards
+    (:func:`fitcore.solve_scale_bg`), the decision is made on the first
+    shard's device and every shard applies it."""
+    cells, cs, rs = _as_shards(state, consts, rows)
+    home = cells[0]
+    r_idx = torch.arange(home.rset.shape[0], device=home.rset.device)
+    active = (home.conval > spec.crit) & (home.n_iter < spec.max_iter)
+    olds = [c.ibank[:, ri_s, :] for c in cells]
+    xs = [(c.ft - old)[:, None, :] + row
+          for c, old, row in zip(cells, olds, rs)]
+    one = len(cells) == 1          # the unsharded solve takes tensors
+    sol = solve_scale_bg(xs[0] if one else xs, cs[0] if one else cs,
+                         spec.find_bg, spec.pos_bg)
     chi = torch.where(torch.isnan(sol.chisqr),
                       torch.full_like(sol.chisqr, float("inf")),
                       sol.chisqr)
     best = torch.argmin(chi, dim=1)                           # first min
     best_chi = chi[r_idx, best]
-    accept = active & (best_chi < state.conval)
+    accept = active & (best_chi < home.conval)
     if trace is not None:
         trace["choice"].append(torch.where(accept, best.to(torch.int32), -1))
         trace["chi"].append(chi)
-        trace["conval"].append(state.conval.clone())
-    acc = accept[:, None]
-    state.rset[:, ri_s, :] = torch.where(acc, cands[r_idx, best],
-                                         state.rset[:, ri_s, :])
-    state.ibank[:, ri_s, :] = torch.where(acc, rows[r_idx, best], old)
-    state.ft.copy_(torch.where(acc, x[r_idx, best], state.ft))
-    state.scale.copy_(torch.where(accept, sol.scale[r_idx, best],
-                                  state.scale))
-    state.background.copy_(torch.where(
-        accept, sol.background[r_idx, best], state.background))
-    state.conval.copy_(torch.where(accept, best_chi, state.conval))
-    state.n_iter += spec.k_cand * active.to(torch.int32)
-    state.n_moves += accept.to(torch.int32)
+        trace["conval"].append(home.conval.clone())
+    new_rset = cands[r_idx, best]
+    new_scale = sol.scale[r_idx, best]
+    new_bg = sol.background[r_idx, best]
+    for c, old, x, row in zip(cells, olds, xs, rs):
+        dev = c.rset.device
+        acc_c, best_c = accept.to(dev), best.to(dev)
+        r_c = r_idx.to(dev)
+        acc = acc_c[:, None]
+        c.rset[:, ri_s, :] = torch.where(acc, new_rset.to(dev),
+                                         c.rset[:, ri_s, :])
+        c.ibank[:, ri_s, :] = torch.where(acc, row[r_c, best_c], old)
+        c.ft.copy_(torch.where(acc, x[r_c, best_c], c.ft))
+        c.scale.copy_(torch.where(acc_c, new_scale.to(dev), c.scale))
+        c.background.copy_(torch.where(acc_c, new_bg.to(dev),
+                                       c.background))
+        c.conval.copy_(torch.where(acc_c, best_chi.to(dev), c.conval))
+        c.n_iter += spec.k_cand * active.to(dev).to(torch.int32)
+        c.n_moves += acc_c.to(torch.int32)
     if trace is not None:
-        trace["slot"].append(state.rset[:, ri_s, :].clone())
+        trace["slot"].append(home.rset[:, ri_s, :].clone())
 
 
 def _run_steps(state, ri: int, n_steps: int, step, trace: Optional[dict]):
     """Refreshes ft from the bank (float64 sum: bounds the float32 drift
     to one chunk), then runs ``step(s, slot)`` for s < n_steps; returns
-    ``(state, cursor)``.  With a *trace* dict it also records, per step,
+    ``(state, cursor)``.  *state* may be a list of q shards, each refreshed
+    from its own columns.  With a *trace* dict it also records, per step,
     the chosen candidate (``choice`` (S, R) int32, -1 where nothing was
     accepted), every candidate's χ² (``chi`` (S, R, K)), χ² before the
     step (``conval`` (S, R)) and the slot's parameters after it
     (``slot`` (S, R, P)) — what a comparison needs to find the first flip
     and judge a near-tie."""
-    n = state.rset.shape[1]
+    cells = state if isinstance(state, (list, tuple)) else [state]
+    n = cells[0].rset.shape[1]
     if trace is not None:
         trace.update({key: [] for key in _TRACE_KEYS})
-    state.ft.copy_(state.ibank.double().sum(dim=1))
+    for c in cells:
+        c.ft.copy_(c.ibank.double().sum(dim=1))
     for s in range(n_steps):
         step(s, (ri + s) % n)
     if trace is not None:
@@ -405,50 +437,66 @@ def _run_steps(state, ri: int, n_steps: int, step, trace: Optional[dict]):
     return state, (ri + n_steps) % n
 
 
-def chunk_reference(state, ri: int, consts: FitConstants, spec: ChunkSpec,
-                    proposals: torch.Tensor, trace: Optional[dict] = None):
+def chunk_reference(state, ri: int, consts, spec, proposals: torch.Tensor,
+                    trace: Optional[dict] = None):
     """Plain PyTorch version of K1: ``proposals.shape[0]`` steps, each
     turning its local columns into moves around the slot's current value
     and evaluating its rows; state updated in place.  Returns
-    ``(state, cursor)``; *trace* as in :func:`_run_steps`."""
-    k_global = spec.k_global
-    lo, hi = spec.bounds(state.rset.dtype, state.rset.device)
+    ``(state, cursor)``; *trace* as in :func:`_run_steps`.  On q shards
+    (lists, :func:`_as_shards`) each shard evaluates its columns of the
+    rows and :func:`_step` joins them; *proposals* lie on the first
+    shard's device."""
+    cells, cs, specs = _as_shards(state, consts, spec)
+    home, spec0 = cells[0], specs[0]
+    k_global = spec0.k_global
+    lo, hi = spec0.bounds(home.rset.dtype, home.rset.device)
 
     def step(s, ri_s):
         cands = proposals[s]                                  # (R, K, P)
-        if spec.k_local:
-            local = local_candidates(state.rset[:, ri_s, :],
+        if spec0.k_local:
+            local = local_candidates(home.rset[:, ri_s, :],
                                      cands[:, k_global:, :], lo, hi,
-                                     spec.local_scale)
+                                     spec0.local_scale)
             cands = torch.cat([cands[:, :k_global, :], local], dim=1)
-        _step(state, ri_s, consts, spec, cands, spec.kern.row(cands),
-              trace)
+        rows = [sp.kern.row(cands.to(c.rset.device))
+                for sp, c in zip(specs, cells)]
+        _step(cells, ri_s, cs, spec0, cands, rows, trace)
 
-    return _run_steps(state, ri, int(proposals.shape[0]), step, trace)
+    _run_steps(cells, ri, int(proposals.shape[0]), step, trace)
+    return state, (ri + int(proposals.shape[0])) % home.rset.shape[1]
 
 
-def prefetch_reference(state, ri: int, consts: FitConstants,
-                       spec: ChunkSpec, rows: torch.Tensor,
-                       cands: torch.Tensor, trace: Optional[dict] = None):
+def prefetch_reference(state, ri: int, consts, spec, rows, cands,
+                       trace: Optional[dict] = None):
     """Plain PyTorch version of K2: one segment of ``rows.shape[0]``
     steps on given candidates (S, R, K, P) and their rows (S, R, K, Nq);
     state updated in place.  Returns ``(state, cursor)``; *trace* as in
-    :func:`_run_steps`."""
+    :func:`_run_steps`.  On q shards (lists, :func:`_as_shards`) *rows*
+    is a list of each shard's columns."""
+    cells, cs, specs, rs = _as_shards(state, consts, spec, rows)
+
     def step(s, ri_s):
-        _step(state, ri_s, consts, spec, cands[s], rows[s], trace)
+        _step(cells, ri_s, cs, specs[0], cands[s], [r[s] for r in rs],
+              trace)
 
-    return _run_steps(state, ri, int(rows.shape[0]), step, trace)
+    _run_steps(cells, ri, int(cands.shape[0]), step, trace)
+    return state, (ri + int(cands.shape[0])) % cells[0].rset.shape[1]
 
 
-def prefetch_table_reference(state, ri: int, consts: FitConstants,
-                             spec: ChunkSpec, cands: torch.Tensor,
+def prefetch_table_reference(state, ri: int, consts, spec,
+                             cands: torch.Tensor,
                              trace: Optional[dict] = None):
     """Plain PyTorch version of K2's table entry: the candidates' rows
     from the engine's table lookup (``spec.kern.row``, in blocks of steps:
     :func:`segment_rows`), then :func:`prefetch_reference` on them; state
-    updated in place.  Returns ``(state, cursor)``."""
+    updated in place.  Returns ``(state, cursor)``.  On q shards each
+    shard looks up its columns."""
+    cells, _, specs = _as_shards(state, consts, spec)
+    rows = [segment_rows(sp, cands.to(c.rset.device))
+            for sp, c in zip(specs, cells)]
     return prefetch_reference(state, ri, consts, spec,
-                              segment_rows(spec, cands), cands, trace)
+                              rows if isinstance(state, (list, tuple))
+                              else rows[0], cands, trace)
 
 
 def _per_candidate(w: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
@@ -557,12 +605,14 @@ def philox4x32(counter, key, rounds: int = 10) -> np.ndarray:
 
 
 def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
-                     n_steps: int, device=None) -> np.ndarray:
+                     n_steps: int, device=None, rep_base: int = 0
+                     ) -> np.ndarray:
     """The proposals the kernel draws in Philox mode, as an (S, R, K, P)
-    float32 array in the injected contract.
+    float32 array in the injected contract, for the repetitions
+    rep_base .. rep_base + n_reps - 1.
 
-    Key (seed, rep), counter (step, k, parameter, 0); the top 24 bits of
-    output word 0 make the unit uniform u.  Global columns become
+    Key (seed, rep_base + rep), counter (step, k, parameter, 0); the top
+    24 bits of output word 0 make the unit uniform u.  Global columns become
     lo + g(u)·(hi − lo) with g the generator's transform
     (10^(u·N) − 1)/10^N for logdecN; local columns keep u.  The kernel
     takes 10^x with CUDA's powf: with a CUDA *device* the transform runs
@@ -575,7 +625,8 @@ def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
         indexing="ij")
     zero = np.zeros_like(s_ix)
     bits = philox4x32((s_ix, k_ix, p_ix, zero),
-                      (np.full_like(s_ix, seed & 0xFFFFFFFF), r_ix))[0]
+                      (np.full_like(s_ix, seed & 0xFFFFFFFF),
+                       r_ix + rep_base))[0]
     u = (bits >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
     out = u.copy()
     for ip, (g, (lo, hi)) in enumerate(zip(spec.generators, spec.ranges)):
@@ -615,7 +666,8 @@ class _ChunkParams(ctypes.Structure):
         + [(name, ctypes.c_int32) for name in (
             "n_reps", "n_contribs", "nq", "n_params", "n_model_params",
             "k_cand", "k_global", "n_steps", "ri0", "max_iter", "n_fit",
-            "model_id", "vol_fixed", "find_bg", "pos_bg", "device")]
+            "model_id", "vol_fixed", "find_bg", "pos_bg", "device",
+            "rep_base")]
         + [("seed", ctypes.c_uint32)])
 
 
@@ -832,7 +884,7 @@ def _check(state, consts: FitConstants, spec: ChunkSpec, proposals,
 
 def _chunk_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
                   proposals, seed, n_steps: int, sink=None,
-                  choice=None) -> _ChunkParams:
+                  choice=None, rep_base: int = 0) -> _ChunkParams:
     """The kernel's parameter struct for one chunk (K1 and K3)."""
     r, n, p = state.rset.shape
     pfix, pcol, sw = spec.model_layout
@@ -858,7 +910,7 @@ def _chunk_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
         max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
         model_id=model_id(spec.model), vol_fixed=int(sw is not None),
         find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
-        device=_device_index(state.rset.device),
+        device=_device_index(state.rset.device), rep_base=rep_base,
         seed=(seed or 0) & 0xFFFFFFFF)
     for ip, ((lo, hi), g) in enumerate(zip(spec.ranges, spec.generators)):
         prm.lo[ip], prm.hi[ip], prm.gen[ip] = lo, hi, _GEN_CODES[g]
@@ -886,15 +938,18 @@ def _chunk_steps(state, consts, spec, proposals, seed, n_steps):
 def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
               proposals: Optional[torch.Tensor] = None,
               seed: Optional[int] = None, n_steps: Optional[int] = None,
-              trace: Optional[dict] = None):
+              trace: Optional[dict] = None, rep_base: int = 0):
     """Runs one chunk on the state's device, updating it in place;
     returns ``(state, cursor)``.
 
     CUDA tensors launch the kernel: with *proposals* (S, R, K, P) it uses
     them, otherwise it draws from its Philox stream keyed by *seed* for
-    *n_steps* steps.  CPU tensors run :func:`chunk_reference`, which needs
-    *proposals*.  With a *trace* dict the chosen candidate per step lands
-    in ``trace["choice"]`` (S, R) int32, -1 where nothing was accepted.
+    *n_steps* steps, repetition r of the state drawing the stream of
+    repetition ``rep_base + r`` (a shard of an ensemble draws what the
+    whole ensemble draws for it).  CPU tensors run
+    :func:`chunk_reference`, which needs *proposals*.  With a *trace*
+    dict the chosen candidate per step lands in ``trace["choice"]``
+    (S, R) int32, -1 where nothing was accepted.
     """
     n_steps = _chunk_steps(state, consts, spec, proposals, seed, n_steps)
     dev = state.rset.device
@@ -909,7 +964,7 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
     choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
               if trace is not None else None)
     prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
-                        choice=choice)
+                        choice=choice, rep_base=rep_base)
     _launch("mc_chunk", prm, dev)
     run_chunk.launches += 1
     name = spec.model.name

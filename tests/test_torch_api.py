@@ -102,6 +102,8 @@ def test_port_never_imports_jax(tmp_path, refdata):
         "import mcsas_tpu_torch.api, mcsas_tpu_torch.cli\n"
         "import mcsas_tpu_torch.io.hdf, mcsas_tpu_torch.utils.log\n"
         "import mcsas_tpu_torch.plotting\n"
+        "import mcsas_tpu_torch.parallel, mcsas_tpu_torch.utils.profiling\n"
+        "import mcsas_tpu_torch.io.native\n"
         "cfg = mt.McSASConfig(num_contribs=20, num_reps=1, chunk_steps=20,"
         " max_iterations=400, max_retries=0, candidates_per_step=4)\n"
         f"r = mt.fit({str(refdata / 'sasfit_sphere-10-1.dat')!r}, "

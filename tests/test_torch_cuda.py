@@ -1251,3 +1251,99 @@ def test_histogram_all_defaults_to_the_card(small_tables):
     frac_c, hists_c = histogram_all(contribs, d, bound, cfg, device="cuda")
     np.testing.assert_array_equal(frac.measval, frac_c.measval)
     np.testing.assert_array_equal(hists[0].bins.full, hists_c[0].bins.full)
+
+
+# ----------------------------------------------- the sharded ensemble
+
+def _mesh(shape):
+    from mcsas_tpu_torch.parallel import make_mesh
+    return make_mesh(shape, [torch.device("cuda", 0)] * (shape[0]
+                                                          * shape[1]))
+
+
+def test_k1_rep_base_draws_the_whole_ensembles_stream():
+    """K1 on a slice of the repetitions with rep_base draws what the
+    launch on all of them draws for them: the states are bitwise equal."""
+    _needs_card()
+    eng = McSASEngine(load(DATA), get_model("Sphere").bind(),
+                      McSASConfig(num_contribs=64, num_reps=5,
+                                  candidates_per_step=48, local_moves=0.5,
+                                  seed=3), device="cuda")
+    eng.gen.manual_seed(3)
+    whole = eng._init_batch()
+    parts = [dataclasses.replace(whole, **{
+        f.name: getattr(whole, f.name)[a:b].clone()
+        for f in dataclasses.fields(whole)}) for a, b in ((0, 2), (2, 5))]
+    mc_kernel.run_chunk(whole, 0, eng.consts, eng.spec, seed=99,
+                        n_steps=200)
+    for part, base in zip(parts, (0, 2)):
+        mc_kernel.run_chunk(part, 0, eng.consts, eng.spec, seed=99,
+                            n_steps=200, rep_base=base)
+    for f in dataclasses.fields(whole):
+        joined = torch.cat([getattr(p, f.name) for p in parts])
+        assert torch.equal(joined, getattr(whole, f.name)), f.name
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (3, 1)])
+def test_sharded_sphere_fit_is_bitwise_on_one_card(shape):
+    """Repetition shards of cuda:0, each on its own stream: K1 once a
+    chunk per shard, the contributions of the unsharded engine."""
+    _needs_card()
+    from mcsas_tpu_torch.parallel import ShardedEnsemble
+    d = load(DATA)
+    bound = get_model("Sphere").bind()
+    cfg = McSASConfig(num_contribs=64, num_reps=5, candidates_per_step=48,
+                      local_moves=0.5, chunk_steps=256, seed=4,
+                      max_iterations=200_000, max_retries=1)
+    mc_kernel.run_chunk.launches = 0
+    base = McSASEngine(d, bound, cfg, device="cuda").run()
+    n_base = mc_kernel.run_chunk.launches
+    se = ShardedEnsemble(d, bound, cfg, mesh=_mesh(shape))
+    assert se.runs_cuda_kernel and all(sh.stream is not None
+                                       for sh in se.shards)
+    mc_kernel.run_chunk.launches = 0
+    res = se.run()
+    assert mc_kernel.run_chunk.launches == shape[0] * n_base
+    for f in ("contribs", "conval", "n_iter", "n_moves", "scaling",
+              "background", "measval", "attempts"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(base, f),
+                                      err_msg=f)
+    assert res.total_iters == base.total_iters
+
+
+def test_sharded_table_fit_is_bitwise_on_one_card(small_tables):
+    """The table tier on two shards: K2's table entry once a segment per
+    shard on the parent's segment length, bitwise the unsharded fit."""
+    _needs_card()
+    from mcsas_tpu_torch.parallel import ShardedEnsemble
+    d = load(DATA)
+    bound = get_model("CylindersIsotropic").bind(**CYL_BIND)
+    cfg = McSASConfig(num_contribs=40, num_reps=4, candidates_per_step=32,
+                      local_moves=0.5, chunk_steps=64, seed=6,
+                      max_iterations=100_000, max_retries=0,
+                      table_ff="on", show_incomplete=True)
+    mc_kernel.run_prefetch_table_chunk.launches = 0
+    base = McSASEngine(d, bound, cfg, device="cuda").run()
+    n_base = mc_kernel.run_prefetch_table_chunk.launches
+    mc_kernel.run_prefetch_table_chunk.launches = 0
+    res = ShardedEnsemble(d, bound, cfg, mesh=_mesh((2, 1))).run()
+    assert mc_kernel.run_prefetch_table_chunk.launches == 2 * n_base
+    np.testing.assert_array_equal(res.contribs, base.contribs)
+    np.testing.assert_array_equal(res.conval, base.conval)
+
+
+def test_q_axis_on_the_card_needs_the_plain_chunk():
+    _needs_card()
+    from mcsas_tpu_torch.parallel import ShardedEnsemble
+    d = load(DATA)
+    bound = get_model("Sphere").bind()
+    cfg = McSASConfig(num_contribs=30, num_reps=2, candidates_per_step=8,
+                      chunk_steps=50, max_iterations=400, max_retries=0,
+                      show_incomplete=True)
+    with pytest.raises(ValueError, match="q axis"):
+        ShardedEnsemble(d, bound, cfg, mesh=_mesh((1, 2)))
+    mc_kernel.run_chunk.launches = 0
+    res = ShardedEnsemble(d, bound, cfg.replace(use_pallas="off"),
+                          mesh=_mesh((1, 2))).run()
+    assert mc_kernel.run_chunk.launches == 0
+    assert np.isfinite(res.conval).all() and (res.n_moves > 0).all()

@@ -148,7 +148,14 @@ def chunk_pair(request, refdata):
     own proposal stream: JAX's ``_run_chunk_batched`` (the oracle), the
     same JAX step applied one step at a time (to locate a flip), and
     ``chunk_reference`` with its trace."""
-    kw = dict(_CHUNKS[request.param])
+    return make_chunk_pair(request.param, refdata)
+
+
+def make_chunk_pair(name, refdata, run=None):
+    """The runs of :func:`chunk_pair` for the ``_CHUNKS`` entry *name*;
+    *run* ``(te, start, props, trace)`` runs the port's side on a fresh
+    state (default: ``chunk_reference``) and returns ``(final, ri)``."""
+    kw = dict(_CHUNKS[name])
     ft_drift = kw.pop("ft_drift", False)
     je, te = _engines(refdata / kw.pop("data", _SPHERE), **kw)
     state = je._init_batch(jax.random.split(jax.random.PRNGKey(7), R))
@@ -167,9 +174,12 @@ def chunk_pair(request, refdata):
 
     start = _jax_state_numpy(state)
     trace = {}
-    t_final, t_ri = mc_kernel.chunk_reference(
-        state_from_numpy(start), 0, te.consts, te.spec,
-        torch.tensor(props), trace=trace)
+    if run is None:
+        t_final, t_ri = mc_kernel.chunk_reference(
+            state_from_numpy(start), 0, te.consts, te.spec,
+            torch.tensor(props), trace=trace)
+    else:
+        t_final, t_ri = run(te, start, props, trace)
     return dict(te=te, props=props, start=start, ft_drift=ft_drift,
                 j_final=_jax_state_numpy(j_final), j_ri=int(j_ri),
                 j_steps=j_steps, t_final=state_to_numpy(t_final),
