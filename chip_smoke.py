@@ -171,7 +171,23 @@ Phases (any failure raises and the script exits nonzero):
      ``utils.profiling.trace`` of one headline fit writes its trace with
      the annotated span; the native ASCII parser builds with the host
      compiler and parses testdata/*.dat and *.csv byte for byte as the
-     Python parser.  No two-card figure exists: the machine has one card.
+     Python parser.  No two-card figure exists: the machine has one card;
+ 23. prewarm, the measuring tools and the examples: (a) the Sphere
+     headline and the cylinder row on a new engine, ``engine.prewarm()``
+     (its dict printed) and ``api.prewarm_post``, then the first timed
+     fit — bitwise phase 5's and phase 7's contributions, its wall beside
+     their cold first fits' — and ``fit(prewarm=True)``, bitwise too;
+     ``cli.main(... --prewarm)`` exits 0; (b) ``python -m
+     mcsas_tpu_torch.tools.coldstart`` for the sphere and cylinders-table
+     tiers, without and with --prewarm: each fresh process's split
+     (import, CUDA context, set-up, nvcc and load, prewarm, first and
+     warm fit, K1/K2 launches); (c) ``python -m
+     mcsas_tpu_torch.tools.rep_scaling``: K1 on the Sphere headline at R
+     = 1, 10, 40, 132 (N = 300) and R = 10 at N = 3000, K2 on the
+     cylinder row at R = 10, 132 (proposals/s, wall, converged count and
+     χ² range, launches; a row whose kernel never launched fails the
+     tool); (d) the four examples of examples/torch as subprocesses, each
+     exiting 0.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -2518,6 +2534,184 @@ def mesh_phase(torch, mc_kernel, fit, load, cfg, sphere_contribs,
     return out
 
 
+# ---------------------------------------- phase 23: prewarm, tools, examples
+
+# the rows of the repetition-scaling tool that phase 23 runs: (tier,
+# repetitions, contributions); 132 is one K1 or K2 block on each SM of an
+# H100
+SCALING_RUNS = (("sphere", "1,10,40,132", 300), ("sphere", "10", 3000),
+                ("cylinders-table", "10,132", 300))
+EXAMPLES = ("quickstart.py", "smeared_fit.py", "anisotropic2d.py",
+            "multichip.py")
+
+
+def _tool(args, timeout=900):
+    """Runs ``python -m <args>`` from the checkout; returns its JSON lines,
+    raising (with its errors) unless it exits 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH", "")) if p)
+    out = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)}: rc "
+                             f"{out.returncode}\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def _prewarmed_fit(torch, mc_kernel, label, data, bound, cfg, base,
+                   cold_wall, card):
+    """Phase 23 (a) for one path: a new engine, its prewarm, then the
+    first timed fit, bitwise *base* (phase 5's or 7's contributions);
+    then fit(prewarm=True) on it.  Returns the launches of the first
+    fit."""
+    from mcsas_tpu_torch import api, fit
+    from mcsas_tpu_torch.core.engine import McSASEngine
+    api._ENGINE_CACHE.clear()
+    bound = api._default_unbounded_ranges(bound, data)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    eng, setup_s = timed(lambda: api._cached_engine(
+        McSASEngine, data, bound, cfg, "cuda"))
+    pre, pre_s = timed(eng.prewarm)
+    _, post_s = timed(lambda: api.prewarm_post(data, bound, cfg,
+                                               device=eng.device))
+    reset_counts(mc_kernel)
+    res, first_s = timed(lambda: fit(data, bound, cfg, device="cuda"))
+    launches = {"K1": mc_kernel.run_chunk.launches,
+                "K2": mc_kernel.run_prefetch_table_chunk.launches}
+    if len(api._ENGINE_CACHE) != 1:
+        raise AssertionError(f"prewarm {label}: the fit built another "
+                             "engine")
+    if not np.array_equal(res.engine.contribs, base):
+        raise AssertionError(f"prewarm {label}: contributions differ from "
+                             "the fit without a prewarm")
+    again, again_s = timed(lambda: fit(data, bound, cfg, device="cuda",
+                                       prewarm=True))
+    if not (eng._prewarm_done
+            and np.array_equal(again.engine.contribs, base)):
+        raise AssertionError(f"prewarm {label}: fit(prewarm=True) differs "
+                             "or did not prewarm")
+    print(f"[prewarm {label}] engine set-up {setup_s:.4f} s, prewarm() "
+          f"{pre_s:.4f} s {pre}, prewarm_post {post_s:.4f} s; the first "
+          f"timed fit after it {first_s:.4f} s (launches {launches}), "
+          f"bitwise the fit without a prewarm; the cold first fit of this "
+          f"path earlier in this process {cold_wall:.4f} s; fit(prewarm="
+          f"True) on the engine {again_s:.4f} s, bitwise; on {card}",
+          flush=True)
+    return launches
+
+
+def prewarm_phase(torch, mc_kernel, load, cfg, sphere, cyl, card):
+    """Phase 23: (a) prewarmed fits of the Sphere headline and the
+    cylinder row and ``cli.main(--prewarm)``, (b) the cold-start tool per
+    tier with and without --prewarm, (c) the repetition-scaling tool for
+    K1 and K2, (d) the four examples of examples/torch; returns the
+    launches of each part."""
+    import shutil
+    import tempfile
+    from mcsas_tpu_torch import cli
+    from mcsas_tpu_torch.models import get_model
+    t_phase = time.perf_counter()
+    # ---- (a)
+    data = load(DATA)
+    k1 = _prewarmed_fit(torch, mc_kernel, "Sphere headline", data,
+                        get_model("Sphere").bind(), cfg, sphere["contribs"],
+                        sphere["cold_wall"], card)["K1"]
+    golden, cyl_bound, cyl_cfg = cyl["workload"]
+    k2 = _prewarmed_fit(torch, mc_kernel, "cylinder", golden, cyl_bound,
+                        cyl_cfg, cyl["contribs"], cyl["cold_wall"],
+                        card)["K2"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prewarm_")
+    try:
+        reset_counts(mc_kernel)
+        rc = cli.main([DATA, *CLI_FLAGS, "-o", os.path.join(tmp, "cli"),
+                       "--prewarm"])
+        if rc != 0 or mc_kernel.run_chunk.launches <= 0:
+            raise AssertionError(f"cli --prewarm: rc {rc}, "
+                                 f"{mc_kernel.run_chunk.launches} K1 "
+                                 "launches")
+        k1_cli = mc_kernel.run_chunk.launches
+        print(f"[prewarm cli] cli.main(... --prewarm) rc 0, {k1_cli} K1 "
+              f"launches", flush=True)
+
+        # ---- (b) the cold start, per tier, in fresh processes
+        cold = {}
+        for flags in ((), ("--prewarm",)):
+            for row in _tool(("mcsas_tpu_torch.tools.coldstart",
+                              "--tier=sphere", "--tier=cylinders-table",
+                              *flags)):
+                launched = row["k2_launches" if row["table"]
+                               else "k1_launches"]
+                if launched <= 0 or row["converged"] != 10:
+                    raise AssertionError(f"coldstart: {row}")
+                cold[(row["tier"], row["prewarm"])] = launched
+                print(f"[coldstart] {json.dumps(row)}", flush=True)
+
+        # ---- (c) the repetition scaling of K1 and K2
+        scaling = []
+        for tier, reps, contribs in SCALING_RUNS:
+            for row in _tool(("mcsas_tpu_torch.tools.rep_scaling",
+                              "--tier", tier, "--reps", reps,
+                              "--contribs", str(contribs))):
+                state = ("all converged" if row["all_converged"]
+                         else f"NOT all converged: {row['converged']}/"
+                              f"{row['reps']}")
+                print(f"[rep_scaling] {tier} R={row['reps']} "
+                      f"N={row['contribs']}: "
+                      f"{row['proposals_per_sec']:.6g} proposals/s, wall "
+                      f"{row['wall_s']:.4f} s, {state}, chi2 "
+                      f"{row['chi2_min']:.4f}-{row['chi2_max']:.4f}, "
+                      f"{row['launches']} {row['kernel']} launches, "
+                      f"total_iters {row['total_proposals']}; "
+                      f"{row['card']}", flush=True)
+                scaling.append(row)
+
+        # ---- (d) the examples, as a user runs them
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (HERE, env.get("PYTHONPATH", "")) if p)
+        for name in EXAMPLES:
+            cwd = os.path.join(tmp, name[:-3])
+            os.makedirs(cwd)
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, os.path.join(HERE, "examples", "torch",
+                                              name)],
+                cwd=cwd, env=env, capture_output=True, text=True,
+                timeout=600)
+            wall = time.perf_counter() - t0
+            if out.returncode != 0:
+                raise AssertionError(f"examples/torch/{name}: rc "
+                                     f"{out.returncode}\n"
+                                     f"{out.stdout[-2000:]}\n"
+                                     f"{out.stderr[-3000:]}")
+            tail = " | ".join(out.stdout.strip().splitlines()[-3:])
+            print(f"[example] examples/torch/{name} rc 0 in {wall:.2f} s: "
+                  f"{tail}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[prewarm] phase 23 {time.perf_counter() - t_phase:.2f} s; on "
+          f"{card}", flush=True)
+    k1_rows = [r for r in scaling if r["kernel"] == "mc_chunk"]
+    k2_rows = [r for r in scaling if r["kernel"] == "mc_prefetch"]
+    return {"k1": k1 + k1_cli, "k2": k2,
+            "coldstart": {f"{t}{' --prewarm' if p else ''}": n
+                          for (t, p), n in cold.items()},
+            "rep_scaling_k1": {f"R={r['reps']} N={r['contribs']}":
+                               r["launches"] for r in k1_rows},
+            "rep_scaling_k2": {f"R={r['reps']} N={r['contribs']}":
+                               r["launches"] for r in k2_rows}}
+
+
 def kern_probe_entries():
     """The K2 entries of the probe's runner (tools/kern_probe.py)."""
     from mcsas_tpu_torch.tools import kern_probe
@@ -2652,7 +2846,7 @@ def main():
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    first = fit(DATA, "Sphere", cfg, device="cuda")       # cold
+    first, cold_wall = timed_fit()                          # cold
     reset_counts(mc_kernel)
     res, wall = timed_fit()
     launches = mc_kernel.run_chunk.launches
@@ -2809,7 +3003,7 @@ def main():
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    cfirst = cyl_fit()
+    cfirst, ccold_wall = timed_cyl_fit()
     reset_counts(mc_kernel)
     cres, cwall = timed_cyl_fit()
     k2_launches = mc_kernel.run_prefetch_table_chunk.launches
@@ -2963,6 +3157,13 @@ def main():
                       (golden, cyl_bound, cyl_cfg), ce.contribs, k2_launches,
                       native_s, card)
 
+    # ---- phase 23: prewarm, the cold-start and scaling tools, examples
+    pre = prewarm_phase(
+        torch, mc_kernel, load, cfg,
+        {"contribs": e.contribs, "cold_wall": cold_wall},
+        {"contribs": ce.contribs, "cold_wall": ccold_wall,
+         "workload": (golden, cyl_bound, cyl_cfg)}, card)
+
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
     # PyTorch call computes an MC chunk; mc_prefetch: the numbers of its
@@ -2982,6 +3183,10 @@ def main():
         "rep_base": "Philox keyed by (seed, rep_base + r); launched once a "
                     "chunk per repetition shard (phase 22)",
         "mesh_launches": {k: mesh[k] for k in ("2x1", "3x1")},
+        "prewarm_launches": pre["k1"],
+        "coldstart_launches": {k: v for k, v in pre["coldstart"].items()
+                               if k.startswith("sphere")},
+        "rep_scaling_launches": pre["rep_scaling_k1"],
         "compared": [win_inj, win_phx] + ragged["Sphere"]}]
     for name, row in ROWS.items():
         k = rows_k1[name]
@@ -3006,6 +3211,10 @@ def main():
         "shape": k2["table"]["shape"], "entry": "table in (the fit path)",
         "files_launches": files["k2"],
         "mesh_launches": {"2x1": mesh["k2_2x1"]},
+        "prewarm_launches": pre["k2"],
+        "coldstart_launches": {k: v for k, v in pre["coldstart"].items()
+                               if k.startswith("cylinders")},
+        "rep_scaling_launches": pre["rep_scaling_k2"],
         "rows_in": k2["rows"], "compared": k2_windows})
     kernels.append({
         "name": "mc_prefetch[intensity]", "route": "cuda",

@@ -18,12 +18,15 @@ __version__ = "0.1.0"
 
 from .api import McSASResult, OutputFiles, fit, run_files  # noqa: E402
 from .config import McSASConfig                      # noqa: E402
-from .data import DataConfig, SASData, load          # noqa: E402
-from .models import REGISTRY, get_model              # noqa: E402
+from .data import (DataConfig, GaussianSmearing, SASData,  # noqa: E402
+                   TrapezoidSmearing, from_raw, load)
+from .models import (REGISTRY, get_model,  # noqa: E402
+                     load_model_dir, load_model_file)
 from .post.histogram import HistogramSpec            # noqa: E402
 
 __all__ = [
-    "__version__", "McSASConfig", "DataConfig", "SASData", "load",
-    "REGISTRY", "get_model", "HistogramSpec", "McSASResult", "fit",
-    "OutputFiles", "run_files",
+    "__version__", "McSASConfig", "DataConfig", "SASData",
+    "TrapezoidSmearing", "GaussianSmearing", "from_raw", "load",
+    "REGISTRY", "get_model", "load_model_file", "load_model_dir",
+    "HistogramSpec", "McSASResult", "OutputFiles", "fit", "run_files",
 ]

@@ -11,7 +11,8 @@ The fits run on the card unless ``--device cpu`` asks for the CPU;
 ``--device cuda`` (the default) without a card is an error (exit code 2).
 ``--mesh REP[,Q]`` shards the ensemble over that many distinct devices of
 ``--device`` (``parallel.make_mesh``); a malformed or too large mesh is
-an error too (exit code 2).
+an error too (exit code 2).  ``--prewarm`` pays the card's first-use
+costs (kernel build and load, first launches) before the first fit.
 """
 from __future__ import annotations
 
@@ -128,6 +129,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "2,2; the product must not exceed the visible "
                         "cards, 1 for --device cpu; on the card a q axis "
                         "runs only under use_pallas 'off' in --config)")
+    p.add_argument("--prewarm", action="store_true",
+                   help="pay the card's first-use costs before the first "
+                        "fit: builds (nvcc, the first time for these "
+                        "sources) and loads the chunk kernel's library, "
+                        "loads the kernel that will run, runs the init "
+                        "and the float64 post pass once on dummy data "
+                        "(parameter tables are baked with the engine and "
+                        "persist in MCSAS_TPU_TABLE_CACHE_DIR): moves "
+                        "that time out of the timed analysis; the "
+                        "built libraries persist in build/kernels/ for "
+                        "later processes")
     p.add_argument("--list-models", action="store_true",
                    help="list available models and exit")
     p.add_argument("-l", "--nolog", action="store_true",
@@ -241,7 +253,8 @@ def main(argv=None) -> int:
     results = run_files(args.filenames, model=bound, cfg=cfg,
                         histograms=specs, data_config=data_config,
                         out_dir=args.outdir, plot=args.plot,
-                        device=args.device, mesh=mesh)
+                        device=args.device, mesh=mesh,
+                        prewarm=args.prewarm)
     failures = sum(0 if r.converged else 1 for r in results)
     for r in results:
         status = "converged" if r.converged else "NOT CONVERGED"

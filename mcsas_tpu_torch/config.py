@@ -43,10 +43,13 @@ class McSASConfig:
     # criterion and per-slot proposal distribution are unchanged, so the
     # fitted distributions are statistically equivalent.
     candidates_per_step: int = 1
-    # Fused chunk kernel (the field keeps its JSON name): "auto" uses the
-    # CUDA kernel for eligible models (Sphere, no smearing, float32), "on"
-    # forces it (errors if unsupported), "off" always runs the plain
-    # PyTorch chunk.  On a CPU tensor the kernel's plain version runs.
+    # Fused chunk kernel (the field keeps its JSON name): "auto" uses a
+    # CUDA kernel where one runs the config -- K1 for the four elementwise
+    # models (Sphere, LMADenseSphere, GaussianChain, SphericalCoreShell)
+    # unsmeared in float32, K2 for the parameter-table tier in float32 --
+    # and on the card raises where none does; "on" forces it (errors if
+    # unsupported), "off" always runs the plain PyTorch chunk.  On a CPU
+    # tensor the kernel's plain version runs.
     use_pallas: str = "auto"
     # Beyond-reference convergence accelerator (opt-in, default off =
     # exact reference proposal semantics): this fraction of each step's

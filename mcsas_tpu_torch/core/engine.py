@@ -652,6 +652,76 @@ class McSASEngine:
             state, ri, self.consts, self.spec,
             mc_kernel.segment_rows(self.spec, cands), cands)
 
+    # ----------------------------------------------------------- prewarm
+    def prewarm(self) -> dict:
+        """Pays the card's first-use costs of this engine's fits ahead of
+        them, without running the MC: builds (nvcc, where build/kernels/
+        lacks it) and loads the library of the kernel its chunks launch —
+        ``mc_chunk`` (K1) or, on the table tier, ``mc_prefetch`` (K2) —
+        runs the batched init and the eager work before a first launch on
+        a generator of its own, and asks CUDA for the attributes of
+        the kernel instantiation that will run (which loads it).  The
+        parameter table was baked in ``__init__`` (and persists through
+        MCSAS_TPU_TABLE_CACHE_DIR).  The engine's generator and state are
+        left as they were, so a fit after a prewarm is the fit without
+        one, bit for bit.  Entry points: ``fit(..., prewarm=True)`` and
+        the CLI's ``--prewarm``.
+
+        Returns {label: seconds}; where no kernel runs this engine (the
+        CPU, ``use_pallas='off'``) each label maps to a string saying why
+        it was skipped.  A failed build, load or attribute query
+        raises."""
+        lib = "mc_prefetch" if self.uses_table else "mc_chunk"
+        labels = (f"nvcc {lib}", f"load {lib}", "init",
+                  f"attributes {lib}")
+        if not self.runs_cuda_kernel:
+            why = (f"skipped: the plain chunk runs this engine on "
+                   f"{self.device} (use_pallas={self.cfg.use_pallas!r})")
+            return dict.fromkeys(labels, why)
+        timings = {labels[0]: mc_kernel.build_libraries((lib,))[lib].seconds}
+        t0 = time.perf_counter()
+        mc_kernel._library(lib)
+        timings[labels[1]] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        own, self.gen = self.gen, torch.Generator(device=self.device)
+        try:
+            self.gen.manual_seed(self.cfg.seed)
+            states = self._init_batch()
+            props = (self._draw_chunk_proposals(self.seg_steps)
+                     if self.uses_table else None)
+        finally:
+            self.gen = own
+        torch.cuda.synchronize(self.device)
+        timings[labels[2]] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for state, consts, spec, mine in self._kernel_work(states, props):
+            shape = self._launch_shape(state, consts, spec, mine)
+            torch.cuda.synchronize(state.rset.device)
+            log.info("prewarm: %s on %s, launch shape %s", lib,
+                     state.rset.device, shape)
+        timings[labels[3]] = time.perf_counter() - t0
+        log.info("prewarm: %s", timings)
+        return timings
+
+    def _kernel_work(self, state, props):
+        """(state, constants, spec, proposals) of each launch a chunk
+        makes: one here, one per repetition shard of a mesh."""
+        return [(state, self.consts, self.spec, props)]
+
+    def _launch_shape(self, state, consts, spec, props) -> dict:
+        """The launch shape of the kernel a chunk of *state* launches,
+        after the eager work before a table engine's launch (the
+        segment's candidates and their factors or rows)."""
+        if not self.uses_table:
+            return mc_kernel.launch_shape(state, consts, spec)
+        cands = mc_kernel.segment_candidates(state, 0, spec, props)
+        if self.prefetch_entry == "table":
+            mc_kernel.table_factors(spec, cands)
+            return mc_kernel.prefetch_launch_shape(state, consts, spec,
+                                                   cands)
+        return mc_kernel.prefetch_launch_shape(
+            state, consts, spec, cands, mc_kernel.segment_rows(spec, cands))
+
     # --------------------------------------------------------------- run
     def _read(self, state, guard) -> torch.Tensor:
         """What the host reads once a chunk, in one transfer:

@@ -239,7 +239,8 @@ def _kho_p0_sq_conv(t, x):
     F = torch.sqrt(torch.clamp_min(t * t - 1.0, eps))
     sin_d, cos_d = torch.sin(F * h), torch.cos(F * h)
     sinh_d, cosh_d = torch.sinh(e * h), torch.cosh(e * h)
-    shape = torch.broadcast_shapes(t.shape, x.shape)
+    # numpy's rule: torch.broadcast_shapes imports sympy on its first call
+    shape = np.broadcast_shapes(tuple(t.shape), tuple(x.shape))
     one = torch.ones(shape, dtype=dtype, device=dev)
     sF, cF = torch.zeros_like(one), one
     she, che = torch.zeros_like(one), one

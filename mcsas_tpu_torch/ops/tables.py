@@ -235,8 +235,10 @@ def lookup_param_table(table: ParamTable, pvals) -> torch.Tensor:
     the same IEEE subtraction and division."""
     vals = table.values
     dt, dev = vals.dtype, vals.device
-    lead = torch.broadcast_shapes(*(torch.as_tensor(v).shape
-                                    for v in pvals)) if pvals else ()
+    # numpy's rule: torch.broadcast_shapes imports sympy on its first
+    # call, seconds of a new process's first fit
+    lead = np.broadcast_shapes(*(tuple(torch.as_tensor(v).shape)
+                                 for v in pvals)) if pvals else ()
     idx = torch.zeros(lead, dtype=torch.int64, device=dev)
     corners = [(idx, torch.ones(lead, dtype=dt, device=dev))]
     stride = 1

@@ -31,9 +31,10 @@ instead of ``shard_map``.
   lie on the fit grid are taken (``table_grid_width_only``, the JAX
   package's rule).
 
-Not ported, as for the unsharded engine: the device while-loop drive,
-the prewarm plan and the Mosaic fallback engine
-(mcsas_tpu/parallel/spmd.py:178-262).
+``prewarm()`` prewarms every repetition shard's device (the kernel's
+attributes queried on each).  Not ported, as for the unsharded engine:
+the device while-loop drive, the AOT prewarm plan and the Mosaic
+fallback engine (mcsas_tpu/parallel/spmd.py:178-262).
 """
 from __future__ import annotations
 
@@ -268,6 +269,15 @@ class ShardedEnsemble(McSASEngine):
             mc_kernel.run_prefetch_chunk(
                 cells[0], ri, sh.consts[0], spec,
                 mc_kernel.segment_rows(spec, cands), cands)
+
+    def _kernel_work(self, states, props):
+        """:meth:`McSASEngine.prewarm`'s work per repetition shard: each
+        shard's state, constants, spec and slice of the proposals on its
+        device, so that every shard's device is prewarmed."""
+        return [(cells[0], sh.consts[0], sh.specs[0],
+                 None if props is None
+                 else props[:, sh.reps].to(sh.devices[0]).contiguous())
+                for sh, cells in self._live(states)]
 
     # ----------------------------------------------------- host reads
     def _read(self, states, guard) -> torch.Tensor:

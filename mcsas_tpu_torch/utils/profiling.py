@@ -11,13 +11,16 @@ mcsas_tpu/utils/profiling.py on torch.profiler).
   ``FloatingPointError`` at the first NaN (or inf) instead of counting the
   repetition as stuck — the counterpart of JAX's ``jax_debug_nans`` /
   ``jax_debug_infs`` flags for this package's engine;
-* :class:`Stopwatch` times phases on the host clock.
+* :class:`Stopwatch` times phases on the host clock;
+* :func:`require_card` stops a measuring tool without a card, and
+  :func:`card_line` names the card and its power limit beside a number.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
+import subprocess
 import time
 
 import torch
@@ -102,3 +105,22 @@ class Stopwatch:
                  for k, v in sorted(self.phases.items(),
                                     key=lambda kv: -kv[1])]
         return "\n".join(lines + [f"{'total':>20s}: {total:8.3f}s"])
+
+
+def require_card(tool: str) -> None:
+    """Exits *tool* with an error naming the missing card unless
+    ``torch.cuda.is_available()``: a tool that measures the card never
+    times the CPU instead."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{tool}: needs a CUDA card, and "
+                         "torch.cuda.is_available() is False; it measures "
+                         "the card and never times the CPU")
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

@@ -104,6 +104,8 @@ def test_port_never_imports_jax(tmp_path, refdata):
         "import mcsas_tpu_torch.plotting\n"
         "import mcsas_tpu_torch.parallel, mcsas_tpu_torch.utils.profiling\n"
         "import mcsas_tpu_torch.io.native\n"
+        "import mcsas_tpu_torch.tools.coldstart\n"
+        "import mcsas_tpu_torch.tools.rep_scaling\n"
         "cfg = mt.McSASConfig(num_contribs=20, num_reps=1, chunk_steps=20,"
         " max_iterations=400, max_retries=0, candidates_per_step=4)\n"
         f"r = mt.fit({str(refdata / 'sasfit_sphere-10-1.dat')!r}, "
@@ -118,6 +120,20 @@ def test_port_never_imports_jax(tmp_path, refdata):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+def test_port_exports_every_name_of_the_jax_package():
+    """The port's top level holds every name the JAX package exports
+    (mcsas_tpu/__init__.py:54-60), and each resolves there."""
+    import mcsas_tpu
+    import mcsas_tpu_torch
+    missing = set(mcsas_tpu.__all__) - set(mcsas_tpu_torch.__all__)
+    assert not missing, sorted(missing)
+    for name in mcsas_tpu_torch.__all__:
+        assert hasattr(mcsas_tpu_torch, name), name
+    assert mcsas_tpu_torch.from_raw.__module__ == "mcsas_tpu_torch.data"
+    assert (mcsas_tpu_torch.load_model_file.__module__
+            == "mcsas_tpu_torch.models")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -1347,3 +1347,49 @@ def test_q_axis_on_the_card_needs_the_plain_chunk():
                           mesh=_mesh((1, 2))).run()
     assert mc_kernel.run_chunk.launches == 0
     assert np.isfinite(res.conval).all() and (res.n_moves > 0).all()
+
+
+# ------------------------------------------------------------- prewarm
+
+@pytest.mark.parametrize("model,lib", [("Sphere", "mc_chunk"),
+                                       ("CylindersIsotropic",
+                                        "mc_prefetch")])
+def test_prewarm_loads_the_library_and_keeps_the_fit(small_tables, model,
+                                                     lib):
+    """prewarm() on the card returns a load entry for the library of the
+    engine's kernel (K1 for Sphere, K2 for the cylinder) with every entry
+    a time, and the fit after it is bitwise the fit without one."""
+    from mcsas_tpu_torch import api, fit
+    d = load(DATA)
+    bound = (get_model("Sphere").bind() if model == "Sphere"
+             else get_model(model).bind(**CYL_BIND))
+    cfg = McSASConfig(num_contribs=40, num_reps=4, candidates_per_step=32,
+                      local_moves=0.5, chunk_steps=64, seed=6,
+                      max_iterations=100_000, max_retries=0,
+                      table_ff="on", show_incomplete=True)
+    plain = McSASEngine(d, bound, cfg, device="cuda").run()
+    eng = McSASEngine(d, bound, cfg, device="cuda")
+    out = eng.prewarm()
+    assert list(out) == [f"nvcc {lib}", f"load {lib}", "init",
+                         f"attributes {lib}"]
+    assert all(isinstance(v, float) and v >= 0.0 for v in out.values())
+    after = eng.run()
+    for f in ("contribs", "conval", "n_iter", "n_moves", "scaling",
+              "background"):
+        np.testing.assert_array_equal(getattr(after, f),
+                                      getattr(plain, f), err_msg=f)
+    api._ENGINE_CACHE.clear()
+    res = fit(d, bound, cfg, device="cuda", prewarm=True)
+    np.testing.assert_array_equal(res.engine.contribs, plain.contribs)
+
+
+def test_rep_scaling_row_at_132_launches_k1():
+    """One row of the scaling tool at R = 132 (one K1 block on each SM
+    of an H100): K1 launched, every value of the row from one run."""
+    _needs_card()
+    from mcsas_tpu_torch.tools import rep_scaling
+    row = rep_scaling.measure("sphere", 132, 300, "card")
+    assert row["kernel"] == "mc_chunk" and row["launches"] > 0
+    assert row["reps"] == 132 and row["total_proposals"] > 0
+    assert row["proposals_per_sec"] == pytest.approx(
+        row["total_proposals"] / row["wall_s"])
