@@ -187,14 +187,32 @@ Phases (any failure raises and the script exits nonzero):
      cylinder row at R = 10, 132 (proposals/s, wall, converged count and
      χ² range, launches; a row whose kernel never launched fails the
      tool); (d) the four examples of examples/torch as subprocesses, each
-     exiting 0.
+     exiting 0;
+ 24. plugin models through K2's rows entry: 'SpherePlugin', a SASModel
+     made from the port's Sphere ff and volume that is not the
+     registry's Sphere object (so K1 has no device function for it) —
+     one segment of its engine (headline config, and without local
+     moves) through K2's rows-in entry on the rows of its ff, bit for
+     bit equal to prefetch_reference (χ² included); per segment the
+     rows' eager evaluation, K2 and its plain version timed, and the
+     plain chunk of the plugin for 64 steps; ``fit()`` at the headline
+     config under use_pallas='auto' — K2's rows entry launched, K1 and
+     the table entry not, 10/10 converged, max χ² ≤ 1, two runs of one
+     seed equal, held to the reference fixture as phase 5 (bars ≤ 0.2,
+     curve < 3σ), the median warm wall of 5 beside phase 5's K1 Sphere;
+     a 2x1 repetition mesh bitwise equal to it with twice its launches,
+     its median warm wall of 3; ``run_files(..., prewarm=True)`` on a
+     new engine (the prewarm's dict, the same launches, bitwise);
+     ``python -m mcsas_tpu_torch --model-file <plugin.py> -m
+     SpherePlugin`` exits 0, converged, and the plugin file reports at
+     exit that its process launched K2's rows entry and no K1.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
 idle share, times both entries of K2 on shorter segments, the table
 entry against the row lookup followed by the rows entry, and splits
-three fits of the cylinder and of each table row into set-up, MC run and
-post pass.
+three fits of the cylinder, of each table row and of the SpherePlugin
+into set-up, MC run and post pass.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -466,6 +484,30 @@ RAGGED = {"r1-k8-bins5": (1, 8, 5, 64),
           "r2-k64-bins100": (2, 64, 100, 64),
           "r2-k200-bins200": (2, 200, 200, 64),
           "r2-k8-bins100-n1": (2, 8, 100, 1)}
+
+
+def sphere_fixture_misfit(res, data, histogram_spec):
+    """A Sphere fit of testdata/sasfit_sphere-10-1.dat held to the
+    reference McSAS fit of that dataset: (the largest difference of the
+    normalized volume-weighted bars, the largest distance of the mean fit
+    curve in σ).  Raises above 0.2 or at 3σ."""
+    with open(FIXTURE, encoding="utf-8") as fd:
+        fix = json.load(fd)
+    lo_f, hi_f = fix["workload"]["activeRange_m"]
+    y_ref = np.asarray(fix["histograms"]["vol"]["yMean"])
+    spec = histogram_spec("radius", lo_f, hi_f, bin_count=len(y_ref),
+                          xscale="log", yweight="vol", auto_follow=False)
+    h = res.histogram([spec]).histograms[0]
+    y_eng = h.bins.mean / max(h.bins.mean.sum(), 1e-300)
+    bar_err = float(np.max(np.abs(y_eng - y_ref / y_ref.sum())))
+    fu = np.where(data.fu == 0, 1.0, data.fu)
+    z = float(np.max(np.abs(res.fit_measval_mean
+                            - np.asarray(fix["fitMeasValMean"])) / fu))
+    if not (bar_err <= 0.2 and z < 3.0):
+        raise AssertionError(f"against the reference fixture: max bar "
+                             f"diff {bar_err:.3g} (limit 0.2), fit curve "
+                             f"{z:.3g} sigma (limit 3)")
+    return bar_err, z
 
 
 def ptxas_spills(log):
@@ -2712,6 +2754,277 @@ def prewarm_phase(torch, mc_kernel, load, cfg, sphere, cyl, card):
                                r["launches"] for r in k2_rows}}
 
 
+# ------------------------------- phase 24: plugin models through K2's rows
+
+# the plugin file phase 24 hands to ``python -m mcsas_tpu_torch
+# --model-file``: the port's Sphere physics on a model object of its own,
+# and, at the process's exit, the launch counts of its kernel wrappers
+PLUGIN_SRC = """import atexit
+import dataclasses
+
+from mcsas_tpu_torch.models import get_model
+from mcsas_tpu_torch.ops import mc_kernel
+
+SpherePlugin = dataclasses.replace(get_model("Sphere"), name="SpherePlugin")
+
+
+def _report():
+    print(f"[plugin launches] rows {mc_kernel.run_prefetch_chunk.launches} "
+          f"table {mc_kernel.run_prefetch_table_chunk.launches} "
+          f"k1 {mc_kernel.run_chunk.launches}", flush=True)
+
+
+atexit.register(_report)
+"""
+
+
+def sphere_plugin():
+    """'SpherePlugin': the port's Sphere ff and volume on a SASModel that
+    is not the registry's Sphere object, so K1 has no device function
+    for it and the engine takes K2's rows entry."""
+    import dataclasses
+    from mcsas_tpu_torch.models import get_model
+    return dataclasses.replace(get_model("Sphere"), name="SpherePlugin")
+
+
+def plugin_segment(torch, mc_kernel, eng, seed):
+    """One engine segment of the plugin from a fresh state: K2's rows
+    entry on the rows of the plugin's ff against prefetch_reference,
+    every decision and every bit of the state equal (χ² included).
+    Returns (state0, candidates, rows, the window, max |delta chi2|)."""
+    eng.gen.manual_seed(seed)
+    state0 = eng._init_batch()
+    steps = eng.seg_steps
+    cands = mc_kernel.segment_candidates(
+        state0, 0, eng.spec, eng._draw_chunk_proposals(steps))
+    rows = mc_kernel.segment_rows(eng.spec, cands)
+    ks, kt, ts, tt = state0.clone(), {}, state0.clone(), {}
+    mc_kernel.run_prefetch_chunk(ks, 0, eng.consts, eng.spec, rows, cands,
+                                 trace=kt)
+    mc_kernel.prefetch_reference(ts, 0, eng.consts, eng.spec, rows, cands,
+                                 trace=tt)
+    torch.cuda.synchronize()
+    name = f"plugin rows in local_moves={eng.cfg.local_moves}"
+    if not torch.equal(kt["choice"], tt["choice"].to(kt["choice"].device)):
+        raise AssertionError(f"[{name}] the kernel's decisions differ from "
+                             "the plain version's")
+    states_equal(torch, name, ks, ts)
+    if not (ks.n_moves > 0).all():
+        raise AssertionError(f"[{name}] a repetition accepted nothing")
+    print(f"[{name}] {steps}-step segment at R={eng.cfg.num_reps} "
+          f"N={eng.cfg.num_contribs} K={eng.spec.k_cand} Nq={eng.consts.n}:"
+          f" every decision and every bit of the state equal to the plain "
+          f"version, chi2 included; accepted moves "
+          f"{ks.n_moves.tolist()}", flush=True)
+    window = {"mode": name, "steps": steps, "reps": eng.cfg.num_reps,
+              "entry": "rows"}
+    err = float((ks.conval.double() - ts.conval.double()).abs().max())
+    return state0, cands, rows, window, err
+
+
+def plugin_phase(torch, mc_kernel, fit, engine_cls, load, cfg,
+                 sphere_median, card, profiling=False):
+    """Phase 24: an elementwise plugin through K2's rows entry (the
+    module's docstring).  Returns the kernel line's numbers."""
+    import shutil
+    import tempfile
+    from mcsas_tpu_torch import api
+    from mcsas_tpu_torch.parallel import make_mesh
+    from mcsas_tpu_torch.post.histogram import HistogramSpec, histogram_all
+    t_phase = time.perf_counter()
+    plugin = sphere_plugin()
+    data = load(DATA)
+    eng = engine_cls(data, plugin.bind(), cfg, device="cuda")
+    per_step = cfg.num_reps * cfg.candidates_per_step * eng.consts.n * 4
+    if not (eng.prefetch_entry == "rows" and eng.runs_prefetch
+            and eng.runs_cuda_kernel and not eng.uses_table
+            and not mc_kernel.supports(eng)):
+        raise AssertionError(f"[plugin] route: entry "
+                             f"{eng.prefetch_entry!r}, segments "
+                             f"{eng.runs_prefetch}, kernel "
+                             f"{eng.runs_cuda_kernel}")
+    print(f"[plugin] SpherePlugin at the headline config takes K2's rows "
+          f"entry: Nq={eng.consts.n}, a step's rows {per_step} B, segments"
+          f" of {eng.seg_steps} steps (min(num_contribs "
+          f"{cfg.num_contribs}, 64 MiB / {per_step} B = "
+          f"{mc_kernel.PREFETCH_ROW_BYTES // per_step})), "
+          f"{eng.seg_steps * per_step} B of rows staged a segment",
+          flush=True)
+
+    # ---- K2 against its plain version, and the times of a segment
+    state0, cands, rows, window, err = plugin_segment(torch, mc_kernel, eng,
+                                                      seed=1)
+    eng0 = engine_cls(data, plugin.bind(), cfg.replace(local_moves=0.0),
+                      device="cuda")
+    *_, window0, err0 = plugin_segment(torch, mc_kernel, eng0, seed=1)
+    windows, max_err = [window, window0], max(err, err0)
+    del eng0
+    steps = eng.seg_steps
+    work = state0.clone()
+    rows_ms = time_chunk(torch, lambda: mc_kernel.segment_rows(eng.spec,
+                                                              cands), 10)
+    ms = time_chunk(torch, lambda: mc_kernel.run_prefetch_chunk(
+        work.copy_(state0), 0, eng.consts, eng.spec, rows, cands), 10)
+    b_ms, b_by = k2_bound(eng, state0, work, cands, rows)
+    plain_ms = time_chunk(torch, lambda: mc_kernel.prefetch_reference(
+        work.copy_(state0), 0, eng.consts, eng.spec, rows, cands), 2)
+    props64 = eng._draw_chunk_proposals(n_steps=64)
+    chunk64_ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+        work.copy_(state0), 0, eng.consts, eng.spec, props64), 2)
+    shape = mc_kernel.prefetch_launch_shape(state0, eng.consts, eng.spec,
+                                            cands, rows)
+    print(f"[time plugin] per {steps}-step segment at R={cfg.num_reps} "
+          f"N={cfg.num_contribs} K={cfg.candidates_per_step} "
+          f"Nq={eng.consts.n} (reset copy included), {card}: the rows' "
+          f"eager evaluation (segment_rows, the plugin's ff) "
+          f"{rows_ms:.4f} ms, K2 rows in {ms:.4f} ms "
+          f"({ms * 1e3 / steps:.2f} us per step), together "
+          f"{rows_ms + ms:.4f} ms; K2's plain version {plain_ms:.3f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}); the plugin's plain chunk "
+          f"(use_pallas='off') {chunk64_ms:.3f} ms for 64 steps "
+          f"({chunk64_ms * 1e3 / 64:.1f} us per step); shape {shape}",
+          flush=True)
+    del rows, work
+
+    # ---- the headline fit under use_pallas='auto'
+    def timed_fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(DATA, plugin, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    first, cold_wall = timed_fit()
+    reset_counts(mc_kernel)
+    res, wall = timed_fit()
+    launches = mc_kernel.run_prefetch_chunk.launches
+    if (launches <= 0 or mc_kernel.run_chunk.launches
+            or mc_kernel.run_prefetch_table_chunk.launches):
+        raise AssertionError(
+            f"[plugin fit] {launches} launches of K2's rows entry, "
+            f"{mc_kernel.run_chunk.launches} of K1, "
+            f"{mc_kernel.run_prefetch_table_chunk.launches} of the table "
+            "entry")
+    walls = [wall] + [timed_fit()[1] for _ in range(4)]
+    e = res.engine
+    for r_ in (first, res):
+        if not (r_.engine.converged.all() and r_.engine.conval.max() <= 1.0):
+            raise AssertionError(
+                f"[plugin fit] {int(r_.engine.converged.sum())}/10 "
+                f"converged, max chi2 {r_.engine.conval.max()}")
+    if not (e.used_pallas and e.used_prefetch and not e.used_table):
+        raise AssertionError("[plugin fit] used_pallas/used_prefetch/"
+                             "used_table")
+    if not np.array_equal(first.engine.contribs, e.contribs):
+        raise AssertionError("[plugin fit] two runs of one seed differ")
+    if not (e.contribs.shape == (10, 300, 1)
+            and np.isfinite(e.contribs).all()
+            and np.isfinite(res.fractions.measval).all()):
+        raise AssertionError("[plugin fit] wrong shape or non-finite")
+    bar_err, z = sphere_fixture_misfit(res, data, HistogramSpec)
+    median = float(np.median(walls))
+    print(f"[plugin fit] SpherePlugin headline fit through K2's rows entry:"
+          f" 10/10 converged, max chi2 {e.conval.max():.4f}, {launches} "
+          f"launches of K2's rows entry, K1 0, table entry 0, total_iters "
+          f"{e.total_iters}, cold wall {cold_wall:.4f} s, warm walls of 5 "
+          f"{walls}, median {median:.4f} s (K1 Sphere, phase 5: "
+          f"{sphere_median:.4f} s); against the reference fixture: max "
+          f"vol-bar diff {bar_err:.3g} (limit 0.2), fit curve within "
+          f"{z:.3g} sigma (limit 3); on {card}", flush=True)
+    if profiling:
+        profile_fit(torch, lambda: fit(DATA, plugin, cfg, device="cuda"),
+                    card, "SpherePlugin", "mc_prefetch")
+        fit_phases(torch, engine_cls, histogram_all, data, plugin.bind(),
+                   cfg, card, label="SpherePlugin")
+
+    # ---- a 2x1 repetition mesh of one card
+    mesh = make_mesh((2, 1), [torch.device("cuda", 0)] * 2)
+    reset_counts(mc_kernel)
+    mres = fit(DATA, plugin, cfg, mesh=mesh)
+    mesh_launches = mc_kernel.run_prefetch_chunk.launches
+    if (mesh_launches != 2 * launches or mc_kernel.run_chunk.launches
+            or mc_kernel.run_prefetch_table_chunk.launches):
+        raise AssertionError(f"[plugin mesh] {mesh_launches} launches of "
+                             f"K2's rows entry, want {2 * launches}")
+    for f in ("contribs", "conval", "n_iter", "n_moves", "scaling",
+              "background"):
+        if not np.array_equal(getattr(mres.engine, f), getattr(e, f)):
+            raise AssertionError(f"[plugin mesh] {f} differs from the "
+                                 "unsharded fit")
+    mesh_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(DATA, plugin, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_walls.append(time.perf_counter() - t0)
+    print(f"[plugin mesh] 2x1 repetition mesh of cuda:0: bitwise the "
+          f"unsharded fit, {mesh_launches} launches of K2's rows entry "
+          f"(2 x {launches}); warm walls {mesh_walls}, median "
+          f"{float(np.median(mesh_walls)):.4f} s against the unsharded "
+          f"{median:.4f} s; on {card}", flush=True)
+
+    # ---- run_files with prewarm on a new engine, and the module entry
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plugin_")
+    try:
+        api._ENGINE_CACHE.clear()
+        reset_counts(mc_kernel)
+        (fres,) = api.run_files([DATA], plugin, cfg, out_dir=tmp,
+                                device="cuda", prewarm=True)
+        (peng,) = api._ENGINE_CACHE.values()
+        timings = peng.prewarm()
+        if not (peng._prewarm_done and "nvcc mc_prefetch" in timings
+                and mc_kernel.run_prefetch_chunk.launches == launches
+                and not mc_kernel.run_chunk.launches
+                and np.array_equal(fres.engine.contribs, e.contribs)
+                and os.path.exists(fres.output_files["fit"])):
+            raise AssertionError(
+                f"[plugin files] prewarm {timings}, "
+                f"{mc_kernel.run_prefetch_chunk.launches} launches of K2's "
+                f"rows entry, {mc_kernel.run_chunk.launches} of K1")
+        print(f"[plugin files] run_files(prewarm=True) on a new engine: "
+              f"prewarm {timings}; {launches} launches of K2's rows entry, "
+              f"bitwise the fit above, files written", flush=True)
+        src = os.path.join(tmp, "sphere_plugin.py")
+        with open(src, "w", encoding="utf-8") as fd:
+            fd.write(PLUGIN_SRC)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (HERE, env.get("PYTHONPATH", "")) if p)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mcsas_tpu_torch", DATA, "--model-file",
+             src, "-m", "SpherePlugin", *CLI_FLAGS, "-o",
+             os.path.join(tmp, "out")], cwd=HERE, env=env,
+            capture_output=True, text=True, timeout=600)
+        sub_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("sasfit_sphere-10-1: chi2=")]
+    counts = [ln for ln in out.stdout.splitlines()
+              if ln.startswith("[plugin launches]")]
+    sub = dict(zip(("rows", "table", "k1"),
+                   (int(w) for w in counts[0].split()[3::2]))) \
+        if len(counts) == 1 else {}
+    if (out.returncode != 0 or len(summary) != 1
+            or "[converged]" not in summary[0] or not sub.get("rows")
+            or sub.get("k1") or sub.get("table")):
+        raise AssertionError(
+            f"[plugin cli] rc {out.returncode}, summary {summary}, counts "
+            f"{counts}; stderr {out.stderr[-2000:]}")
+    print(f"[plugin cli] python -m mcsas_tpu_torch --model-file "
+          f"sphere_plugin.py -m SpherePlugin: rc 0, {summary[0]}; the "
+          f"process launched K2's rows entry {sub['rows']} times, K1 0; "
+          f"wall {sub_wall:.4f} s; phase 24 "
+          f"{time.perf_counter() - t_phase:.2f} s; on {card}", flush=True)
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=shape, rows_ms=rows_ms,
+                plain_chunk_64_ms=chunk64_ms, median_wall=median,
+                mesh_launches=mesh_launches, cli_launches=sub["rows"],
+                max_abs_err=max_err, compared=windows)
+
+
 def kern_probe_entries():
     """The K2 entries of the probe's runner (tools/kern_probe.py)."""
     from mcsas_tpu_torch.tools import kern_probe
@@ -2872,22 +3185,7 @@ def main():
         raise AssertionError("main path result has the wrong shape or "
                              "non-finite values")
     # the repo's own yardstick: the reference McSAS fit of this dataset
-    with open(FIXTURE, encoding="utf-8") as fd:
-        fix = json.load(fd)
-    lo_f, hi_f = fix["workload"]["activeRange_m"]
-    y_ref = np.asarray(fix["histograms"]["vol"]["yMean"])
-    spec = HistogramSpec("radius", lo_f, hi_f, bin_count=len(y_ref),
-                         xscale="log", yweight="vol", auto_follow=False)
-    h = res.histogram([spec]).histograms[0]
-    y_eng = h.bins.mean / max(h.bins.mean.sum(), 1e-300)
-    bar_err = float(np.max(np.abs(y_eng - y_ref / y_ref.sum())))
-    fu = np.where(data.fu == 0, 1.0, data.fu)
-    z = float(np.max(np.abs(res.fit_measval_mean
-                            - np.asarray(fix["fitMeasValMean"])) / fu))
-    if not (bar_err <= 0.2 and z < 3.0):
-        raise AssertionError(f"against the reference fixture: max bar "
-                             f"diff {bar_err:.3g} (limit 0.2), fit curve "
-                             f"{z:.3g} sigma (limit 3)")
+    bar_err, z = sphere_fixture_misfit(res, data, HistogramSpec)
     rate = e.total_iters / e.elapsed
     print(f"[fit] 10/10 converged, max chi2 {e.conval.max():.4f}, "
           f"{launches} kernel launches, total_iters {e.total_iters}, "
@@ -3164,6 +3462,10 @@ def main():
         {"contribs": ce.contribs, "cold_wall": ccold_wall,
          "workload": (golden, cyl_bound, cyl_cfg)}, card)
 
+    # ---- phase 24: plugin models through K2's rows entry
+    plug = plugin_phase(torch, mc_kernel, fit, McSASEngine, load, cfg,
+                        float(np.median(walls)), card, profiling)
+
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
     # PyTorch call computes an MC chunk; mc_prefetch: the numbers of its
@@ -3282,6 +3584,23 @@ def main():
             "entry": f"table in, a probe-gated psi table of two axes (the "
                      f"{name} fit path)",
             "compared": k["compared"] + psi_rows[model]["compared"]})
+    kernels.append({
+        "name": "mc_prefetch[rows, plugin]", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/mc_prefetch.cu",
+        "replaces": "mcsas_tpu/ops/mc_kernel.py:719",
+        "launches": plug["launches"], "max_abs_err": plug["max_abs_err"],
+        "ms": plug["ms"], "plain_ms": plug["plain_ms"],
+        "bound_ms": plug["bound_ms"], "bound_by": plug["bound_by"],
+        "library_ms": None, "shape": plug["shape"],
+        "entry": "rows in, the rows of an elementwise plugin's own ff "
+                 "(the SpherePlugin headline fit path; the JAX package "
+                 "runs such a model inside K1, mcsas_tpu/ops/"
+                 "mc_kernel.py:410)",
+        "rows_ms": plug["rows_ms"],
+        "plain_chunk_64_ms": plug["plain_chunk_64_ms"],
+        "mesh_launches": {"2x1": plug["mesh_launches"]},
+        "cli_launches": plug["cli_launches"],
+        "compared": plug["compared"]})
     kernels.append({
         "name": "mc_probe", "route": "cuda",
         "source": "mcsas_tpu_torch/csrc/mc_probe.cu",

@@ -32,6 +32,7 @@ from .data import SASData
 from .io.ascii import format_value, write_ascii
 from .models import get_model
 from .models.base import BoundModel, SASModel
+from .ops import mc_kernel
 from .parallel import ShardedEnsemble
 from .post.histogram import (FractionsResult, HistogramSpec, Moments,
                              histogram_all)
@@ -218,8 +219,12 @@ def _cached_engine(engine_cls, data: SASData, bound: BoundModel,
         # reused after the environment changes
         env = tuple(os.environ.get(k, "") for k in
                     ("MCSAS_TPU_TABLE_RES_CAP", "MCSAS_TPU_TABLE_PROBE"))
-        key = (engine_cls, data.content_key(), bound, cfg, device, mesh,
-               env)
+        # equal models take different kernels where one is a built-in
+        # K1 has a device function for and the other a copy (a plugin
+        # registered under the built-in's name): keep them apart
+        key = (engine_cls, data.content_key(), bound,
+               mc_kernel.has_device_function(bound.model), cfg, device,
+               mesh, env)
         hash(key)    # a custom model piece may not be hashable
     except TypeError:
         return build()

@@ -21,6 +21,9 @@ background per iteration.  The recast, shared with the JAX package
   prefetch segment: its proposals are drawn up front, and the prefetch
   kernel K2 blends each candidate's row from the table and runs the steps
   (its plain version evaluates the rows with the table lookup first).
+  An elementwise model without a device function of K1 (a user's
+  plugin) runs prefetch segments too: its rows are evaluated by its own
+  ``ff`` before K2's rows-in entry is launched.
 * Rows are computed with the weight normalized by a host-side float64
   reference volume (w/w_ref), so float32 never touches the ~1e-32 SI
   magnitudes; the fitted scale absorbs the factor exactly.
@@ -501,14 +504,22 @@ class McSASEngine:
             find_bg=bool(cfg.find_background),
             pos_bg=bool(cfg.positive_background),
             ranges=tuple(bound.ranges), generators=tuple(bound.generators))
-        # a table engine runs its chunks as prefetch segments (K2 or its
-        # plain version), any other engine as K1 chunks
-        self.seg_steps = (mc_kernel.prefetch_seg_steps(self)
-                          if self.uses_table else None)
         # which entry of K2 a segment launches: 'table' where the kernel
         # can blend this table itself, 'rows' where the rows are staged
-        # with the eager lookup first; None without K2
+        # first (the table's eager lookup, or an elementwise plugin's
+        # ff); None without K2
         self.prefetch_entry = mc_kernel.prefetch_entry(self)
+        # the engine's chunks are prefetch segments (K2 or its plain
+        # version): always on the table tier; for an elementwise plugin
+        # unless use_pallas='off' or the engine takes no kernel (a q
+        # axis), which run the plain chunk, as the JAX package runs its
+        # scan there.  Any other engine runs K1 chunks or their plain
+        # version
+        self.runs_prefetch = self.uses_table or (
+            self.prefetch_entry is not None and cfg.use_pallas != "off"
+            and self._kernel_eligible())
+        self.seg_steps = (mc_kernel.prefetch_seg_steps(self)
+                          if self.runs_prefetch else None)
         self.runs_cuda_kernel = self._kernel_route()
         self.gen = torch.Generator(device=self.device)
 
@@ -527,16 +538,18 @@ class McSASEngine:
                 "model/config is not eligible for a chunk kernel (K1: "
                 "Sphere, LMADenseSphere, GaussianChain or "
                 "SphericalCoreShell, unsmeared, float32; K2: the "
-                "parameter-table tier, float32, smeared tables included); "
+                "parameter-table tier, float32, smeared tables included, "
+                "and through its rows-in entry any other model that "
+                "declares elementwise_q, 1D, unsmeared, float32); "
                 f"{self._no_kernel_reason()}; pass use_pallas='off' for "
                 "the plain PyTorch chunk")
         return on_card
 
     def _kernel_eligible(self) -> bool:
-        """True when K1 (an engine without a table) or K2 (a table engine)
-        can run this configuration."""
-        return (self.prefetch_entry is not None if self.uses_table
-                else mc_kernel.supports(self))
+        """True when K1 or an entry of K2 (``prefetch_entry``) can run
+        this configuration."""
+        return (self.prefetch_entry is not None
+                or mc_kernel.supports(self))
 
     def _no_kernel_reason(self) -> str:
         """Why neither chunk kernel runs this configuration, for the
@@ -556,10 +569,12 @@ class McSASEngine:
                     "table for this binding (its rows oscillate along the "
                     "parameter axes faster than the table's nodes can "
                     "follow), and the model has no device function")
-        if self.uses_table:
-            return f"K2 takes 1 to {mc_kernel.MAX_P} active parameters"
-        return (f"{name} has no device function and, in this config, no "
-                "parameter table")
+        if self.uses_table or self.bound.model.elementwise_q:
+            return (f"K1 and K2 take 1 to {mc_kernel.MAX_P} active "
+                    "parameters")
+        return (f"{name} has no device function, is not elementwise in q "
+                "(elementwise_q, which K2's rows-in entry takes) and, in "
+                "this config, has no parameter table")
 
     def _k_local(self) -> int:
         """Number of candidates per step drawn as local moves."""
@@ -613,9 +628,10 @@ class McSASEngine:
         return torch.cat(parts, dim=2).contiguous()
 
     def _chunk(self, state: RepState, ri: int):
-        """One chunk of cfg.chunk_steps steps (a table engine: one segment
-        of seg_steps steps); returns (state, cursor)."""
-        if self.uses_table:
+        """One chunk of cfg.chunk_steps steps (an engine of prefetch
+        segments: one segment of seg_steps steps); returns (state,
+        cursor)."""
+        if self.runs_prefetch:
             return self._segment(state, ri)
         if self.runs_cuda_kernel:
             # in-kernel Philox stream, keyed by a fresh per-chunk seed
@@ -635,15 +651,17 @@ class McSASEngine:
         the local ones moved around the segment-start slot values; then
         one launch of K2 runs the solve/accept sequence: its table entry
         blends every candidate's row from the table itself; for a table
-        it cannot blend (``prefetch_entry == 'rows'``) the (S, R, K, Nq)
-        rows are evaluated with the table lookup first, in blocks of steps
-        (``mc_kernel.segment_rows``), and go to its rows entry, as the
-        plain version does everywhere."""
+        it cannot blend and for an elementwise plugin (``prefetch_entry
+        == 'rows'``) the (S, R, K, Nq) rows are evaluated first, with the
+        table lookup in blocks of steps or with the plugin's ``ff`` on
+        the whole segment (``mc_kernel.segment_rows``), and go to its rows
+        entry, as the plain version does everywhere."""
         cands = mc_kernel.segment_candidates(
             state, ri, self.spec, self._draw_chunk_proposals(self.seg_steps))
         if not self.runs_cuda_kernel:
-            return mc_kernel.prefetch_table_reference(
-                state, ri, self.consts, self.spec, cands)
+            return mc_kernel.prefetch_reference(
+                state, ri, self.consts, self.spec,
+                mc_kernel.segment_rows(self.spec, cands), cands)
         if self.prefetch_entry == "table":
             return mc_kernel.run_prefetch_table_chunk(
                 state, ri, self.consts, self.spec, cands,
@@ -657,7 +675,7 @@ class McSASEngine:
         """Pays the card's first-use costs of this engine's fits ahead of
         them, without running the MC: builds (nvcc, where build/kernels/
         lacks it) and loads the library of the kernel its chunks launch —
-        ``mc_chunk`` (K1) or, on the table tier, ``mc_prefetch`` (K2) —
+        ``mc_chunk`` (K1) or, for prefetch segments, ``mc_prefetch`` (K2) —
         runs the batched init and the eager work before a first launch on
         a generator of its own, and asks CUDA for the attributes of
         the kernel instantiation that will run (which loads it).  The
@@ -671,7 +689,7 @@ class McSASEngine:
         CPU, ``use_pallas='off'``) each label maps to a string saying why
         it was skipped.  A failed build, load or attribute query
         raises."""
-        lib = "mc_prefetch" if self.uses_table else "mc_chunk"
+        lib = "mc_prefetch" if self.runs_prefetch else "mc_chunk"
         labels = (f"nvcc {lib}", f"load {lib}", "init",
                   f"attributes {lib}")
         if not self.runs_cuda_kernel:
@@ -688,7 +706,7 @@ class McSASEngine:
             self.gen.manual_seed(self.cfg.seed)
             states = self._init_batch()
             props = (self._draw_chunk_proposals(self.seg_steps)
-                     if self.uses_table else None)
+                     if self.runs_prefetch else None)
         finally:
             self.gen = own
         torch.cuda.synchronize(self.device)
@@ -710,9 +728,9 @@ class McSASEngine:
 
     def _launch_shape(self, state, consts, spec, props) -> dict:
         """The launch shape of the kernel a chunk of *state* launches,
-        after the eager work before a table engine's launch (the
-        segment's candidates and their factors or rows)."""
-        if not self.uses_table:
+        after the eager work before a segment's launch (the segment's
+        candidates and their factors or rows)."""
+        if not self.runs_prefetch:
             return mc_kernel.launch_shape(state, consts, spec)
         cands = mc_kernel.segment_candidates(state, 0, spec, props)
         if self.prefetch_entry == "table":
@@ -833,5 +851,5 @@ class McSASEngine:
             total_iters=total_iters,
             used_pallas=self.runs_cuda_kernel,
             used_table=self.uses_table,
-            used_prefetch=self.runs_cuda_kernel and self.uses_table,
+            used_prefetch=self.runs_cuda_kernel and self.runs_prefetch,
         )

@@ -11,12 +11,14 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   ``csrc/mc_chunk.cuh``, the models in ``csrc/mc_models.cuh``), wrapper
   :func:`run_chunk`.
 * K2, the prefetch chunk (``build_prefetch_chunk_fn``), for the
-  parameter-table tier: one segment's candidates (S, R, K, P) are drawn
-  before the launch and the kernel runs the solve/accept sequence on
-  them.  Two entries of one step loop (``csrc/mc_prefetch.cuh``, built
-  from ``csrc/mc_prefetch.cu``): *rows in*, the TPU kernel's own
-  contract, takes the candidates' rows (S, R, K, Nq) evaluated before
-  the launch (plain version :func:`prefetch_reference`, wrapper
+  parameter-table tier and for the elementwise models K1 has no device
+  function for (a user's plugin): one segment's candidates (S, R, K, P)
+  are drawn before the launch and the kernel runs the solve/accept
+  sequence on them.  Two entries of one step loop
+  (``csrc/mc_prefetch.cuh``, built from ``csrc/mc_prefetch.cu``): *rows
+  in*, the TPU kernel's own contract, takes the candidates' rows (S, R,
+  K, Nq) evaluated before the launch (plain version
+  :func:`prefetch_reference`, wrapper
   :func:`run_prefetch_chunk`); *table in*, the fit path, takes the
   parameter table and a factor per candidate (:func:`table_factors`: √w,
   or w for the intensity table of a smeared fit) and blends each row in
@@ -24,9 +26,9 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   one (:data:`ROW_FACTORS`: the Kholodenko worm's cross-section; plain
   version :func:`prefetch_table_reference`, wrapper
   :func:`run_prefetch_table_chunk`).  :func:`prefetch_entry` says which
-  entry an engine's segments launch: a table the kernel cannot blend
-  goes through the rows-in entry, its rows evaluated in blocks of steps
-  (:func:`segment_rows`).
+  entry an engine's segments launch: a table the kernel cannot blend,
+  and an elementwise plugin, go through the rows-in entry, their rows
+  evaluated before the launch (:func:`segment_rows`).
 * K3, the latency probe (``tools/kern_probe.py::build``): K1's step cut
   short at a rung (:data:`PROBE_LEVELS`), its ``ff`` and ``solve`` rungs
   also at each group width of :data:`PROBE_GROUPS`, and K2's step cut at
@@ -255,6 +257,13 @@ def table_blend_refusal(kern) -> Optional[str]:
     return None
 
 
+def has_device_function(model) -> bool:
+    """True when K1 has a device function for this very model object
+    (:data:`K1_MODELS`, by identity: a plugin registered under a
+    built-in's name, even a field-for-field copy, has none)."""
+    return any(model is m for m in K1_MODELS)
+
+
 def model_id(model) -> int:
     """The kernel's integer id of a model (csrc/mc_models.cuh)."""
     for i, m in enumerate(K1_MODELS):
@@ -265,48 +274,70 @@ def model_id(model) -> int:
                      f"{', '.join(m.name for m in K1_MODELS)})")
 
 
-def supports(engine) -> bool:
-    """True when the fused kernel K1 can run this engine's configuration
-    (the JAX package's eligibility, mcsas_tpu/ops/mc_kernel.py:38-44, for
-    the models with a device function): 1D, unsmeared, float32, 1 ≤ P ≤
-    MAX_P."""
+def elementwise_eligible(engine) -> bool:
+    """The JAX package's gate of its fused kernel K1
+    (mcsas_tpu/ops/mc_kernel.py:38-44) on this engine: a model that
+    declares ``elementwise_q``, 1D data, not smeared (where the model
+    smears), float32, 1 ≤ P ≤ MAX_P, and no parameter table."""
     model = engine.bound.model
-    return (any(model is m for m in K1_MODELS)
-            and len(model.params) <= MAX_MODEL_P
+    return (model.elementwise_q
+            and engine.kern.table is None
             and engine.kern.psi is None
             and not (engine.data.uses_smearing and model.can_smear)
             and engine.dtype == torch.float32
             and 1 <= engine.bound.n_active <= MAX_P)
 
 
+def supports(engine) -> bool:
+    """True when the fused kernel K1 can run this engine's configuration:
+    the JAX package's gate (:func:`elementwise_eligible`) for the models
+    with a device function (:data:`K1_MODELS`, by identity: a plugin
+    registered under a built-in's name is not one)."""
+    model = engine.bound.model
+    return (has_device_function(model)
+            and len(model.params) <= MAX_MODEL_P
+            and elementwise_eligible(engine))
+
+
 def prefetch_entry(engine) -> Optional[str]:
     """The entry of the prefetch kernel K2 that runs this engine's
-    segments, or None where K2 cannot: the parameter-table tier in
+    segments, or None where K2 cannot.  The parameter-table tier in
     float32 (local moves included — see :func:`segment_candidates`;
-    smeared tables included).  ``'table'`` where the kernel can blend the
+    smeared tables included): ``'table'`` where the kernel can blend the
     table's rows itself (:func:`table_blend_refusal`), else ``'rows'``:
     the rows are evaluated with the table's own lookup before the launch,
-    which is the TPU kernel's contract and takes any table."""
-    if not (engine.uses_table and engine.dtype == torch.float32
-            and 1 <= engine.bound.n_active <= MAX_P):
-        return None
-    return "rows" if table_blend_refusal(engine.kern) else "table"
+    which is the TPU kernel's contract and takes any table.  An
+    elementwise model without a device function of K1 (a user's plugin
+    that passes the JAX package's K1 gate, :func:`elementwise_eligible`):
+    ``'rows'``, the rows evaluated by the model's own ``ff`` before the
+    launch."""
+    if engine.uses_table:
+        if not (engine.dtype == torch.float32
+                and 1 <= engine.bound.n_active <= MAX_P):
+            return None
+        return "rows" if table_blend_refusal(engine.kern) else "table"
+    if elementwise_eligible(engine) and not supports(engine):
+        return "rows"
+    return None
 
 
 def segment_rows(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
     """The rows (S, R, K, Nq) of one segment's candidates (S, R, K, P)
-    by the engine's own row (``spec.kern.row``: the table's lookup).  A
-    lookup whose table is Nq wide holds temporaries of the rows' own
+    by the engine's own row (``spec.kern.row``: the table's lookup, or
+    an elementwise model's ``ff`` on the fit grid).  A model's ``ff`` and
+    a lookup whose table is Nq wide hold temporaries of the rows' own
     size, which the segment length already bounds (PREFETCH_ROW_BYTES):
-    it runs on the whole segment.  A wider one runs in blocks of steps
-    of each repetition (the K candidates of one step and repetition stay
-    together) whose lookup temporaries hold about
+    they run on the whole segment.  A wider lookup runs in blocks of
+    steps of each repetition (the K candidates of one step and
+    repetition stay together) whose temporaries hold about
     :data:`ROWS_BLOCK_VALUES` values each: the smeared worm's table is
     Nq·n_off wide (2,600 at Nq=100 with 26 offsets), and a whole 131-step
     segment at R=10, K=128 would make 1.7 GB temporaries, one step 13 MB,
     one step of one repetition 1.3 MB.  The engine's segment and the plain
     version evaluate the same blocks."""
     kern = spec.kern
+    if kern.table is None:
+        return kern.row(cands)
     width = kern.table.values.shape[1]
     flat = cands.reshape(-1, *cands.shape[2:])          # (S·R, K, P)
     block = max(1, ROWS_BLOCK_VALUES // (cands.shape[2] * width))
@@ -330,10 +361,11 @@ def prefetch_seg_steps(engine) -> int:
     and by the JAX package's cap on a segment's (S, R, K, Nq) rows; with
     local moves also by ``num_contribs``, so that a segment visits
     distinct slots (the JAX package's rule, without its lane padding).
-    The fit path stages no rows (K2's table entry blends them in the
-    kernel): the cap is the JAX package's segment length, kept so that a
-    fit draws the same proposals and takes the same decisions, not a
-    memory budget."""
+    The table entry stages no rows (it blends them in the kernel): there
+    the cap is the JAX package's segment length, kept so that a fit draws
+    the same proposals and takes the same decisions.  On the rows-in
+    entry (an elementwise plugin, a table the kernel cannot blend) the
+    rows are staged, and the cap is their memory budget."""
     cfg = engine.cfg
     per_step = (int(cfg.num_reps) * int(cfg.candidates_per_step)
                 * int(engine.consts.n) * 4)
@@ -490,7 +522,9 @@ def prefetch_table_reference(state, ri: int, consts, spec,
     from the engine's table lookup (``spec.kern.row``, in blocks of steps:
     :func:`segment_rows`), then :func:`prefetch_reference` on them; state
     updated in place.  Returns ``(state, cursor)``.  On q shards each
-    shard looks up its columns."""
+    shard looks up its columns.  A repetition shard of a table engine or
+    of an elementwise plugin runs its plain segment here too (one q
+    shard: :func:`prefetch_reference` on :func:`segment_rows`)."""
     cells, _, specs = _as_shards(state, consts, spec)
     rows = [segment_rows(sp, cands.to(c.rset.device))
             for sp, c in zip(specs, cells)]

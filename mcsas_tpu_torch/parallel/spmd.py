@@ -5,14 +5,16 @@ instead of ``shard_map``.
 
 * **Draws.**  The coordinator keeps the engine's one generator on the
   mesh's first device and draws exactly what the unsharded engine draws —
-  the init and retry batches, K1's per-chunk Philox seed, a table
-  engine's segment proposals — then slices them by repetition.  So a
-  repetition shard runs the repetitions it would run unsharded, on the
-  same numbers.
+  the init and retry batches, K1's per-chunk Philox seed, the segment
+  proposals of a table engine or of an elementwise plugin — then slices
+  them by repetition.  So a repetition shard runs the repetitions it
+  would run unsharded, on the same numbers.
 * **The rep axis.**  Each repetition shard holds its part of the state on
   its device and launches on its own CUDA stream: K1 with its
   ``rep_base`` (the Philox stream of repetition ``rep_base + r``), or the
-  entry of K2 the engine picked, on the parent's ``seg_steps`` (the
+  entry of K2 the engine picked (an elementwise plugin: the rows entry,
+  as the JAX package's ``fused_ok`` shards K1 for it,
+  mcsas_tpu/parallel/spmd.py:74-84), on the parent's ``seg_steps`` (the
   segment length depends on the whole ensemble's size, and so does the
   draw; the JAX package's per-shard engine clone does not apply here).
   Without a card each shard runs the plain chunk.  Once a chunk the host
@@ -26,10 +28,11 @@ instead of ``shard_map``.
   candidates' rows, joins the solve's sums across the shards
   (``fitcore.solve_scale_bg`` on a list) and applies one decision on
   every shard: the plain chunk, since neither kernel sums across shards
-  (mcsas_tpu/parallel/spmd.py:60-64).  On the card ``use_pallas='auto'``
-  and ``'on'`` raise there, ``'off'`` runs it.  Only tables whose rows
-  lie on the fit grid are taken (``table_grid_width_only``, the JAX
-  package's rule).
+  (mcsas_tpu/parallel/spmd.py:60-64); an elementwise plugin runs the
+  plain chunk there, as the JAX package's scan.  On the card
+  ``use_pallas='auto'`` and ``'on'`` raise there, ``'off'`` runs it.
+  Only tables whose rows lie on the fit grid are taken
+  (``table_grid_width_only``, the JAX package's rule).
 
 ``prewarm()`` prewarms every repetition shard's device (the kernel's
 attributes queried on each).  Not ported, as for the unsharded engine:
@@ -227,8 +230,8 @@ class ShardedEnsemble(McSASEngine):
 
     def _chunk(self, states, ri: int):
         cfg = self.cfg
-        n_steps = self.seg_steps if self.uses_table else cfg.chunk_steps
-        if self.uses_table or not self.runs_cuda_kernel:
+        n_steps = self.seg_steps if self.runs_prefetch else cfg.chunk_steps
+        if self.runs_prefetch or not self.runs_cuda_kernel:
             props = self._draw_chunk_proposals(n_steps)
         else:
             # the unsharded engine's per-chunk Philox seed
@@ -238,14 +241,14 @@ class ShardedEnsemble(McSASEngine):
         with self._on_streams() as on:
             for sh, cells in self._live(states):
                 with on(sh):
-                    if self.runs_cuda_kernel and not self.uses_table:
+                    if self.runs_cuda_kernel and not self.runs_prefetch:
                         mc_kernel.run_chunk(
                             cells[0], ri, sh.consts[0], sh.specs[0],
                             seed=seed, n_steps=n_steps,
                             rep_base=sh.reps.start)
                         continue
                     mine = props[:, sh.reps].to(sh.devices[0]).contiguous()
-                    if not self.uses_table:
+                    if not self.runs_prefetch:
                         mc_kernel.chunk_reference(
                             _one(cells), ri, _one(sh.consts),
                             _one(sh.specs), mine)

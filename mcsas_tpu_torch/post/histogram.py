@@ -254,10 +254,14 @@ def _post_pass_f64(bound: BoundModel, data: SASData, cfg: McSASConfig,
 
 
 def compute_fractions(contribs: np.ndarray, data: SASData,
-                      bound: BoundModel, cfg: McSASConfig, device="cpu"
+                      bound: BoundModel, cfg: McSASConfig, device="cuda"
                       ) -> FractionsResult:
     """Volume/number/intensity/surface fractions, totals, observability
-    limits and per-rep scaling — reference mcsas.py:549-609."""
+    limits and per-rep scaling — reference mcsas.py:549-609.  The float64
+    bank is evaluated on *device*: the card unless the caller asks for
+    the CPU ("cuda" raises without a card), as for :func:`histogram_all`.
+    """
+    device = resolve_device(device)
     n_reps, n, _ = contribs.shape
     frac = {w: np.zeros((n, n_reps)) for w in WEIGHTINGS}
     minr = {w: np.zeros((n, n_reps)) for w in WEIGHTINGS}

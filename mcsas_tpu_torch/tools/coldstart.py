@@ -121,7 +121,7 @@ def run_child(tier: str, prewarm: bool, import_s: float) -> dict:
     out["table"] = eng.uses_table
     out["table_cache_hit"] = (eng.uses_table and tables_before > 0
                               and _table_files() == tables_before)
-    lib = "mc_prefetch" if eng.uses_table else "mc_chunk"
+    lib = "mc_prefetch" if eng.runs_prefetch else "mc_chunk"
     if prewarm:
         def warm():
             timings = eng.prewarm()

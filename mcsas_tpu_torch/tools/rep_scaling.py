@@ -68,7 +68,7 @@ def measure(tier: str, n_reps: int, n_contribs: int, card: str) -> dict:
     from ..core.engine import McSASEngine
     data, bound, cfg = tier_workload(tier, n_reps, n_contribs)
     eng = McSASEngine(data, bound, cfg, device="cuda")
-    kernel = "mc_prefetch" if eng.uses_table else "mc_chunk"
+    kernel = "mc_prefetch" if eng.runs_prefetch else "mc_chunk"
     counters = _counters()
     eng.run()
     wall, best, launches = float("inf"), None, 0

@@ -236,7 +236,7 @@ def test_2d_post_pass_matches_jax(image):
     blocked = histogram._post_pass_f64(b, d, cfg, contribs, bank_block=7)
     for a, r in zip(blocked, ours):
         _close(a, r, rtol=1e-15)
-    fo = histogram.compute_fractions(contribs, d, b, cfg)
+    fo = histogram.compute_fractions(contribs, d, b, cfg, device="cpu")
     fr = jax_hist.compute_fractions(contribs, jd, jb, jcfg)
     for w in histogram.WEIGHTINGS:
         _close(fo.fraction[w], fr.fraction[w])

@@ -1182,9 +1182,11 @@ def _plugin(name="CardPlugin", factory=None):
 
 
 def test_plugin_model_needs_use_pallas_off(small_tables):
-    """A plugin has no device function: under 'auto' the card raises and
-    names it, even for a plugin registered under a built-in's name; under
-    'off' it fits through the plain chunk and launches no kernel."""
+    """An elementwise plugin has no device function of K1, even when
+    registered under a built-in's name: under 'auto' the card runs it
+    through K2's rows-in entry, its rows from the plugin's own ff, and
+    launches no K1; under 'off' it fits through the plain chunk and
+    launches no kernel."""
     from mcsas_tpu_torch import fit
     from mcsas_tpu_torch.models import REGISTRY, register_model
     plugin = _plugin("Sphere")
@@ -1194,8 +1196,16 @@ def test_plugin_model_needs_use_pallas_off(small_tables):
         cfg = McSASConfig(num_contribs=32, num_reps=2, chunk_steps=64,
                           candidates_per_step=8, seed=5, max_iterations=256,
                           max_retries=0, show_incomplete=True)
-        with pytest.raises(ValueError, match="no device function"):
-            fit(load(DATA), "Sphere", cfg, device="cuda")
+        before = (_counts(), dict(mc_kernel.run_chunk.model_launches))
+        res = fit(load(DATA), "Sphere", cfg, device="cuda")
+        after = _counts()
+        assert after[2] > before[0][2]
+        assert (after[0], after[1]) == before[0][:2]
+        assert mc_kernel.run_chunk.model_launches == before[1]
+        eng = res.engine
+        assert res.bound.model is plugin
+        assert eng.used_pallas and eng.used_prefetch and not eng.used_table
+        assert np.isfinite(eng.conval).all()
         before = (_counts(), dict(mc_kernel.run_chunk.model_launches))
         res = fit(load(DATA), "Sphere", cfg.replace(use_pallas="off"),
                   device="cuda")
@@ -1204,6 +1214,88 @@ def test_plugin_model_needs_use_pallas_off(small_tables):
         assert np.isfinite(res.engine.conval).all()
     finally:
         REGISTRY["Sphere"] = saved
+
+
+def _plugin_engine(**kw):
+    """A card engine of the Sphere's physics as a plugin (not the
+    registry's Sphere object, so K1 cannot take it): K2's rows entry."""
+    plugin = dataclasses.replace(get_model("Sphere"), name="SpherePlugin")
+    cfg = McSASConfig(**dict(dict(num_contribs=64, num_reps=3,
+                                  chunk_steps=128, candidates_per_step=48,
+                                  local_moves=0.5, seed=5,
+                                  max_iterations=1_000_000), **kw))
+    eng = McSASEngine(load(DATA), plugin.bind(), cfg, device="cuda")
+    assert eng.prefetch_entry == "rows" and eng.runs_prefetch
+    assert eng.runs_cuda_kernel and not eng.uses_table
+    return eng
+
+
+@pytest.mark.parametrize("local", (0.0, 0.5))
+def test_plugin_rows_entry_equals_plain_version(small_tables, local):
+    """K2's rows-in entry on the rows of an elementwise plugin's ff (one
+    engine segment) is bitwise equal to prefetch_reference on them."""
+    eng = _plugin_engine(local_moves=local)
+    eng.gen.manual_seed(3)
+    state0 = eng._init_batch()
+    cands = mc_kernel.segment_candidates(
+        state0, 0, eng.spec, eng._draw_chunk_proposals(eng.seg_steps))
+    rows = mc_kernel.segment_rows(eng.spec, cands)
+    torch.testing.assert_close(rows, eng.kern.row(cands), rtol=0, atol=0)
+    ks, kt, ts, tt = state0.clone(), {}, state0.clone(), {}
+    before = mc_kernel.run_prefetch_chunk.launches
+    mc_kernel.run_prefetch_chunk(ks, 0, eng.consts, eng.spec, rows, cands,
+                                 trace=kt)
+    mc_kernel.prefetch_reference(ts, 0, eng.consts, eng.spec, rows, cands,
+                                 trace=tt)
+    torch.cuda.synchronize()
+    assert mc_kernel.run_prefetch_chunk.launches == before + 1
+    assert torch.equal(kt["choice"], tt["choice"])
+    for f in ("rset", "ibank", "ft", "scale", "background", "conval",
+              "n_iter", "n_moves"):
+        assert torch.equal(getattr(ks, f), getattr(ts, f)), f
+    assert (ks.n_moves > 0).all()
+
+
+def test_plugin_rep_mesh_equals_unsharded(small_tables):
+    """A 2x1 repetition mesh of an elementwise plugin's fit launches K2's
+    rows entry once a segment per shard and is bitwise equal to the
+    unsharded fit."""
+    from mcsas_tpu_torch import fit
+    plugin = dataclasses.replace(get_model("Sphere"), name="SpherePlugin")
+    cfg = McSASConfig(num_contribs=64, num_reps=4, chunk_steps=128,
+                      candidates_per_step=32, local_moves=0.5, seed=9,
+                      max_iterations=4 * 64 * 32, max_retries=0,
+                      show_incomplete=True)
+    n0 = mc_kernel.run_prefetch_chunk.launches
+    base = fit(load(DATA), plugin, cfg, device="cuda")
+    n1 = mc_kernel.run_prefetch_chunk.launches
+    res = fit(load(DATA), plugin, cfg, mesh=_mesh((2, 1)))
+    n2 = mc_kernel.run_prefetch_chunk.launches
+    assert n1 > n0 and n2 - n1 == 2 * (n1 - n0)
+    assert res.engine.used_prefetch and not res.engine.used_table
+    for f in ("contribs", "conval", "n_iter", "n_moves", "scaling",
+              "background", "measval"):
+        np.testing.assert_array_equal(getattr(res.engine, f),
+                                      getattr(base.engine, f), err_msg=f)
+
+
+def test_compute_fractions_defaults_to_the_card(small_tables):
+    """compute_fractions without a device evaluates its float64 bank on
+    the card, as histogram_all does: the result of device='cuda'."""
+    from mcsas_tpu_torch.post.histogram import compute_fractions
+    d = load(DATA)
+    bound = get_model("Sphere").bind()
+    cfg = McSASConfig(num_contribs=300, num_reps=10)
+    contribs = np.random.default_rng(4).uniform(2e-9, 4e-8, (10, 300, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    frac = compute_fractions(contribs, d, bound, cfg)
+    torch.cuda.synchronize()
+    assert (torch.cuda.max_memory_allocated() - mem0
+            >= contribs.size * d.count * 8)
+    ref = compute_fractions(contribs, d, bound, cfg, device="cuda")
+    np.testing.assert_array_equal(frac.measval, ref.measval)
 
 
 def test_plugin_model_with_a_lookup_table_launches_k2(small_tables):

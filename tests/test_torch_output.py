@@ -549,19 +549,24 @@ def _plugin(tmp_path, name):
 
 
 def test_plugin_fits_the_plain_chunk(refdata, tmp_path, registry):
-    """A plugin in torch fits on the CPU; it has no device function of
-    K1 — not even one registered under a built-in's name — so the card
-    would need use_pallas='off' (the engine's error names the reason)."""
+    """An elementwise plugin in torch fits on the CPU through the plain
+    version of K2's rows-in entry, the route it takes on the card: it has
+    no device function of K1 — not even one registered under a
+    built-in's name — and passes the JAX package's K1 gate."""
     plugin = _plugin(tmp_path, "Sphere")          # overwrites the built-in
     assert registry["Sphere"] is plugin
     res = mt.fit(refdata / _SPHERE, "Sphere", McSASConfig(**_TINY),
                  device="cpu")
     assert res.bound.model is plugin and res.engine.n_iter[0] > 0
     assert np.isfinite(res.fit_measval_mean).all()
+    assert not (res.engine.used_pallas or res.engine.used_prefetch
+                or res.engine.used_table)
     eng = McSASEngine(res.data, res.bound, McSASConfig(**_TINY),
                       device="cpu")
     assert not mc_kernel.supports(eng) and not eng.uses_table
-    assert "no device function" in eng._no_kernel_reason()
+    assert eng.prefetch_entry == "rows" and eng.runs_prefetch
+    assert eng.seg_steps == _TINY["chunk_steps"]
+    assert eng._kernel_eligible()
     with pytest.raises(ValueError, match="no device function"):
         mc_kernel.model_id(plugin)
 

@@ -76,7 +76,7 @@ def _check_fractions(post_inputs):
     c = post_inputs["contribs"]
     b, d, cfg = post_inputs["ours"]
     jb, jd, jcfg = post_inputs["ref"]
-    ours = histogram.compute_fractions(c, d, b, cfg)
+    ours = histogram.compute_fractions(c, d, b, cfg, device="cpu")
     ref = jax_hist.compute_fractions(c, jd, jb, jcfg)
     for w in histogram.WEIGHTINGS:
         _close(ours.fraction[w], ref.fraction[w])

@@ -8,6 +8,8 @@ is rehearsed here with its mc_kernel calls replaced by recorders, on a
 CPU engine told that a kernel runs its chunks: what it calls, on which
 shards, and that it leaves the engine's generator alone; on the card
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 23 run it."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -206,17 +208,21 @@ def test_prewarm_builds_loads_and_queries_k1(refdata, recorded_kernel):
     np.testing.assert_array_equal(after.conval, fresh.conval)
 
 
-@pytest.mark.parametrize("entry", ["table", "rows"])
+@pytest.mark.parametrize("entry", ["table", "rows", "plugin"])
 def test_prewarm_queries_k2_with_a_segment(small_table, recorded_kernel,
                                            entry):
     """The table engine builds and loads mc_prefetch and queries K2's
     attributes on one segment's candidates (S, R, K, P) — with the
-    segment's rows (S, R, K, Nq) where it runs the rows-in entry."""
+    segment's rows (S, R, K, Nq) where it runs the rows-in entry, as an
+    elementwise plugin does (its rows from its own ff)."""
     d, b, cfg = _cylinder()
     if entry == "rows":
         b = suite.unblendable_cylinder("opaque-lookup")
+    if entry == "plugin":
+        b = dataclasses.replace(mt.get_model("Sphere"),
+                                name="SpherePlugin").bind()
     eng = _kernel_engine(McSASEngine(d, b, cfg, device="cpu"))
-    assert eng.prefetch_entry == entry
+    assert eng.prefetch_entry == ("rows" if entry == "plugin" else entry)
     out = eng.prewarm()
     assert list(out) == ["nvcc mc_prefetch", "load mc_prefetch", "init",
                          "attributes mc_prefetch"]
@@ -228,7 +234,7 @@ def test_prewarm_queries_k2_with_a_segment(small_table, recorded_kernel,
     lo, hi = b.ranges[0]
     assert float(cands.min()) >= np.float32(lo)
     assert float(cands.max()) <= np.float32(hi)
-    if entry == "rows":
+    if entry != "table":
         assert tuple(args[1].shape) == (eng.seg_steps, 2, 4, d.count)
     else:
         assert len(args) == 1
