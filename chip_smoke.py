@@ -205,7 +205,21 @@ Phases (any failure raises and the script exits nonzero):
      new engine (the prewarm's dict, the same launches, bitwise);
      ``python -m mcsas_tpu_torch --model-file <plugin.py> -m
      SpherePlugin`` exits 0, converged, and the plugin file reports at
-     exit that its process launched K2's rows entry and no K1.
+     exit that its process launched K2's rows entry and no K1;
+ 25. the measuring entry points, as subprocesses one after another
+     (mcsas_tpu_torch/tools): ``bench`` — the headline (``value``,
+     ``mc_s``, ``quickstart_s``) 10/10 with max χ² ≤ 1, its max χ²,
+     converged count, total_iters and K1 launches those of phase 5, K2
+     not launched, and every certify row (two runs of one seed; two
+     repetition shards on the card) equal with inflation 1.0, its kernel
+     run; ``bench
+     --suite`` — bench.py's nine rows in its order, each 10/10, max
+     χ² ≤ 1, a kernel launched, a table on exactly the five table rows,
+     total_iters equal to phases 7, 9, 11 and 15's for the same rows;
+     ``roofline`` — its fused and prefetch bounds those of the kernels
+     line, both K of the A/B; ``suite_stats --runs 2`` on the sphere and
+     cylinder rows — no spread of total_iters, the cylinder's phase 7's.
+     The phase's wall and the script's are printed.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -230,14 +244,6 @@ DATA = os.path.join(HERE, "testdata", "sasfit_sphere-10-1.dat")
 FIXTURE = os.path.join(HERE, "testdata", "reference_sphere10_fixture.json")
 NEAR_TIE = 1e-6
 GOLDEN_RADIUS = 10e-9     # the synthetic cylinder's radius (aspect 10)
-
-
-def headline_config(mcsas_config):
-    """bench.py's headline workload (the JAX package's main path)."""
-    return mcsas_config(num_contribs=300, num_reps=10,
-                        max_iterations=8_000_000, chunk_steps=2048,
-                        candidates_per_step=128, seed=2026, max_retries=1,
-                        local_moves=0.5)
 
 
 def cylinder_golden():
@@ -362,21 +368,6 @@ def check_philox_stream(name, eng, state0, host, ps, pt, need=True):
           f"draw distinct streams", flush=True)
 
 
-def time_chunk(torch, fn, reps):
-    """Mean milliseconds of fn() over *reps* runs, with CUDA events, after
-    one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def profile_fit(torch, run, card, label, kernel):
     """``--profile``: one more warm fit under torch.profiler, through
     ``mcsas_tpu_torch.utils.profiling`` (``trace``, ``annotate``).  Prints
@@ -451,21 +442,6 @@ def fit_phases(torch, engine_cls, histogram_all, data, bound, cfg, card,
               flush=True)
 
 
-# the work of a chunk kernel, for its bound (PERF.md §6): the
-# operations per candidate and q point -- the row of each model (every
-# +, -, *, /, sqrt, sin, cos, exp and pow counted as one, so a lower
-# bound) and the two passes of the solve (the float64 adds priced at the
-# float32 rate, which keeps the bound a lower one)
-ROW_OPS = {"Sphere": 12, "LMADenseSphere": 55, "GaussianChain": 14,
-           "SphericalCoreShell": 25}
-SOLVE_OPS = 14
-# the worm's cross-section 2 j1(q r)/(q r) per candidate and q point, on its
-# cheaper branch (|qr| <= 3: the product, two comparisons, the scaled
-# square, the 7-term Horner, the sign, the division, the doubling and the
-# multiply into the blend), so that the bound stays a lower one
-XS_OPS = 23
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
-F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, ditto
 # the second active set of each suite row: what the row fits, fixed
 SECOND_ACTIVE = {"gaussian-chain": ("bp",),
                  "core-shell-sphere": ("radius",),
@@ -474,8 +450,6 @@ SECOND_ACTIVE = {"gaussian-chain": ("bp",),
 JAX_TOTAL_ITERS = {"gaussian-chain": 1_619_200,
                    "core-shell-sphere": 17_836_544,
                    "lma-dense-sphere": 3_389_056}
-STATE_FIELDS = ("rset", "ibank", "ft", "scale", "background", "conval",
-                "n_iter", "n_moves")
 # K1's ragged shapes, (repetitions, K, fit-grid bins, contributions): K
 # below, at and above the 128 groups of 8 lanes a block holds, grids
 # smaller than a group and longer than the 104 points a group keeps in
@@ -546,58 +520,6 @@ def reset_counts(mc_kernel):
     mc_kernel.run_prefetch_chunk.launches = 0
     mc_kernel.run_prefetch_table_chunk.launches = 0
     mc_kernel.run_probe.launches = 0
-
-
-def bound_ms(n_bytes, n_ops):
-    """(ms, what bounds it): the least time the card could take to move
-    *n_bytes* and do *n_ops* float32 operations."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
-
-def _state_bytes(state):
-    return sum(getattr(state, f).numel() * getattr(state, f).element_size()
-               for f in STATE_FIELDS)
-
-
-def k1_bound(eng, state0, state1, injected=None):
-    """bound_ms of the K1 chunk that took *state0* to *state1*: the state
-    read and written once, q/y/u and any *injected* proposals read once;
-    the rows and solves of the steps each repetition ran (its n_iter
-    grows by K per step it ran)."""
-    k, nq = eng.spec.k_cand, eng.consts.n
-    steps = int((state1.n_iter - state0.n_iter).sum()) // k
-    n_bytes = 2 * _state_bytes(state0) + 3 * nq * 4
-    if injected is not None:
-        n_bytes += injected.numel() * 4
-    ops = steps * k * nq * (ROW_OPS[eng.bound.model.name] + SOLVE_OPS)
-    return bound_ms(n_bytes, ops)
-
-
-def k2_bound(eng, state0, state1, cands, rows=None, sw=None):
-    """bound_ms of the K2 segment that took *state0* to *state1*: the
-    candidates, y/u and the state read once, the state written once, and
-    rows in: the rows read once, the solves of the steps each repetition
-    ran; table in: the table and the factors *sw* read once, and per
-    candidate and q point the blend besides the solve (a multiply-add per
-    corner of the table's 2^A, the factor, the clamp and, for an
-    amplitude table, the square; the worm's cross-section XS_OPS and the
-    grid read once where the lookup has it) — the same work whatever
-    implements it."""
-    k, nq = eng.spec.k_cand, eng.consts.n
-    steps = int((state1.n_iter - state0.n_iter).sum()) // k
-    n_bytes = 2 * _state_bytes(state0) + 2 * nq * 4 + cands.numel() * 4
-    ops = SOLVE_OPS
-    if rows is not None:
-        n_bytes += rows.numel() * 4
-    else:
-        n_bytes += (eng.kern.table.values.numel() + sw.values.numel()) * 4
-        ops += (2 ** len(eng.spec.table_layout) + 2
-                + (not eng.kern.table_is_intensity))
-        if eng.spec.factor_layout[0]:
-            n_bytes += nq * 4
-            ops += XS_OPS
-    return bound_ms(n_bytes, steps * k * nq * ops)
 
 
 # K2's ragged shapes: K1's (K = 200 at 200 bins is also more than two
@@ -792,9 +714,9 @@ def check_k1_row(torch, mc_kernel, engine_cls, row, spills, card):
         mc_kernel.chunk_reference(work.copy_(state0), 0, eng.consts,
                                   eng.spec, props)
 
-    ms = time_chunk(torch, kernel, 5)
+    ms = cuda_ms(kernel, 5)
     b_ms, b_by = k1_bound(eng, state0, work)
-    plain_ms = time_chunk(torch, plain, 1)
+    plain_ms = cuda_ms(plain, 1)
     print(f"[time] {row.model}: {cfg.chunk_steps}-step chunk at R=10 "
           f"N=300 K={eng.spec.k_cand} Nq={eng.consts.n} (reset copy "
           f"included), {card}: kernel Philox {ms:.3f} ms "
@@ -804,8 +726,8 @@ def check_k1_row(torch, mc_kernel, engine_cls, row, spills, card):
                 bound_ms=b_ms, bound_by=b_by, compared=windows, shape=shape)
 
 
-def check_k1_ragged(torch, mc_kernel, engine_cls, load, mcsas_config,
-                    data_config, get_model, spills, card):
+def check_k1_ragged(torch, mc_kernel, engine_cls, load, data_config,
+                    get_model, spills, card):
     """K1 of every model against its plain version at the RAGGED shapes,
     64 steps each, on injected proposals and on the Philox stream (each
     model on its suite row's data and active set, Sphere on the headline
@@ -820,7 +742,7 @@ def check_k1_ragged(torch, mc_kernel, engine_cls, load, mcsas_config,
             if row is None:
                 data = load(DATA, config=data_config(n_bin=n_bin))
                 bound = get_model("Sphere").bind()
-                cfg = headline_config(mcsas_config)
+                cfg = headline_workload()[2]
             else:
                 data = row.load()
                 data = data.with_config(data.config.replace(n_bin=n_bin))
@@ -847,7 +769,8 @@ def fit_row(torch, mc_kernel, fit, row, card, profiling):
     them (with *profiling*, one more under torch.profiler).  Gates: 10/10
     converged, max chi2 <= 1, K1 launched for the row's model and nothing
     else, the cold and warm runs of one seed equal, finite values of the
-    expected shape.  Returns the model's K1 launches."""
+    expected shape.  Returns the model's K1 launches and the fit's
+    total_iters."""
     data = row.load()
     bound = row.bound(data)
     cfg = row.config()
@@ -907,7 +830,7 @@ def fit_row(torch, mc_kernel, fit, row, card, profiling):
     if profiling:
         profile_fit(torch, lambda: fit(data, bound, cfg, device="cuda"),
                     card, row.name, "mc_chunk")
-    return launches
+    return launches, e.total_iters
 
 
 def probe_phase(torch, mc_kernel, card):
@@ -1002,7 +925,7 @@ def probe_phase(torch, mc_kernel, card):
         mc_kernel.chunk_reference(work.copy_(state0), 0, eng.consts,
                                   eng.spec, props)
 
-    plain_ms = time_chunk(torch, plain, 1)
+    plain_ms = cuda_ms(plain, 1)
     # the work of one full-rung launch, from a run of K1 on that state
     mc_kernel.run_chunk(work.copy_(state0), 0, eng.consts, eng.spec,
                         seed=kern_probe.SEED, n_steps=kern_probe.CHUNK)
@@ -1023,7 +946,7 @@ def smeared_cylinder_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
                            suite, card, profiling):
     """Phase 11: the suite row 'cylinders-smeared' through the normal
     ``fit()`` on the card.  Returns (its K2 launches, the golden, binding
-    and config)."""
+    and config, the fit's total_iters)."""
     golden = suite.cylinder_smeared_golden()
     bound, cfg = suite.cylinder_bound(), suite.cylinder_config()
     if golden.locs.shape != (golden.count, 26) or golden.count != 100:
@@ -1112,7 +1035,7 @@ def smeared_cylinder_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
     if profiling:
         profile_fit(torch, lambda: fit(golden, bound, cfg, device="cuda"),
                     card, "cylinders-smeared", "mc_prefetch")
-    return table_in, golden, bound, cfg
+    return table_in, golden, bound, cfg, e.total_iters
 
 
 def intensity_kernel_phase(torch, mc_kernel, engine_cls, load, data_config,
@@ -1141,13 +1064,11 @@ def intensity_kernel_phase(torch, mc_kernel, engine_cls, load, data_config,
         errs += err
         work = state0.clone()
         kernel, plain = entries["table"]
-        ms = time_chunk(torch, lambda: kernel(work.copy_(state0), 0, 131),
-                        10)
+        ms = cuda_ms(lambda: kernel(work.copy_(state0), 0, 131), 10)
         b_ms, b_by = k2_bound(eng, state0, work, cands, None, sw)
-        plain_ms = time_chunk(torch, lambda: plain(work.copy_(state0), 0,
-                                                   131), 2)
-        f_ms = time_chunk(
-            torch, lambda: mc_kernel.table_factors(eng.spec, cands), 10)
+        plain_ms = cuda_ms(lambda: plain(work.copy_(state0), 0, 131), 2)
+        f_ms = cuda_ms(
+            lambda: mc_kernel.table_factors(eng.spec, cands), 10)
         shape = mc_kernel.prefetch_launch_shape(state0, eng.consts,
                                                 eng.spec, cands)
         print(f"[time] {name} table in: 131-step segment at R=10 N=300 "
@@ -1262,7 +1183,7 @@ def smeared_sphere_phase(torch, mc_kernel, fit, engine_cls, load,
     steps = 200
     props = eng._draw_chunk_proposals(n_steps=steps)
     reset_counts(mc_kernel)
-    ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+    ms = cuda_ms(lambda: mc_kernel.chunk_reference(
         work.copy_(state0), 0, eng.consts, eng.spec, props), 2)
     print(f"[smeared sphere] plain chunk, {steps} steps at R=10 N=300 K=128 "
           f"Nq={data.count} with 26 smearing offsets (local moves 0.5), "
@@ -1330,13 +1251,12 @@ def k2_segment(torch, mc_kernel, name, eng, card, seed=1, timed=True,
     if timed:
         work = state0.clone()
         kernel, plain = entries["table"]
-        ms = time_chunk(torch, lambda: kernel(work.copy_(state0), 0, steps),
-                        10)
+        ms = cuda_ms(lambda: kernel(work.copy_(state0), 0, steps), 10)
         b_ms, b_by = k2_bound(eng, state0, work, cands, None, sw)
-        plain_ms = time_chunk(torch, lambda: plain(work.copy_(state0), 0,
-                                                   steps), 2)
-        f_ms = time_chunk(
-            torch, lambda: mc_kernel.table_factors(eng.spec, cands), 10)
+        plain_ms = cuda_ms(lambda: plain(work.copy_(state0), 0, steps),
+                           2)
+        f_ms = cuda_ms(
+            lambda: mc_kernel.table_factors(eng.spec, cands), 10)
         shape = mc_kernel.prefetch_launch_shape(state0, eng.consts,
                                                 eng.spec, cands)
         print(f"[time] {name} table in: {steps}-step segment at R="
@@ -1466,7 +1386,8 @@ def table_rows_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
             fit_phases(torch, engine_cls, histogram_all, data, bound, cfg,
                        card, name)
         out[name] = dict(seg, launches=table_in, max_abs_err=err,
-                         compared=win, median=median)
+                         compared=win, median=median,
+                         total_iters=e.total_iters)
     return out
 
 
@@ -1982,7 +1903,7 @@ def declined_route_phase(torch, mc_kernel, engine_cls, get_model, suite,
         props = eng._draw_chunk_proposals(n_steps=steps)
         work = state0.clone()
         reset_counts(mc_kernel)
-        ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+        ms = cuda_ms(lambda: mc_kernel.chunk_reference(
             work.copy_(state0), 0, eng.consts, eng.spec, props), 2)
         if (mc_kernel.run_chunk.launches
                 or mc_kernel.run_prefetch_chunk.launches
@@ -2179,7 +2100,6 @@ def files_phase(torch, mc_kernel, card):
     import shutil
     import tempfile
     from mcsas_tpu_torch import api, cli
-    from mcsas_tpu_torch.config import McSASConfig
     from mcsas_tpu_torch.core.engine import McSASEngine
     from mcsas_tpu_torch.data import DataConfig
     from mcsas_tpu_torch.io import load_raw, write_ascii
@@ -2199,7 +2119,7 @@ def files_phase(torch, mc_kernel, card):
                 scaled[:, 1:3] *= factor
                 write_ascii(fn, scaled)
             files.append(fn)
-        cfg = headline_config(McSASConfig).replace(series_stats=True)
+        cfg = headline_workload()[2].replace(series_stats=True)
         out_dir = os.path.join(tmp, "series")
         os.makedirs(out_dir)
         api._ENGINE_CACHE.clear()
@@ -2500,9 +2420,9 @@ def mesh_phase(torch, mc_kernel, fit, load, cfg, sphere_contribs,
     sh = qeng.shards[0]
     cells0 = qeng.shard_state(s0)[0]
     cells = [c.clone() for c in cells0]
-    un_ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+    un_ms = cuda_ms(lambda: mc_kernel.chunk_reference(
         work.copy_(s0), 0, plain.consts, plain.spec, props), 2) / 64
-    q_ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+    q_ms = cuda_ms(lambda: mc_kernel.chunk_reference(
         [w.copy_(c) for w, c in zip(cells, cells0)], 0, list(sh.consts),
         list(sh.specs), props), 2) / 64
     print(f"[time] plain chunk alone, 64 steps at the headline shape "
@@ -2861,15 +2781,14 @@ def plugin_phase(torch, mc_kernel, fit, engine_cls, load, cfg,
     del eng0
     steps = eng.seg_steps
     work = state0.clone()
-    rows_ms = time_chunk(torch, lambda: mc_kernel.segment_rows(eng.spec,
-                                                              cands), 10)
-    ms = time_chunk(torch, lambda: mc_kernel.run_prefetch_chunk(
+    rows_ms = cuda_ms(lambda: mc_kernel.segment_rows(eng.spec, cands), 10)
+    ms = cuda_ms(lambda: mc_kernel.run_prefetch_chunk(
         work.copy_(state0), 0, eng.consts, eng.spec, rows, cands), 10)
     b_ms, b_by = k2_bound(eng, state0, work, cands, rows)
-    plain_ms = time_chunk(torch, lambda: mc_kernel.prefetch_reference(
+    plain_ms = cuda_ms(lambda: mc_kernel.prefetch_reference(
         work.copy_(state0), 0, eng.consts, eng.spec, rows, cands), 2)
     props64 = eng._draw_chunk_proposals(n_steps=64)
-    chunk64_ms = time_chunk(torch, lambda: mc_kernel.chunk_reference(
+    chunk64_ms = cuda_ms(lambda: mc_kernel.chunk_reference(
         work.copy_(state0), 0, eng.consts, eng.spec, props64), 2)
     shape = mc_kernel.prefetch_launch_shape(state0, eng.consts, eng.spec,
                                             cands, rows)
@@ -3025,6 +2944,118 @@ def plugin_phase(torch, mc_kernel, fit, engine_cls, load, cfg,
                 max_abs_err=max_err, compared=windows)
 
 
+# ------------------------------- phase 25: the measuring entry points
+
+# bench.py's suite rows whose rows come from a table (K2's table entry);
+# the other four run K1
+SUITE_TABLE_ROWS = ("kholodenko-worm", "cylinders-isotropic",
+                    "cylinders-smeared", "ellipsoids-isotropic",
+                    "core-shell-ellipsoid")
+
+
+def _measured(args, card, timeout):
+    """Runs ``python -m <args>`` (_tool) and prints its wall beside the
+    card; returns its JSON lines."""
+    t0 = time.perf_counter()
+    lines = _tool(args, timeout)
+    print(f"[measure] python -m {' '.join(args)}: rc 0 in "
+          f"{time.perf_counter() - t0:.2f} s; on {card}", flush=True)
+    return lines
+
+
+def measuring_phase(suite, sphere, suite_iters, bounds, card):
+    """Phase 25: the port's measuring entry points as subprocesses, one
+    after another — ``tools.bench`` (the headline with certify), ``bench
+    --suite``, ``tools.roofline`` and ``tools.suite_stats --runs 2``.
+    Every line is parsed and held: exit 0; the headline 10/10 with max
+    chi2 <= 1, K1 launched and K2 not, its max chi2, converged count,
+    total_iters and K1 launches those of phase 5 (*sphere*: (engine
+    result, launches)); every certify row equal with inflation 1.0; the
+    suite's nine rows in bench.py's order, 10/10, max chi2 <= 1, a kernel
+    run, a table exactly on SUITE_TABLE_ROWS, and total_iters equal to
+    the phases' (*suite_iters*); roofline's three sections, its bounds
+    those of the kernels line (*bounds*), both K in the A/B; suite_stats'
+    two runs without a spread of total_iters.  Returns the launches the
+    tools reported."""
+    t_phase = time.perf_counter()
+    e, sphere_launches = sphere
+    (head,) = _measured(["mcsas_tpu_torch.tools.bench"], card, 600)
+    print(f"[bench] {json.dumps(head)}", flush=True)
+    got = head["launches"]
+    want = {"converged_reps": int(e.converged.sum()),
+            "max_chi2": float(e.conval.max()),
+            "total_iters": int(e.total_iters)}
+    if not (head["converged_reps"] == 10 and head["max_chi2"] <= 1.0
+            and min(head["value"], head["mc_s"],
+                    head.get("quickstart_s", -1.0)) > 0
+            and got["K1"] == sphere_launches
+            and got["K2_table"] == got["K2_rows"] == 0
+            and {k: head[k] for k in want} == want):
+        raise AssertionError(f"[bench] the headline against phase 5's "
+                             f"{want} and {sphere_launches} K1 launches")
+    cert = head["certify"]
+    if len(cert) != 5 or any(
+            "error" in row or not row["n_iter_equal"]
+            or row["inflation"] != 1.0 or not row.get("contribs_equal", True)
+            or not (row.get("pallas") or row.get("pallas_shard")
+                    or row.get("prefetch_shard"))
+            for row in cert.values()):
+        raise AssertionError(f"[bench] certify {cert}")
+    lines = _measured(["mcsas_tpu_torch.tools.bench", "--suite"], card,
+                      900)
+    if [ln["config"] for ln in lines] != list(suite.BENCH_ROWS):
+        raise AssertionError(f"[suite] rows {[ln['config'] for ln in lines]}")
+    for ln in lines:
+        name, k = ln["config"], ln["launches"]
+        table = name in SUITE_TABLE_ROWS
+        kernel_ok = (k["K2_table"] > 0 and not k["K1"] if table
+                     else k["K1"] > 0 and not k["K2_table"])
+        if not (ln["converged_reps"] == 10 and ln["max_chi2"] <= 1.0
+                and ln["pallas"] and ln["table"] == table and kernel_ok
+                and not k["K2_rows"]
+                and ln["total_iters"] == suite_iters.get(
+                    name, ln["total_iters"])):
+            raise AssertionError(f"[suite] {ln} (the phases' total_iters "
+                                 f"{suite_iters.get(name)})")
+        print(f"[suite] {json.dumps(ln)}", flush=True)
+    roof = {ln["section"]: ln for ln in _measured(
+        ["mcsas_tpu_torch.tools.roofline"], card, 600)}
+    fused = roof["fused-k1-sphere"]
+    pre = roof["prefetch-k2-cylinder-table"]["table_in"]
+    for label, line, (b_ms, b_by) in (("fused", fused, bounds["K1"]),
+                                      ("prefetch", pre, bounds["K2"])):
+        if not (line["bound_by"] == b_by
+                and abs(line["bound_ms"] - b_ms) <= 1e-9 * b_ms):
+            raise AssertionError(f"[roofline] {label} bound "
+                                 f"{line['bound_ms']} {line['bound_by']}, "
+                                 f"the kernels line's {b_ms} {b_by}")
+    if sorted(r["K"] for r in roof["k-ab"]["rows"]) != [128, 256]:
+        raise AssertionError(f"[roofline] k-ab {roof['k-ab']}")
+    for line in roof.values():
+        print(f"[roofline] {json.dumps(line)}", flush=True)
+    stats = {ln["config"]: ln for ln in _measured(
+        ["mcsas_tpu_torch.tools.suite_stats", "--runs", "2",
+         "--only=sphere,cylinders-isotropic"], card, 900)}
+    cyl = suite_iters["cylinders-isotropic"]
+    if not (set(stats) == {"sphere", "cylinders-isotropic"}
+            and all(st["n"] == 2 and st["total_iters"]["spread"] == 0
+                    and st["converged_reps"] == [10, 10]
+                    for st in stats.values())
+            and stats["cylinders-isotropic"]["total_iters"]["median"]
+            == cyl):
+        raise AssertionError(f"[suite_stats] {stats} (phase 7's "
+                             f"total_iters {cyl})")
+    for line in stats.values():
+        print(f"[suite_stats] {json.dumps(line)}", flush=True)
+    print(f"[measure] phase 25 {time.perf_counter() - t_phase:.2f} s; on "
+          f"{card}", flush=True)
+    return {"headline": got["K1"],
+            "suite": {ln["config"]: ln["launches"] for ln in lines},
+            "fused_chunks": fused["chunks"],
+            "prefetch_segments": roof["prefetch-k2-cylinder-table"][
+                "engine_loop"]["segments"]}
+
+
 def kern_probe_entries():
     """The K2 entries of the probe's runner (tools/kern_probe.py)."""
     from mcsas_tpu_torch.tools import kern_probe
@@ -3032,6 +3063,7 @@ def kern_probe_entries():
 
 
 def main():
+    t_script = time.perf_counter()
     import torch
     profiling = "--profile" in sys.argv[1:]
     # ---- phase 1: device
@@ -3044,8 +3076,13 @@ def main():
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     sys.path.insert(0, HERE)
+    # the op model of every kernel's bound, the CUDA-event timer and
+    # bench.py's headline workload, for the functions above
+    global STATE_FIELDS, cuda_ms, headline_workload, k1_bound, k2_bound
+    from mcsas_tpu_torch.tools.roofline import (STATE_FIELDS, cuda_ms,
+                                                headline_workload, k1_bound,
+                                                k2_bound)
     from mcsas_tpu_torch import fit, load
-    from mcsas_tpu_torch.config import McSASConfig
     from mcsas_tpu_torch.core.engine import McSASEngine
     from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing
     from mcsas_tpu_torch.models import get_model
@@ -3076,7 +3113,7 @@ def main():
     spills = ptxas_spills(builds["mc_chunk"].log)
 
     # ---- phase 3: kernel against the plain version, injected proposals
-    cfg = headline_config(McSASConfig)
+    cfg = headline_workload()[2]
     data = load(DATA)
     eng = McSASEngine(data, get_model("Sphere").bind(), cfg, device="cuda")
     if not eng.runs_cuda_kernel:
@@ -3142,10 +3179,10 @@ def main():
         mc_kernel.chunk_reference(work.copy_(state0), 0, eng.consts,
                                   eng.spec, props_full)
 
-    ms_philox = time_chunk(torch, kernel_philox, 5)
+    ms_philox = cuda_ms(kernel_philox, 5)
     k1_bound_ms, k1_bound_by = k1_bound(eng, state0, work)
-    ms_injected = time_chunk(torch, kernel_injected, 5)
-    ms_plain = time_chunk(torch, plain, 2)
+    ms_injected = cuda_ms(kernel_injected, 5)
+    ms_plain = cuda_ms(plain, 2)
     print(f"[time] {steps}-step chunk at R=10 N=300 K=128 Nq={data.count} "
           f"(reset copy included), {card}: kernel Philox {ms_philox:.3f} "
           f"ms, kernel injected {ms_injected:.3f} ms, plain PyTorch "
@@ -3240,11 +3277,11 @@ def main():
         k2_errs += errs
         cwork = cstate0.clone()
         for entry, (kernel, plain) in entries.items():
-            ms = time_chunk(torch, lambda: kernel(cwork.copy_(cstate0), 0,
-                                                  131), 10)
+            ms = cuda_ms(lambda: kernel(cwork.copy_(cstate0), 0, 131),
+                         10)
             b_ms, b_by = k2_bound(ceng, cstate0, cwork, cands,
                                   rows if entry == "rows" else None, sw)
-            plain_ms = time_chunk(torch, lambda: plain(
+            plain_ms = cuda_ms(lambda: plain(
                 cwork.copy_(cstate0), 0, 131), 2)
             shape = mc_kernel.prefetch_launch_shape(
                 cstate0, ceng.consts, ceng.spec, cands,
@@ -3262,18 +3299,18 @@ def main():
             # (launch, ft rebuild, reset copy) and a per-step part
             for entry, (kernel, _) in entries.items():
                 for n in (8, 32):
-                    ms = time_chunk(torch, lambda: kernel(
+                    ms = cuda_ms(lambda: kernel(
                         cwork.copy_(cstate0), 0, n), 10)
                     print(f"[profile] {name} {entry} in: {n}-step segment "
                           f"{ms:.4f} ms", flush=True)
             # a segment as the fit runs it, outside the draws: sqrt(w) and
             # the table entry, against the row lookup and the rows entry
             # (the pair it replaced)
-            draw_ms = time_chunk(
-                torch, lambda: ceng._draw_chunk_proposals(131), 10)
-            sw_ms = time_chunk(
-                torch, lambda: mc_kernel.sqrt_weights(ceng.spec, cands), 10)
-            row_ms = time_chunk(torch, lambda: ceng.kern.row(cands), 10)
+            draw_ms = cuda_ms(
+                lambda: ceng._draw_chunk_proposals(131), 10)
+            sw_ms = cuda_ms(
+                lambda: mc_kernel.sqrt_weights(ceng.spec, cands), 10)
+            row_ms = cuda_ms(lambda: ceng.kern.row(cands), 10)
             print(f"[profile] per 131-step segment, outside K2: draw "
                   f"{draw_ms:.4f} ms, sqrt(w) {sw_ms:.4f} ms (table in), "
                   f"table row lookup {row_ms:.4f} ms (rows in); table in "
@@ -3369,16 +3406,16 @@ def main():
                                   spills, card)
                for name, row in ROWS.items()}
     ragged_windows, ragged_errs = check_k1_ragged(
-        torch, mc_kernel, McSASEngine, load, McSASConfig, DataConfig,
-        get_model, spills, card)
+        torch, mc_kernel, McSASEngine, load, DataConfig, get_model, spills,
+        card)
     print(f"[ragged] K1 against its plain version at {len(RAGGED)} ragged "
           f"shapes x {len(mc_kernel.K1_MODELS)} models x 2 proposal modes:"
           f" max |chi2 kernel - plain| by model {ragged_errs}", flush=True)
 
     # ---- phase 9: the suite rows' main paths
     for name, row in ROWS.items():
-        rows_k1[name]["launches"] = fit_row(torch, mc_kernel, fit, row, card,
-                                            profiling)
+        rows_k1[name]["launches"], rows_k1[name]["total_iters"] = fit_row(
+            torch, mc_kernel, fit, row, card, profiling)
 
     # ---- phase 10: K3, the latency probe
     probe = probe_phase(torch, mc_kernel, card)
@@ -3404,9 +3441,9 @@ def main():
               + f"; {card}", flush=True)
 
     # ---- phase 11: the smeared cylinder main path
-    smeared_launches, sgolden, sbound, scfg = smeared_cylinder_phase(
-        torch, mc_kernel, fit, McSASEngine, histogram_all, suite, card,
-        profiling)
+    smeared_launches, sgolden, sbound, scfg, smeared_iters = \
+        smeared_cylinder_phase(torch, mc_kernel, fit, McSASEngine,
+                               histogram_all, suite, card, profiling)
 
     # ---- phase 12: K2's table entry with the intensity row
     k2_int = intensity_kernel_phase(
@@ -3465,6 +3502,20 @@ def main():
     # ---- phase 24: plugin models through K2's rows entry
     plug = plugin_phase(torch, mc_kernel, fit, McSASEngine, load, cfg,
                         float(np.median(walls)), card, profiling)
+    phases_s = time.perf_counter() - t_script
+
+    # ---- phase 25: the measuring entry points (bench, roofline, stats)
+    suite_iters = {name: rows_k1[name]["total_iters"] for name in ROWS}
+    suite_iters.update({name: row["total_iters"]
+                        for name, row in table_rows.items()})
+    suite_iters.update({"cylinders-isotropic": ce.total_iters,
+                        "cylinders-smeared": smeared_iters})
+    measured = measuring_phase(
+        suite, (e, launches), suite_iters,
+        {"K1": (k1_bound_ms, k1_bound_by),
+         "K2": (k2["table"]["bound_ms"], k2["table"]["bound_by"])}, card)
+    print(f"[time] phases 1-24 {phases_s:.2f} s, all 25 "
+          f"{time.perf_counter() - t_script:.2f} s; on {card}", flush=True)
 
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
     # windows each covers (printed in "compared"); library_ms: no single
@@ -3489,6 +3540,10 @@ def main():
         "coldstart_launches": {k: v for k, v in pre["coldstart"].items()
                                if k.startswith("sphere")},
         "rep_scaling_launches": pre["rep_scaling_k1"],
+        "bench_launches": {
+            "headline": measured["headline"],
+            "suite sphere": measured["suite"]["sphere"]["K1"],
+            "roofline fused": measured["fused_chunks"]},
         "compared": [win_inj, win_phx] + ragged["Sphere"]}]
     for name, row in ROWS.items():
         k = rows_k1[name]
@@ -3501,6 +3556,7 @@ def main():
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "shape": k["shape"],
+            "bench_launches": {"suite": measured["suite"][name]["K1"]},
             "compared": k["compared"] + ragged[row.model]})
     kernels.append({
         "name": "mc_prefetch", "route": "cuda",
@@ -3517,6 +3573,10 @@ def main():
         "coldstart_launches": {k: v for k, v in pre["coldstart"].items()
                                if k.startswith("cylinders")},
         "rep_scaling_launches": pre["rep_scaling_k2"],
+        "bench_launches": {
+            "suite cylinders-isotropic":
+                measured["suite"]["cylinders-isotropic"]["K2_table"],
+            "roofline prefetch": measured["prefetch_segments"]},
         "rows_in": k2["rows"], "compared": k2_windows})
     kernels.append({
         "name": "mc_prefetch[intensity]", "route": "cuda",
@@ -3527,6 +3587,8 @@ def main():
         "bound_ms": k2_int["bound_ms"], "bound_by": k2_int["bound_by"],
         "library_ms": None, "shape": k2_int["shape"],
         "entry": "table in, intensity rows (the smeared fit path)",
+        "bench_launches": {"suite": measured["suite"][
+            "cylinders-smeared"]["K2_table"]},
         "compared": k2_int["compared"]})
     worm = table_rows["kholodenko-worm"]
     kernels.append({
@@ -3540,6 +3602,8 @@ def main():
         "library_ms": None, "shape": worm["shape"],
         "entry": "table in, the worm's cross-section of each point (the "
                  "kholodenko-worm fit path)",
+        "bench_launches": {"suite": measured["suite"][
+            "kholodenko-worm"]["K2_table"]},
         "table_source": {k: xs_raw[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "shape")},
         "compared": worm["compared"] + xs_windows})
@@ -3555,6 +3619,8 @@ def main():
         "entry": "table in, two table axes (the core-shell-ellipsoid fit "
                  "path; the joint cylinder crossval: "
                  f"{crossval_launches} launches)",
+        "bench_launches": {"suite": measured["suite"][
+            "core-shell-ellipsoid"]["K2_table"]},
         "compared": ecs["compared"]})
     ell = table_rows["ellipsoids-isotropic"]
     kernels.append({
@@ -3567,6 +3633,8 @@ def main():
         "library_ms": None, "shape": ell["shape"],
         "entry": "table in, one table axis (the ellipsoids-isotropic fit "
                  "path)",
+        "bench_launches": {"suite": measured["suite"][
+            "ellipsoids-isotropic"]["K2_table"]},
         "compared": ell["compared"]})
     for name, model in (("cylinders-aspect", "CylindersIsotropicAspect"),
                         ("cylinders-radial", "CylindersRadiallyIsotropic")):

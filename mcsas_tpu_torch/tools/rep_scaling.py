@@ -23,30 +23,21 @@ from __future__ import annotations
 
 import argparse
 import json
-import pathlib
 import sys
 import time
 
 REPS = "1,2,5,10,20,40,80,132"
 TIERS = ("sphere", "cylinders-table")
-_TESTDATA = pathlib.Path(__file__).resolve().parents[2] / "testdata"
 
 
 def tier_workload(tier: str, n_reps: int, n_contribs: int):
     """(data, bound, cfg) of *tier* at *n_reps* x *n_contribs*: the
     Sphere headline (bench.py's, the JAX tool's config) or the cylinder
     row of tools/suite.py."""
-    from ..config import McSASConfig
-    from ..data import load
-    from ..models import get_model
-    from . import suite
+    from . import roofline, suite
     if tier == "sphere":
-        return (load(_TESTDATA / "sasfit_sphere-10-1.dat"),
-                get_model("Sphere").bind(),
-                McSASConfig(num_contribs=n_contribs, num_reps=n_reps,
-                            max_iterations=8_000_000, chunk_steps=2048,
-                            candidates_per_step=128, seed=2026,
-                            max_retries=1, local_moves=0.5))
+        return roofline.headline_workload(num_contribs=n_contribs,
+                                          num_reps=n_reps)
     if tier == "cylinders-table":
         return (suite.cylinder_golden(), suite.cylinder_bound(),
                 suite.cylinder_config(num_reps=n_reps,

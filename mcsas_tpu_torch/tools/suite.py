@@ -21,7 +21,11 @@ made here: 'cylinders-aspect' and 'cylinders-radial' on the ranges where
 the interpolation probe engages their tables (K2's table entry at two
 axes), and 'cylinders-2d', an anisotropic (q, ψ) image, which has no
 table and no kernel: the plain chunk under ``use_pallas='off'``, for a
-bounded budget of steps.
+bounded budget of steps.  :data:`BENCH_ROWS` holds bench.py's nine suite
+rows in its order (bench.py:155-199), the row 'sphere' (:data:`SPHERE`)
+and the two cylinder rows (:data:`CYLINDER_ROWS`) among them:
+``tools/bench.py --suite`` fits them and ``chip_smoke.py`` checks its
+lines.
 """
 from __future__ import annotations
 
@@ -52,6 +56,14 @@ from ..utils.units import ANGSTROM_SLD
 _TESTDATA = pathlib.Path(__file__).resolve().parents[2] / "testdata"
 
 
+def load_data(path: str) -> SASData:
+    """A file under testdata/, or 'synth:<kind>', a synthetic golden made
+    here."""
+    if path.startswith("synth:"):
+        return _GOLDENS[path[len("synth:"):]]()
+    return load(_TESTDATA / path)
+
+
 @dataclass(frozen=True)
 class SuiteRow:
     name: str
@@ -71,11 +83,8 @@ class SuiteRow:
     use_pallas: str = "auto"
 
     def load(self) -> SASData:
-        """The row's data: a file under testdata/, or 'synth:<kind>', a
-        synthetic golden made here."""
-        if self.data.startswith("synth:"):
-            return _GOLDENS[self.data[len("synth:"):]]()
-        return load(_TESTDATA / self.data)
+        """The row's data (:func:`load_data`)."""
+        return load_data(self.data)
 
     def bound(self, data: SASData, active=None) -> BoundModel:
         """The row's binding, or the model's with *active* instead (the
@@ -271,7 +280,9 @@ def orientation_error(contribs: np.ndarray, psi0: float = PSI0) -> float:
                - math.pi / 2)
 
 
-_GOLDENS = {"ellipsoid": ellipsoid_golden,
+_GOLDENS = {"cylinder": cylinder_golden,
+            "cylinder-smeared": cylinder_smeared_golden,
+            "ellipsoid": ellipsoid_golden,
             "ellcoreshell": core_shell_ellipsoid_golden,
             "cylinder-aspect": cylinder_aspect_golden,
             "cylinder-radial": cylinder_radial_golden,
@@ -360,12 +371,31 @@ def cylinder_config(**kw) -> McSASConfig:
     """bench.py's suite rows 'cylinders-isotropic' and 'cylinders-smeared'
     (bench.py:162-171, 213-222); table_ff 'auto' resolves to on at this
     budget."""
-    base = dict(num_contribs=300, num_reps=10, max_iterations=8_000_000,
-                chunk_steps=1024, candidates_per_step=128, seed=2026,
-                max_retries=1, convergence_criterion=1.0, local_moves=0.0,
-                show_incomplete=True)
-    base.update(kw)
-    return McSASConfig(**base)
+    return CYLINDER_ROWS["cylinders-isotropic"].config(**kw)
+
+
+# bench.py's 'sphere' suite row (bench.py:155-156): not the headline, which
+# runs chunks of 2048 and local moves 0.5
+SPHERE = SuiteRow("sphere", "sasfit_sphere-10-1.dat", "Sphere", None, None,
+                  128, 8_000_000, 0.0, {"radius": 10e-9})
+# the cylinder rows on cylinder_bound()'s range: its 300e-9 is one ulp
+# below bench.py's 300 * nm, and every cylinder phase of chip_smoke.py
+# fits this one
+CYLINDER_ROWS = {row.name: row for row in (
+    SuiteRow("cylinders-isotropic", "synth:cylinder", "CylindersIsotropic",
+             ("radius",), {"radius": (0.5e-9, 300e-9)}, 128, 8_000_000, 0.0,
+             {"radius": GOLDEN_RADIUS}),
+    SuiteRow("cylinders-smeared", "synth:cylinder-smeared",
+             "CylindersIsotropic", ("radius",),
+             {"radius": (0.5e-9, 300e-9)}, 128, 8_000_000, 0.0,
+             {"radius": GOLDEN_RADIUS}),
+)}
+# bench.py's suite, in its order (bench.py:155-199)
+BENCH_ROWS = {name: {**ROWS, **TABLE_ROWS, **CYLINDER_ROWS,
+                     SPHERE.name: SPHERE}[name] for name in (
+    "sphere", "gaussian-chain", "kholodenko-worm", "cylinders-isotropic",
+    "cylinders-smeared", "ellipsoids-isotropic", "core-shell-sphere",
+    "core-shell-ellipsoid", "lma-dense-sphere")}
 
 
 # ------------------------------ the reference's slit-smeared MC workload

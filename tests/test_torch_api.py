@@ -106,6 +106,10 @@ def test_port_never_imports_jax(tmp_path, refdata):
         "import mcsas_tpu_torch.io.native\n"
         "import mcsas_tpu_torch.tools.coldstart\n"
         "import mcsas_tpu_torch.tools.rep_scaling\n"
+        "import mcsas_tpu_torch.tools.k1_sweep\n"
+        "import mcsas_tpu_torch.tools.bench\n"
+        "import mcsas_tpu_torch.tools.roofline\n"
+        "import mcsas_tpu_torch.tools.suite_stats\n"
         "cfg = mt.McSASConfig(num_contribs=20, num_reps=1, chunk_steps=20,"
         " max_iterations=400, max_retries=0, candidates_per_step=4)\n"
         f"r = mt.fit({str(refdata / 'sasfit_sphere-10-1.dat')!r}, "
