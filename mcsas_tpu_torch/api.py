@@ -36,6 +36,7 @@ from .ops import mc_kernel
 from .parallel import ShardedEnsemble
 from .post.histogram import (FractionsResult, HistogramSpec, Moments,
                              histogram_all)
+from .utils import profiling
 from .utils.log import RunLogFile, timestamp_formatted
 
 log = logging.getLogger(__name__)
@@ -206,35 +207,39 @@ def _cached_engine(engine_cls, data: SASData, bound: BoundModel,
     """The engine of (data content, model, config, device, mesh) from the
     cache, built on a miss: a :class:`ShardedEnsemble` over *mesh* where
     one is given, else an *engine_cls* on *device*."""
-    device = _fit_device(device, mesh)
+    with profiling.span("api.engine"):
+        device = _fit_device(device, mesh)
 
-    def build():
-        if mesh is not None:
-            return ShardedEnsemble(data, bound, cfg, mesh=mesh)
-        return engine_cls(data, bound, cfg, device=device)
-    try:
-        # construction-environment inputs that shape the engine (a table
-        # baked under MCSAS_TPU_TABLE_RES_CAP, or with the interpolation
-        # probe switched by MCSAS_TPU_TABLE_PROBE) must not be silently
-        # reused after the environment changes
-        env = tuple(os.environ.get(k, "") for k in
-                    ("MCSAS_TPU_TABLE_RES_CAP", "MCSAS_TPU_TABLE_PROBE"))
-        # equal models take different kernels where one is a built-in
-        # K1 has a device function for and the other a copy (a plugin
-        # registered under the built-in's name): keep them apart
-        key = (engine_cls, data.content_key(), bound,
-               mc_kernel.has_device_function(bound.model), cfg, device,
-               mesh, env)
-        hash(key)    # a custom model piece may not be hashable
-    except TypeError:
-        return build()
-    eng = _ENGINE_CACHE.get(key)
-    if eng is None:
-        eng = build()
-        if len(_ENGINE_CACHE) >= _ENGINE_CACHE_CAP:
-            _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
-        _ENGINE_CACHE[key] = eng
-    return eng
+        def build():
+            if mesh is not None:
+                return ShardedEnsemble(data, bound, cfg, mesh=mesh)
+            return engine_cls(data, bound, cfg, device=device)
+        try:
+            # construction-environment inputs that shape the engine (a table
+            # baked under MCSAS_TPU_TABLE_RES_CAP, or with the interpolation
+            # probe switched by MCSAS_TPU_TABLE_PROBE) must not be silently
+            # reused after the environment changes
+            env = tuple(os.environ.get(k, "") for k in
+                        ("MCSAS_TPU_TABLE_RES_CAP", "MCSAS_TPU_TABLE_PROBE"))
+            # equal models take different kernels where one is a built-in
+            # K1 has a device function for and the other a copy (a plugin
+            # registered under the built-in's name): keep them apart
+            key = (engine_cls, data.content_key(), bound,
+                   mc_kernel.has_device_function(bound.model), cfg, device,
+                   mesh, env)
+            hash(key)    # a custom model piece may not be hashable
+        except TypeError:
+            profiling.count("api.engine_cache.miss")
+            return build()
+        eng = _ENGINE_CACHE.get(key)
+        profiling.count("api.engine_cache.hit" if eng is not None
+                        else "api.engine_cache.miss")
+        if eng is None:
+            eng = build()
+            if len(_ENGINE_CACHE) >= _ENGINE_CACHE_CAP:
+                _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+            _ENGINE_CACHE[key] = eng
+        return eng
 
 
 def prewarm_post(data: SASData, bound: BoundModel, cfg: McSASConfig,
@@ -289,29 +294,30 @@ def fit(data: Union[SASData, str, os.PathLike],
     set-up (magnitude probe, table bake and probe) and gives the same
     result.
     """
-    if not isinstance(data, SASData):
-        data = data_mod.load(data)
-    bound = _resolve_model(model)
-    bound = _default_unbounded_ranges(bound, data)
-    cfg = cfg or McSASConfig()
-    engine = _cached_engine(engine_cls or McSASEngine, data, bound, cfg,
-                            device, mesh)
-    if prewarm and not getattr(engine, "_prewarm_done", False):
-        # once per cached engine: over a series of same-content files the
-        # library, the kernel and the post pass are warm after the first
-        engine.prewarm()
-        prewarm_post(data, bound, cfg, histograms, device=engine.device)
-        engine._prewarm_done = True
-    eng_result = engine.run(stop=stop, progress=progress)
-    if not eng_result.converged.all() and not cfg.show_incomplete:
-        log.warning(
-            "%d of %d repetitions did not reach the convergence criterion",
-            int((~eng_result.converged).sum()), cfg.num_reps)
-    fractions, hists = histogram_all(eng_result.contribs, data, bound, cfg,
-                                     histograms, device=engine.device)
-    return McSASResult(data=data, bound=bound, cfg=cfg, engine=eng_result,
-                       fractions=fractions, histograms=hists,
-                       device=engine.device)
+    with profiling.span("api.fit", fit=True):
+        if not isinstance(data, SASData):
+            data = data_mod.load(data)
+        bound = _resolve_model(model)
+        bound = _default_unbounded_ranges(bound, data)
+        cfg = cfg or McSASConfig()
+        engine = _cached_engine(engine_cls or McSASEngine, data, bound, cfg,
+                                device, mesh)
+        if prewarm and not getattr(engine, "_prewarm_done", False):
+            # once per cached engine: over a series of same-content files the
+            # library, the kernel and the post pass are warm after the first
+            engine.prewarm()
+            prewarm_post(data, bound, cfg, histograms, device=engine.device)
+            engine._prewarm_done = True
+        eng_result = engine.run(stop=stop, progress=progress)
+        if not eng_result.converged.all() and not cfg.show_incomplete:
+            log.warning(
+                "%d of %d repetitions did not reach the convergence criterion",
+                int((~eng_result.converged).sum()), cfg.num_reps)
+        fractions, hists = histogram_all(eng_result.contribs, data, bound, cfg,
+                                         histograms, device=engine.device)
+        return McSASResult(data=data, bound=bound, cfg=cfg, engine=eng_result,
+                           fractions=fractions, histograms=hists,
+                           device=engine.device)
 
 
 # ------------------------------------------------------------------ output

@@ -23,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 
+from .utils import profiling
 from .utils.units import (Angle, ScatteringIntensity,
                           ScatteringVector, Unit)
 
@@ -258,8 +259,9 @@ def from_raw(raw: np.ndarray, title: str = "", filename: Optional[str] = None,
              psi_unit: Unit = Angle("°")) -> SASData:
     """Builds a SASData from raw file columns q, I[, σI[, ψ]]
     (reference column conventions: src/mcsas/dataobj/sasdata.py:133-159)."""
-    return _build(title, filename, np.asarray(raw, dtype=np.float64),
-                  config or DataConfig(), q_unit, i_unit, psi_unit)
+    with profiling.span("data.from_raw"):
+        return _build(title, filename, np.asarray(raw, dtype=np.float64),
+                      config or DataConfig(), q_unit, i_unit, psi_unit)
 
 
 def load(filename, config: Optional[DataConfig] = None, **units) -> SASData:

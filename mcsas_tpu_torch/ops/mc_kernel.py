@@ -81,6 +81,7 @@ from ..core.rng import DECADES, local_candidates
 from ..models.chains import GaussianChain
 from ..models.ellipsoids import SphericalCoreShell
 from ..models.sphere import LMADenseSphere, Sphere, lma_standoff
+from ..utils import profiling
 
 MAX_P = 8                      # active parameters the kernels take
 MAX_MODEL_P = 8                # parameters of a K1 model, fixed included
@@ -778,33 +779,34 @@ def build_libraries(names=KERNELS) -> dict:
     there, one nvcc process per source, all started together; reuses
     existing builds.  Returns {name: KernelBuild}.  Waits for every nvcc
     it started, then raises with nvcc's output if any build failed."""
-    builds, running = {}, {}
-    for name in names:
-        path = _library_path(name)
-        if path.exists():
-            builds[name] = KernelBuild(path=path, seconds=0.0, log="")
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-             str(_CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running[name] = (path, tmp, time.perf_counter(), proc)
-    failed = []
-    for name, (path, tmp, t0, proc) in running.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed with exit code {proc.returncode} "
-                          f"building csrc/{name}.cu:\n{err}{out}")
-            continue
-        os.replace(tmp, path)
-        builds[name] = KernelBuild(path=path,
-                                   seconds=time.perf_counter() - t0,
-                                   log=err + out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return builds
+    with profiling.span("ops.mc_kernel.build"):
+        builds, running = {}, {}
+        for name in names:
+            path = _library_path(name)
+            if path.exists():
+                builds[name] = KernelBuild(path=path, seconds=0.0, log="")
+                continue
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+                 str(_CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running[name] = (path, tmp, time.perf_counter(), proc)
+        failed = []
+        for name, (path, tmp, t0, proc) in running.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed with exit code {proc.returncode} "
+                              f"building csrc/{name}.cu:\n{err}{out}")
+                continue
+            os.replace(tmp, path)
+            builds[name] = KernelBuild(path=path,
+                                       seconds=time.perf_counter() - t0,
+                                       log=err + out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return builds
 
 
 def _library(name: str):
@@ -815,29 +817,30 @@ def _library(name: str):
     lib = _LOADED.get(name)
     if lib is None:
         build = build_libraries((name,))[name]
-        lib = ctypes.CDLL(str(build.path))
-        err_fn = getattr(lib, f"{name}_error_string")
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        for entry, (of, params, n_extra, _) in _ENTRIES.items():
-            if of != name:
-                continue
-            extra = [ctypes.c_int] * n_extra
-            launch = getattr(lib, f"{entry}_launch")
-            launch.argtypes = [ctypes.c_void_p] + extra + [ctypes.c_void_p]
-            launch.restype = ctypes.c_int
-            shape = getattr(lib, f"{entry}_shape")
-            shape.argtypes = ([ctypes.c_void_p] + extra
-                              + [ctypes.POINTER(ctypes.c_int)])
-            shape.restype = ctypes.c_int
-            size_fn = getattr(lib, f"{entry}_params_size")
-            size_fn.argtypes = []
-            size_fn.restype = ctypes.c_int
-            want = ctypes.sizeof(params)
-            if size_fn() != want:
-                raise RuntimeError(
-                    f"{entry} parameter layout mismatch: C {size_fn()} "
-                    f"bytes, ctypes {want} bytes")
+        with profiling.span("ops.mc_kernel.load"):
+            lib = ctypes.CDLL(str(build.path))
+            err_fn = getattr(lib, f"{name}_error_string")
+            err_fn.argtypes = [ctypes.c_int]
+            err_fn.restype = ctypes.c_char_p
+            for entry, (of, params, n_extra, _) in _ENTRIES.items():
+                if of != name:
+                    continue
+                extra = [ctypes.c_int] * n_extra
+                launch = getattr(lib, f"{entry}_launch")
+                launch.argtypes = [ctypes.c_void_p] + extra + [ctypes.c_void_p]
+                launch.restype = ctypes.c_int
+                shape = getattr(lib, f"{entry}_shape")
+                shape.argtypes = ([ctypes.c_void_p] + extra
+                                  + [ctypes.POINTER(ctypes.c_int)])
+                shape.restype = ctypes.c_int
+                size_fn = getattr(lib, f"{entry}_params_size")
+                size_fn.argtypes = []
+                size_fn.restype = ctypes.c_int
+                want = ctypes.sizeof(params)
+                if size_fn() != want:
+                    raise RuntimeError(
+                        f"{entry} parameter layout mismatch: C {size_fn()} "
+                        f"bytes, ctypes {want} bytes")
         _LOADED[name] = lib
     return lib
 

@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 log = logging.getLogger(__name__)
 
 
@@ -180,13 +182,13 @@ def build_param_table(row_fn, grids, dtype=torch.float32, block: int = 256,
                                 for g in grids),
                str(dtype).replace("torch.", ""), probe_tag)
         hit = _TABLE_CACHE.get((key, str(device)))
-        if hit is _DECLINED:
-            return None
         if hit is not None:
-            return hit
+            profiling.count("ops.tables.memo_hit")
+            return None if hit is _DECLINED else hit
         disk_path = _disk_cache_path(key)
         hit = _disk_cache_load(disk_path, device, dtype)
         if hit is not None:
+            profiling.count("ops.tables.disk_hit")
             _TABLE_CACHE[(key, str(device))] = hit
             return hit
     if probe:
@@ -206,6 +208,7 @@ def build_param_table(row_fn, grids, dtype=torch.float32, block: int = 256,
         pts = np.stack([m.ravel() for m in mesh], axis=-1)
     else:
         pts = np.zeros((1, 0))
+    profiling.count("ops.tables.bake")
     values = _eval_blocks(row_fn, pts, dtype, device, block)
     axes = []
     for g in grids:

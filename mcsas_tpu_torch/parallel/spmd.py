@@ -57,6 +57,7 @@ from ..data import SASData
 from ..models.base import BoundModel
 from ..ops import mc_kernel
 from ..ops.tables import ParamTable
+from ..utils import profiling
 from .mesh import Mesh, make_mesh, q_slices, rep_slices
 
 
@@ -231,27 +232,30 @@ class ShardedEnsemble(McSASEngine):
     def _chunk(self, states, ri: int):
         cfg = self.cfg
         n_steps = self.seg_steps if self.runs_prefetch else cfg.chunk_steps
-        if self.runs_prefetch or not self.runs_cuda_kernel:
-            props = self._draw_chunk_proposals(n_steps)
-        else:
-            # the unsharded engine's per-chunk Philox seed
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=self.gen,
-                                     device=self.device))
+        with profiling.span("core.engine.draw"):
+            if self.runs_prefetch or not self.runs_cuda_kernel:
+                props = self._draw_chunk_proposals(n_steps)
+            else:
+                # the unsharded engine's per-chunk Philox seed
+                seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                         generator=self.gen,
+                                         device=self.device))
         with self._on_streams() as on:
             for sh, cells in self._live(states):
                 with on(sh):
                     if self.runs_cuda_kernel and not self.runs_prefetch:
-                        mc_kernel.run_chunk(
-                            cells[0], ri, sh.consts[0], sh.specs[0],
-                            seed=seed, n_steps=n_steps,
-                            rep_base=sh.reps.start)
+                        with profiling.span("ops.mc_kernel.launch"):
+                            mc_kernel.run_chunk(
+                                cells[0], ri, sh.consts[0], sh.specs[0],
+                                seed=seed, n_steps=n_steps,
+                                rep_base=sh.reps.start)
                         continue
                     mine = props[:, sh.reps].to(sh.devices[0]).contiguous()
                     if not self.runs_prefetch:
-                        mc_kernel.chunk_reference(
-                            _one(cells), ri, _one(sh.consts),
-                            _one(sh.specs), mine)
+                        with profiling.span("ops.mc_kernel.launch"):
+                            mc_kernel.chunk_reference(
+                                _one(cells), ri, _one(sh.consts),
+                                _one(sh.specs), mine)
                     else:
                         self._shard_segment(sh, cells, ri, mine)
         return states, (ri + n_steps) % self.n_contribs
@@ -260,18 +264,24 @@ class ShardedEnsemble(McSASEngine):
         """One prefetch segment of a shard, as the engine's ``_segment``
         runs it, on the shard's slice of the segment's proposals."""
         spec = sh.specs[0]
-        cands = mc_kernel.segment_candidates(cells[0], ri, spec, props)
-        if not self.runs_cuda_kernel:
-            mc_kernel.prefetch_table_reference(
-                _one(cells), ri, _one(sh.consts), _one(sh.specs), cands)
-        elif self.prefetch_entry == "table":
-            mc_kernel.run_prefetch_table_chunk(
-                cells[0], ri, sh.consts[0], spec, cands,
-                mc_kernel.table_factors(spec, cands))
-        else:
-            mc_kernel.run_prefetch_chunk(
-                cells[0], ri, sh.consts[0], spec,
-                mc_kernel.segment_rows(spec, cands), cands)
+        with profiling.span("ops.mc_kernel.factors"):
+            cands = mc_kernel.segment_candidates(cells[0], ri, spec, props)
+            if not self.runs_cuda_kernel:
+                made = None     # the plain version evaluates the rows
+            elif self.prefetch_entry == "table":
+                made = mc_kernel.table_factors(spec, cands)
+            else:
+                made = mc_kernel.segment_rows(spec, cands)
+        with profiling.span("ops.mc_kernel.launch"):
+            if not self.runs_cuda_kernel:
+                mc_kernel.prefetch_table_reference(
+                    _one(cells), ri, _one(sh.consts), _one(sh.specs), cands)
+            elif self.prefetch_entry == "table":
+                mc_kernel.run_prefetch_table_chunk(
+                    cells[0], ri, sh.consts[0], spec, cands, made)
+            else:
+                mc_kernel.run_prefetch_chunk(
+                    cells[0], ri, sh.consts[0], spec, made, cands)
 
     def _kernel_work(self, states, props):
         """:meth:`McSASEngine.prewarm`'s work per repetition shard: each

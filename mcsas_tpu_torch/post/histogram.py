@@ -25,6 +25,7 @@ from ..core.fitcore import agofs as agofs_fn
 from ..core.fitcore import make_constants, solve_scale_bg
 from ..data import SASData
 from ..models.base import BoundModel
+from ..utils import profiling
 
 WEIGHTINGS = ("vol", "num", "int", "surf")
 XSCALES = ("lin", "log")
@@ -410,10 +411,13 @@ def histogram_all(contribs: np.ndarray, data: SASData, bound: BoundModel,
     evaluated on *device*, which, as for ``fit()``, is the card unless
     the caller asks for the CPU ("cuda" raises without a card).
     """
-    device = resolve_device(device)
-    specs = (default_histograms(bound) if specs is None
-             else tuple(s.resolved(bound) for s in specs))
-    fractions = compute_fractions(contribs, data, bound, cfg, device)
-    results = [compute_histogram(s, contribs, bound, fractions)
-               for s in specs]
-    return fractions, results
+    with profiling.span("post.histogram_all"):
+        device = resolve_device(device)
+        specs = (default_histograms(bound) if specs is None
+                 else tuple(s.resolved(bound) for s in specs))
+        with profiling.span("post.bank"):
+            fractions = compute_fractions(contribs, data, bound, cfg, device)
+        with profiling.span("post.histograms"):
+            results = [compute_histogram(s, contribs, bound, fractions)
+                       for s in specs]
+        return fractions, results

@@ -1,7 +1,15 @@
 # -*- coding: utf-8 -*-
 """Tracing / profiling / numerical-safety helpers (the JAX package's
-mcsas_tpu/utils/profiling.py on torch.profiler).
+mcsas_tpu/utils/profiling.py on torch.profiler), and the port's one span
+and counter recorder.
 
+* :func:`span` marks a phase of the program and :func:`count` adds to a
+  named counter; both do nothing unless a :func:`recording` scope is
+  open, which yields the :class:`Recorder` that keeps them in memory.
+  Spans are stamped on the clock of torch.profiler's events (Unix-epoch
+  nanoseconds, ``time.time_ns``), and while a profiler runs each span
+  also opens a ``record_function`` of its name, so a trace shows the
+  program's spans on the kernels' timeline;
 * :func:`trace` captures the enclosed scope with ``torch.profiler`` (CPU
   activity, plus the card's kernels where CUDA is available) and writes a
   Chrome trace into a directory;
@@ -11,7 +19,6 @@ mcsas_tpu/utils/profiling.py on torch.profiler).
   ``FloatingPointError`` at the first NaN (or inf) instead of counting the
   repetition as stuck — the counterpart of JAX's ``jax_debug_nans`` /
   ``jax_debug_infs`` flags for this package's engine;
-* :class:`Stopwatch` times phases on the host clock;
 * :func:`require_card` stops a measuring tool without a card, and
   :func:`card_line` names the card and its power limit beside a number.
 """
@@ -59,6 +66,135 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
+# ------------------------------------------------------ spans and counters
+
+# the Recorder of the innermost open recording() scope, else None: the one
+# check span() and count() make
+_RECORDER = None
+
+
+class _NoSpan:
+    """The shared context :func:`span` returns while nothing records."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class Recorder:
+    """The spans and counters of one :func:`recording` scope, in memory.
+
+    ``spans`` holds one plain tuple ``(name, start_ns, end_ns,
+    parent_index, fit_index)`` per span in the order they opened: times
+    in Unix-epoch nanoseconds (the clock of torch.profiler's events),
+    ``parent_index`` the index of the span that holds it (-1 for none),
+    ``fit_index`` the index of the fit it belongs to (spans opened with
+    ``fit=True`` number the fits from 0; -1 outside any), ``end_ns`` -1
+    while the span is open.  ``counters`` maps a counter's name to its
+    sum."""
+
+    def __init__(self):
+        self.spans = []
+        self.counters = {}
+        self.n_fits = 0
+        self._open = []         # indices of the open spans, innermost last
+
+    def report(self) -> dict:
+        """{name: {"count", "total_s", "self_s"}} of the closed spans,
+        largest total first; a span's self time is its duration less its
+        direct children's."""
+        child = [0] * len(self.spans)
+        for _, start, end, parent, _ in self.spans:
+            if parent >= 0 and end >= 0:
+                child[parent] += end - start
+        out = {}
+        for (name, start, end, _, _), inner in zip(self.spans, child):
+            if end < 0:
+                continue
+            row = out.setdefault(name, {"count": 0, "total_s": 0.0,
+                                        "self_s": 0.0})
+            row["count"] += 1
+            row["total_s"] += (end - start) * 1e-9
+            row["self_s"] += (end - start - inner) * 1e-9
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]["total_s"]))
+
+
+class _Span:
+    """One span of a :class:`Recorder` (see :func:`span`)."""
+    __slots__ = ("rec", "name", "fit", "index", "rf")
+
+    def __init__(self, rec: Recorder, name: str, fit: bool):
+        self.rec, self.name, self.fit = rec, name, fit
+
+    def __enter__(self):
+        rec = self.rec
+        self.rf = None
+        if torch._C._autograd._profiler_enabled():
+            # opened before the span's clock reads, closed after them: the
+            # profiler's event holds the span
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        parent = rec._open[-1] if rec._open else -1
+        if self.fit:
+            fit = rec.n_fits
+            rec.n_fits += 1
+        else:
+            fit = rec.spans[parent][4] if parent >= 0 else -1
+        self.index = len(rec.spans)
+        rec._open.append(self.index)
+        rec.spans.append((self.name, time.time_ns(), -1, parent, fit))
+        return None
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        rec = self.rec
+        name, start, _, parent, fit = rec.spans[self.index]
+        rec.spans[self.index] = (name, start, end, parent, fit)
+        rec._open.pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, fit: bool = False):
+    """Context marking a phase *name* of the program in the open
+    :func:`recording` scope; with *fit* the span starts the next fit, whose
+    index its child spans carry.  Outside a recording scope it returns one
+    shared no-op context: no allocation, no clock read.  A span never
+    synchronizes the card."""
+    if _RECORDER is None:
+        return _NO_SPAN
+    return _Span(_RECORDER, name, fit)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds *n* to counter *name* of the open :func:`recording` scope; a
+    no-op outside one."""
+    if _RECORDER is not None:
+        c = _RECORDER.counters
+        c[name] = c.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Scope in which :func:`span` and :func:`count` record; yields its
+    :class:`Recorder`.  A scope inside another records into its own
+    Recorder and restores the outer one on exit."""
+    global _RECORDER
+    prev, rec = _RECORDER, Recorder()
+    _RECORDER = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = prev
+
+
 def guard_flags():
     """``(nans, infs)`` while :func:`debug_guards` checks either, else
     None."""
@@ -80,31 +216,6 @@ def debug_guards(nans: bool = True, infs: bool = False):
         yield
     finally:
         _GUARDS.update(prev)
-
-
-class Stopwatch:
-    """Wall-clock phase timing with a report, the structured replacement
-    for the reference's ad-hoc per-rep ETA logging (mcsas.py:249-262)."""
-
-    def __init__(self):
-        self.phases = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] = (self.phases.get(name, 0.0)
-                                 + time.perf_counter() - t0)
-
-    def report(self) -> str:
-        total = sum(self.phases.values())
-        lines = [f"{k:>20s}: {v:8.3f}s "
-                 f"({100 * v / max(total, 1e-300):4.1f}%)"
-                 for k, v in sorted(self.phases.items(),
-                                    key=lambda kv: -kv[1])]
-        return "\n".join(lines + [f"{'total':>20s}: {total:8.3f}s"])
 
 
 def require_card(tool: str) -> None:

@@ -1485,3 +1485,43 @@ def test_rep_scaling_row_at_132_launches_k1():
     assert row["reps"] == 132 and row["total_proposals"] > 0
     assert row["proposals_per_sec"] == pytest.approx(
         row["total_proposals"] / row["wall_s"])
+
+
+def test_k2_launch_calls_lie_inside_the_launch_spans():
+    """A cylinder fit through K2's table entry under torch.profiler and
+    ``profiling.recording()``: the host-side launch call of every K2
+    kernel (the runtime event of its correlation id) lies inside an
+    ``ops.mc_kernel.launch`` span, compared on one clock with no offset;
+    one launch and one χ² read a segment."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+    from mcsas_tpu_torch import api
+    from mcsas_tpu_torch.utils import profiling
+    golden, bound = suite.cylinder_golden(), suite.cylinder_bound()
+    cfg = suite.cylinder_config(table_ff="on", max_retries=0)
+    api.fit(golden, bound, cfg, device="cuda")   # the build and the bake
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with profiling.recording() as rec:
+            res = api.fit(golden, bound, cfg, device="cuda")
+        torch.cuda.synchronize()
+    assert res.engine.used_prefetch
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [ev for ev in events if ev.device_type() == cuda
+               and "mc_prefetch" in ev.name()]
+    host = {}
+    for ev in events:
+        if ev.device_type() != cuda and "Launch" in ev.name():
+            host[ev.correlation_id()] = ev
+    calls = [host.get(ev.correlation_id())
+             or host.get(ev.linked_correlation_id()) for ev in kernels]
+    assert len(kernels) == res.engine.n_chunks and None not in calls
+    spans = [(s, e) for name, s, e, _, _ in rec.spans
+             if name == "ops.mc_kernel.launch"]
+    assert len(spans) == res.engine.n_chunks
+    for ev in calls:
+        assert any(s <= ev.start_ns() and ev.end_ns() <= e
+                   for s, e in spans), (ev.name(), ev.start_ns())
+    reads = [s for s in rec.spans if s[0] == "core.engine.read"]
+    assert len(reads) == res.engine.n_chunks

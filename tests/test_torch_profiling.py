@@ -1,23 +1,32 @@
 # -*- coding: utf-8 -*-
 """PyTorch port: tracing / profiling helpers (mcsas_tpu_torch/utils/
 profiling.py), the counterparts of the JAX package's
-tests/test_profiling.py, and debug_guards raising inside the engine."""
+tests/test_profiling.py, debug_guards raising inside the engine, and the
+span and counter recorder: off, it records nothing; on, a fit records
+its span tree and counters, gives results bit for bit the fit's without
+it, and stamps its spans on the profiler's clock."""
+import ast
 import dataclasses
 import glob
 import json
+import pathlib
+import re
+import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from mcsas_tpu_torch import data  # noqa: E402
+from mcsas_tpu_torch import api, data  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
 from mcsas_tpu_torch.models import get_model  # noqa: E402
+from mcsas_tpu_torch.tools import suite  # noqa: E402
 from mcsas_tpu_torch.utils import profiling  # noqa: E402
-from mcsas_tpu_torch.utils.profiling import (Stopwatch, annotate,  # noqa
-                                             debug_guards, trace)
+from mcsas_tpu_torch.utils.profiling import (annotate,  # noqa: E402
+                                             debug_guards, recording, span,
+                                             trace)
 
 
 def test_trace_writes_capture_with_the_span(tmp_path):
@@ -80,11 +89,211 @@ def test_debug_guards_raise_on_a_nan_row(refdata):
         eng.run()
 
 
-def test_stopwatch_report():
-    sw = Stopwatch()
-    with sw.phase("a"):
-        pass
-    with sw.phase("b"):
-        pass
-    rep = sw.report()
-    assert "a" in rep and "b" in rep and "total" in rep
+def test_recorder_report():
+    """Totals and self times per name: a span's self time is its duration
+    less its direct children's."""
+    with recording() as rec:
+        with span("a"):
+            time.sleep(0.002)
+            with span("b"):
+                time.sleep(0.004)
+        with span("b"):
+            pass
+    rep = rec.report()
+    assert list(rep) == ["a", "b"]
+    assert rep["a"]["count"] == 1 and rep["b"]["count"] == 2
+    (a, _, a_end, _, _), (b, b_start, b_end, parent, _) = rec.spans[:2]
+    assert parent == 0
+    assert rep["a"]["self_s"] == pytest.approx(
+        rep["a"]["total_s"] - (b_end - b_start) * 1e-9)
+    assert rep["a"]["self_s"] >= 0.002
+    assert rep["b"]["total_s"] == rep["b"]["self_s"] >= 0.004
+
+
+def test_span_off_records_nothing():
+    """Outside a recording scope span() returns one shared no-op context
+    and count() does nothing; a closed scope's recorder takes no more."""
+    off = span("x")
+    assert span("y", fit=True) is off
+    with off:
+        profiling.count("x")
+    with recording() as rec:
+        with span("x"):
+            profiling.count("x", 3)
+    with span("z"):
+        profiling.count("x")
+    assert [s[0] for s in rec.spans] == ["x"] and rec.counters == {"x": 3}
+    with recording() as outer:
+        with recording() as inner:
+            with span("in"):
+                pass
+        with span("out"):
+            pass
+    assert [s[0] for s in inner.spans] == ["in"]
+    assert [s[0] for s in outer.spans] == ["out"]
+
+
+# the span tree of one fit: each span's parent
+_PARENT = {
+    "api.engine": "api.fit",
+    "core.engine.construct": "api.engine",
+    "core.engine.constants": "core.engine.construct",
+    "core.engine.probe": "core.engine.construct",
+    "ops.tables.lookup": "core.engine.construct",
+    "core.engine.mc": "api.fit",
+    "core.engine.init": "core.engine.mc",
+    "core.engine.chunk": "core.engine.mc",
+    "core.engine.retry": "core.engine.mc",
+    "core.engine.result": "core.engine.mc",
+    "core.engine.draw": "core.engine.chunk",
+    "ops.mc_kernel.factors": "core.engine.chunk",
+    "ops.mc_kernel.launch": "core.engine.chunk",
+    "core.engine.read": "core.engine.chunk",
+    "post.histogram_all": "api.fit",
+    "post.bank": "post.histogram_all",
+    "post.histograms": "post.histogram_all",
+}
+
+
+def _fit_case(kind, refdata, monkeypatch):
+    """(data maker, model, config) of a retried CPU fit: the Sphere on the
+    plain chunk, or the cylinder on a 64-row table through the prefetch
+    segments' plain version.  The maker runs ``data.from_raw``."""
+    cfg = dict(num_contribs=10, num_reps=3, max_iterations=300,
+               candidates_per_step=4, local_moves=0.5, max_retries=1,
+               seed=3)
+    if kind == "sphere":
+        return (lambda: data.load(refdata / "sasfit_sphere-10-1.dat"),
+                "Sphere", McSASConfig(chunk_steps=100, **cfg))
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
+    return (suite.cylinder_golden, suite.cylinder_bound(),
+            suite.cylinder_config(table_ff="on", chunk_steps=4, **cfg))
+
+
+def _fit(case):
+    """A fit of *case* on a new engine, its data made first."""
+    make, model, cfg = case
+    api._ENGINE_CACHE.clear()
+    return api.fit(make(), model, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["sphere", "cylinder"])
+def test_a_fit_records_its_span_tree(kind, refdata, monkeypatch):
+    """A fit under recording() records the span tree of _PARENT, one
+    read in every chunk, the table lookup's counters on the cylinder, and
+    the EngineResult's counters agree with the spans and the proposals."""
+    monkeypatch.setattr(api, "_ENGINE_CACHE", {})
+    case = _fit_case(kind, refdata, monkeypatch)
+    cfg = case[2]
+    with recording() as rec:
+        res = _fit(case)
+    spans = rec.spans
+    names = [s[0] for s in spans]
+    assert names[0] == "data.from_raw" and spans[0][3:] == (-1, -1)
+    assert names[1] == "api.fit" and spans[1][3:] == (-1, 0)
+    assert rec.n_fits == 1
+    for name, start, end, parent, fit in spans[1:]:
+        assert fit == 0 and 0 <= start <= end
+        if name != "api.fit":
+            assert spans[parent][0] == _PARENT[name], name
+            assert spans[parent][1] <= start and end <= spans[parent][2]
+    want = set(_PARENT) - {"ops.tables.lookup", "ops.mc_kernel.factors"}
+    if kind == "cylinder":
+        want |= {"ops.tables.lookup", "ops.mc_kernel.factors"}
+    assert set(names[2:]) == want
+    # the benchmark's harness labels its own annotations by these names
+    src = (pathlib.Path(__file__).resolve().parents[1] / "benchmark"
+           / "run.py").read_text(encoding="utf-8")
+    harness = ast.literal_eval(
+        re.search(r"^SPANS = (\(.*?\))$", src, re.M).group(1))
+    assert len(harness) == 6 and not set(names) & set(harness)
+    eng = res.engine
+    chunks = [i for i, n in enumerate(names) if n == "core.engine.chunk"]
+    assert len(chunks) == eng.n_chunks == names.count("core.engine.read")
+    for i in chunks:
+        kids = [s[0] for s in spans if s[3] == i]
+        assert kids.count("core.engine.read") == 1
+        assert kids[-1] == "core.engine.read"
+    assert (eng.attempts > 1).any()        # the case retries
+    assert names.count("core.engine.retry") >= 1
+    assert eng.retried_iters == eng.total_iters - eng.n_iter.sum() > 0
+    assert 0 < eng.rep_chunks <= eng.n_chunks * cfg.num_reps
+    assert rec.counters["api.engine_cache.miss"] == 1
+    if kind == "cylinder":
+        tables = {k: v for k, v in rec.counters.items()
+                  if k.startswith("ops.tables.")}
+        assert sum(tables.values()) >= 1 and set(tables) <= {
+            "ops.tables.memo_hit", "ops.tables.disk_hit", "ops.tables.bake"}
+    report = rec.report()
+    assert report["core.engine.mc"]["self_s"] < \
+        0.05 * report["core.engine.mc"]["total_s"]
+
+
+def test_engine_counters_of_a_converging_fit(refdata):
+    """rep_chunks counts the repetitions still running at each chunk's
+    launch: below n_chunks × R once a repetition converges before the
+    last chunk; no attempt retried, no retried proposals."""
+    d = data.load(refdata / "sasfit_sphere-10-1.dat")
+    cfg = McSASConfig(num_contribs=10, num_reps=3, max_iterations=20000,
+                      chunk_steps=20, candidates_per_step=4, seed=3,
+                      max_retries=0)
+    eng = McSASEngine(d, get_model("Sphere").bind(), cfg, device="cpu")
+    per_chunk = []
+    res = eng.run(progress=lambda p: per_chunk.append(
+        int((~p["converged"]).sum())))
+    assert res.converged.all() and res.retried_iters == 0
+    assert res.n_chunks == len(per_chunk)
+    assert res.rep_chunks == cfg.num_reps + sum(per_chunk[:-1])
+    assert res.rep_chunks < res.n_chunks * cfg.num_reps
+
+
+@pytest.mark.parametrize("kind", ["sphere", "cylinder"])
+def test_results_are_bitwise_with_recording_on_and_off(kind, refdata,
+                                                       monkeypatch):
+    """The EngineResult (its timers aside) and the post pass are the same
+    bits with recording on and off."""
+    monkeypatch.setattr(api, "_ENGINE_CACHE", {})
+    case = _fit_case(kind, refdata, monkeypatch)
+    off = _fit(case)
+    with recording():
+        on = _fit(case)
+    for f in dataclasses.fields(off.engine):
+        if f.name in ("elapsed", "iters_per_sec", "moves_per_sec"):
+            continue
+        np.testing.assert_array_equal(getattr(on.engine, f.name),
+                                      getattr(off.engine, f.name), f.name)
+    np.testing.assert_array_equal(on.fractions.measval,
+                                  off.fractions.measval)
+    np.testing.assert_array_equal(on.fractions.fraction["vol"],
+                                  off.fractions.fraction["vol"])
+    for a, b in zip(on.histograms, off.histograms):
+        np.testing.assert_array_equal(a.bins.full, b.bins.full)
+
+
+def test_spans_share_the_profilers_clock():
+    """Under torch.profiler each span opens a record_function of its name
+    and stamps its own clock inside that event: every span lies within its
+    event on one clock, with no offset, and the median distance between
+    their starts and between their ends is under 100 µs.  The process's
+    first record_function pays about a millisecond of one-time set-up
+    inside its event, so a span warms it first."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with recording():
+            with span("warm-up"):
+                pass
+        with recording() as rec:
+            for i in range(20):
+                with span(f"clock.{i}"):
+                    (torch.ones(256) * 2.0).sum()
+                    time.sleep(0.001)
+    events = {ev.name(): ev for ev in prof.profiler.kineto_results.events()
+              if ev.name().startswith("clock.")}
+    assert len(events) == len(rec.spans) == 20
+    starts, ends = [], []
+    for name, start, end, _, _ in rec.spans:
+        ev = events[name]
+        assert ev.start_ns() <= start < end <= ev.end_ns(), name
+        starts.append(start - ev.start_ns())
+        ends.append(ev.end_ns() - end)
+    assert np.median(starts) < 100_000 and np.median(ends) < 100_000
