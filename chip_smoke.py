@@ -7,8 +7,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises and the script exits nonzero):
   1. device: the card's name and power limit (nvidia-smi) and the
      torch/CUDA versions; fails when torch.cuda.is_available() is False;
-  2. build: compiles csrc/mc_chunk.cu (K1), csrc/mc_prefetch.cu (K2) and
-     csrc/mc_probe.cu (K3) with nvcc for sm_90a, one nvcc each, started
+  2. build: compiles csrc/mc_chunk.cu (K1), csrc/mc_prefetch.cu (K2),
+     csrc/mc_probe.cu (K3) and csrc/cyl_bank.cu (the post pass's cylinder
+     bank) with nvcc for sm_90a, one nvcc each, started
      together (timed; ptxas registers and spills printed); K1's launch
      shape for each model (lanes per candidate, threads per block,
      registers, spills) is printed where its engine is first built, K2's
@@ -73,8 +74,9 @@ Phases (any failure raises and the script exits nonzero):
      max χ² ≤ 1, K2's table entry launched, its rows entry and K1 not,
      two runs of one seed equal, the vol-weighted mean radius within
      10 % of the golden 10 nm; the peak allocation of an engine run and
-     of the float64 post pass (the smeared bank in blocks); the warm wall
-     time of five fits;
+     of the float64 post pass (its bank one launch of the bank kernel, and
+     below one block temporary of the eager bank); the warm wall time of
+     five fits;
  12. K2's table entry with the intensity row (row = blend·w) against its
      plain version: one 131-step segment of that fit at full width,
      without and with local moves 0.5, and the ragged shapes K2_RAGGED on
@@ -219,7 +221,15 @@ Phases (any failure raises and the script exits nonzero):
      ``roofline`` — its fused and prefetch bounds those of the kernels
      line, both K of the A/B; ``suite_stats --runs 2`` on the sphere and
      cylinder rows — no spread of total_iters, the cylinder's phase 7's.
-     The phase's wall and the script's are printed.
+     The phase's wall is printed;
+ 26. the post pass's cylinder bank (csrc/cyl_bank.cu) at the cylinder
+     cells' shape (300 × 10 contributions over radius 0.5-300 nm, aspect
+     10, intDiv 100; the golden's 100-point grid, and its 25-step slit):
+     one ``_post_pass_f64`` on the card launches it once, its bank and
+     every output within 1e-10 relative of the CPU's eager pass; the
+     kernel alone, with its inputs' preparation, and the eager bank on
+     the card timed, the float64 bound and the launch shape printed.
+     The script's wall is printed.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -947,6 +957,8 @@ def smeared_cylinder_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
     """Phase 11: the suite row 'cylinders-smeared' through the normal
     ``fit()`` on the card.  Returns (its K2 launches, the golden, binding
     and config, the fit's total_iters)."""
+    from mcsas_tpu_torch.ops import cyl_bank
+    from mcsas_tpu_torch.post import histogram
     golden = suite.cylinder_smeared_golden()
     bound, cfg = suite.cylinder_bound(), suite.cylinder_config()
     if golden.locs.shape != (golden.count, 26) or golden.count != 100:
@@ -1009,17 +1021,21 @@ def smeared_cylinder_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
     run_peak = torch.cuda.max_memory_allocated() - mem0
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
+    bank0 = cyl_bank.run_cyl_bank.launches
     t0 = time.perf_counter()
     histogram_all(run.contribs, golden, bound, cfg, None, device=eng.device)
     torch.cuda.synchronize()
     post_s = time.perf_counter() - t0
     post_peak = torch.cuda.max_memory_allocated() - mem0
-    whole_bank = 10 * 300 * 100 * 26 * 99 * 8
-    # in blocks: the whole pass stays below ONE unblocked temporary of the
-    # bank's evaluation (which holds a dozen of them at once)
-    if not post_peak < whole_bank:
-        raise AssertionError(f"smeared post pass allocated {post_peak} B; "
-                             f"one unblocked temporary is {whole_bank} B")
+    bank_launches = cyl_bank.run_cyl_bank.launches - bank0
+    one_block = histogram.BANK_BLOCK_VALUES * 8
+    # the bank is one launch of its kernel: the pass holds no temporary of
+    # the eager chain, whose every block holds a dozen of one_block bytes
+    if bank_launches != 1 or not post_peak < one_block:
+        raise AssertionError(f"smeared post pass: {bank_launches} launches "
+                             f"of the bank kernel, {post_peak} B allocated;"
+                             f" one block of the eager bank is {one_block}"
+                             f" B")
     print(f"[fit cylinders-smeared] 10/10 converged, max chi2 "
           f"{e.conval.max():.4f}, {table_in} K2 launches (table in, "
           f"intensity rows; rows in {rows_in}, K1 {k1}), total_iters "
@@ -1030,8 +1046,9 @@ def smeared_cylinder_phase(torch, mc_kernel, fit, engine_cls, histogram_all,
           f"5 fits {walls}, median {float(np.median(walls)):.4f} s; "
           f"vol-weighted mean radius {mean_r * 1e9:.4f} nm (golden 10); "
           f"peak allocation of an engine run {run_peak} B, of the float64 "
-          f"post pass {post_peak} B in {post_s:.4f} s (one unblocked "
-          f"temporary of its bank: {whole_bank} B); on {card}", flush=True)
+          f"post pass {post_peak} B in {post_s:.4f} s ({bank_launches} "
+          f"launch of the bank kernel; one block temporary of the eager "
+          f"bank: {one_block} B); on {card}", flush=True)
     if profiling:
         profile_fit(torch, lambda: fit(golden, bound, cfg, device="cuda"),
                     card, "cylinders-smeared", "mc_prefetch")
@@ -3062,6 +3079,128 @@ def kern_probe_entries():
     return kern_probe.K2_ENTRIES
 
 
+# ------------------------ phase 26: the post pass's cylinder bank
+
+def _max_rel(a, b):
+    """The largest |a - b| / |b| over b's entries (b's zeros: |a|), after
+    checking that a and b are finite in the same places."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    fin = np.isfinite(b)
+    if not np.array_equal(np.isfinite(a), fin):
+        raise AssertionError("finite entries differ")
+    rel = np.abs(a - b)[fin] / np.maximum(np.abs(b[fin]), 1e-300)
+    return float(rel.max()) if rel.size else 0.0
+
+
+def _post_pass_bank(histogram, bound, data, cfg, contribs, device):
+    """(``_post_pass_f64`` of *contribs* on *device*, the bank it computed
+    as a numpy array)."""
+    banks, real = [], histogram._bank_f64
+
+    def keep(*args, **kw):
+        bank = real(*args, **kw)
+        banks.append(bank.cpu().numpy())
+        return bank
+
+    histogram._bank_f64 = keep
+    try:
+        out = histogram._post_pass_f64(bound, data, cfg, contribs,
+                                       device=device)
+    finally:
+        histogram._bank_f64 = real
+    return out, banks[0]
+
+
+def cyl_bank_phase(torch, card):
+    """Phase 26: the post pass's cylinder bank (csrc/cyl_bank.cu) at the
+    benchmark's cylinder cells' shape, 300 × 10 contributions log-uniform
+    over radius 0.5-300 nm, aspect 10, intDiv 100, on the cylinder golden's
+    100-point grid and through its 25-step slit: one ``_post_pass_f64`` on
+    the card launches the kernel exactly once, and its bank and every
+    output equal the CPU's eager pass to 1e-10 relative; the kernel alone
+    (inputs ready), the bank with its inputs' preparation and the eager
+    bank on the card (the plain version) timed with CUDA events, beside
+    the float64 bound of the launch (tools/roofline.py:cyl_bank_bound) and
+    its launch shape."""
+    from mcsas_tpu_torch.config import McSASConfig
+    from mcsas_tpu_torch.ops import cyl_bank
+    from mcsas_tpu_torch.post import histogram
+    from mcsas_tpu_torch.tools import suite
+    from mcsas_tpu_torch.tools.roofline import cyl_bank_bound
+    bound = suite.cylinder_bound()
+    if dict(bound.fixed)["aspect"] != 10.0 or dict(bound.fixed)[
+            "intDiv"] != 100.0:
+        raise AssertionError(f"[cyl_bank] binding {dict(bound.fixed)}")
+    cfg = McSASConfig(num_contribs=300, num_reps=10)
+    comp2 = 2.0 * cfg.compensation_exponent
+    lo, hi = np.log(np.asarray(bound.ranges)).T
+    c = np.exp(np.random.default_rng(2026).uniform(lo, hi, (10, 300, 1)))
+    rset = torch.as_tensor(c, device="cuda")
+    cyl_bank.run_cyl_bank.launches = 0
+    launches = 0
+    out = {}
+    for name, data in (("slit", suite.cylinder_smeared_golden()),
+                       ("unsmeared", suite.cylinder_golden())):
+        n0 = cyl_bank.run_cyl_bank.launches
+        card_post, card_bank = _post_pass_bank(histogram, bound, data, cfg,
+                                               c, "cuda")
+        torch.cuda.synchronize()
+        if cyl_bank.run_cyl_bank.launches != n0 + 1:
+            raise AssertionError(
+                f"[cyl_bank {name}] {cyl_bank.run_cyl_bank.launches - n0}"
+                f" launches in one post pass")
+        threads, cpus = torch.get_num_threads(), os.cpu_count() or 1
+        torch.set_num_threads(cpus)
+        t0 = time.perf_counter()
+        try:
+            cpu_post, cpu_bank = _post_pass_bank(histogram, bound, data,
+                                                 cfg, c, "cpu")
+        finally:
+            torch.set_num_threads(threads)
+        cpu_s = time.perf_counter() - t0
+        launches += 1
+        if cyl_bank.run_cyl_bank.launches != n0 + 1:
+            raise AssertionError(f"[cyl_bank {name}] the CPU pass launched")
+        if not (np.isfinite(cpu_bank).all() and (cpu_bank > 0).all()):
+            raise AssertionError(f"[cyl_bank {name}] the eager bank")
+        bank_err = _max_rel(card_bank, cpu_bank)
+        post_err = max(_max_rel(a, b) for a, b in zip(card_post, cpu_post))
+        if not (bank_err <= 1e-10 and post_err <= 1e-10):
+            raise AssertionError(f"[cyl_bank {name}] against the CPU's "
+                                 f"eager pass: bank {bank_err:.3g}, post "
+                                 f"pass {post_err:.3g}")
+        inp = cyl_bank.bank_inputs(bound, data, comp2, rset)
+        shape = cyl_bank.launch_shape(inp)
+        n0 = cyl_bank.run_cyl_bank.launches
+        ms = cuda_ms(lambda: cyl_bank.run_cyl_bank(inp), 5)
+        with_inputs_ms = cuda_ms(
+            lambda: histogram._bank_f64(bound, data, comp2, rset), 5)
+        timed = cyl_bank.run_cyl_bank.launches - n0
+        if timed != 12:
+            raise AssertionError(f"[cyl_bank {name}] {timed} timed launches")
+        plain_ms = cuda_ms(
+            lambda: histogram._bank_eager(bound, data, comp2, rset), 1)
+        if cyl_bank.run_cyl_bank.launches != n0 + timed:
+            raise AssertionError(f"[cyl_bank {name}] the eager bank "
+                                 f"launched the kernel")
+        b_ms, b_by = cyl_bank_bound(inp)
+        nq, n_off = inp.grid.shape
+        print(f"[cyl_bank {name}] 3000 contributions x {nq} points x "
+              f"{n_off} offsets x {inp.x.numel() + 2} nodes: 1 launch in "
+              f"the card's post pass; against the CPU's eager pass ({cpus} "
+              f"threads, {cpu_s:.2f} s) bank max rel {bank_err:.3g}, post "
+              f"pass outputs {post_err:.3g}; kernel {ms:.4f} ms, with its "
+              f"inputs' preparation {with_inputs_ms:.4f} ms, the eager "
+              f"bank on the card {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}), {100.0 * b_ms / ms:.2f} % of it; shape {shape}; "
+              f"{card}", flush=True)
+        out[name] = dict(ms=ms, with_inputs_ms=with_inputs_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         shape=shape, max_rel_err=max(bank_err, post_err))
+    out["launches"] = launches
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     import torch
@@ -3514,7 +3653,10 @@ def main():
         suite, (e, launches), suite_iters,
         {"K1": (k1_bound_ms, k1_bound_by),
          "K2": (k2["table"]["bound_ms"], k2["table"]["bound_by"])}, card)
-    print(f"[time] phases 1-24 {phases_s:.2f} s, all 25 "
+
+    # ---- phase 26: the post pass's cylinder bank kernel
+    bank = cyl_bank_phase(torch, card)
+    print(f"[time] phases 1-24 {phases_s:.2f} s, all 26 "
           f"{time.perf_counter() - t_script:.2f} s; on {card}", flush=True)
 
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
@@ -3677,6 +3819,22 @@ def main():
         "ms": probe["ms"], "plain_ms": probe["plain_ms"],
         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
         "library_ms": None})
+    slit = bank["slit"]
+    kernels.append({
+        "name": "cyl_bank", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/cyl_bank.cu",
+        "replaces": None, "launches": bank["launches"],
+        "max_rel_err": max(slit["max_rel_err"],
+                           bank["unsmeared"]["max_rel_err"]),
+        "ms": slit["ms"], "plain_ms": slit["plain_ms"],
+        "bound_ms": slit["bound_ms"], "bound_by": slit["bound_by"],
+        "library_ms": None, "shape": slit["shape"],
+        "with_inputs_ms": slit["with_inputs_ms"],
+        "entry": "the post pass's float64 bank of CylindersIsotropic on "
+                 "1D data (the slit's 3000 x 100 x 26 offsets x 100 "
+                 "nodes; the JAX package runs it as jnp, "
+                 "mcsas_tpu/post/histogram.py)",
+        "unsmeared": bank["unsmeared"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

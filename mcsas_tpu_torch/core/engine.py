@@ -48,7 +48,7 @@ import torch
 from ..config import McSASConfig
 from ..data import SASData
 from ..models.base import BoundModel
-from ..ops import mc_kernel
+from ..ops import cyl_bank, mc_kernel
 from ..ops.tables import ParamTable
 from ..utils import profiling
 from .fitcore import FitConstants, make_constants, solve_scale_bg
@@ -695,10 +695,12 @@ class McSASEngine:
     def prewarm(self) -> dict:
         """Pays the card's first-use costs of this engine's fits ahead of
         them, without running the MC: builds (nvcc, where build/kernels/
-        lacks it) and loads the library of the kernel its chunks launch —
-        ``mc_chunk`` (K1) or, for prefetch segments, ``mc_prefetch`` (K2) —
-        runs the batched init and the eager work before a first launch on
-        a generator of its own, and asks CUDA for the attributes of
+        lacks it) and loads the library of the kernel its chunks launch
+        (``mc_chunk``, K1, or for prefetch segments ``mc_prefetch``, K2)
+        and, where this fit's post pass launches the bank kernel
+        (:func:`ops.cyl_bank.launches_on`), ``cyl_bank`` in the same nvcc
+        round; runs the batched init and the eager work before a first
+        launch on a generator of its own, and asks CUDA for the attributes of
         the kernel instantiation that will run (which loads it).  The
         parameter table was baked in ``__init__`` (and persists through
         MCSAS_TPU_TABLE_CACHE_DIR).  The engine's generator and state are
@@ -719,11 +721,17 @@ class McSASEngine:
                        f"{self.device} "
                        f"(use_pallas={self.cfg.use_pallas!r})")
                 return dict.fromkeys(labels, why)
-            timings = {labels[0]:
-                       mc_kernel.build_libraries((lib,))[lib].seconds}
-            t0 = time.perf_counter()
-            mc_kernel._library(lib)
-            timings[labels[1]] = time.perf_counter() - t0
+            # the post pass's bank kernel, where this fit's post pass
+            # launches it: built beside the chunk kernel's library
+            libs = (lib,) + ((cyl_bank.LIBRARY,) if cyl_bank.launches_on(
+                self.bound, self.data, self.device) else ())
+            builds = mc_kernel.build_libraries(libs)
+            timings = {f"nvcc {name}": builds[name].seconds
+                       for name in libs}
+            for name in libs:
+                t0 = time.perf_counter()
+                mc_kernel._library(name)
+                timings[f"load {name}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             own, self.gen = self.gen, torch.Generator(device=self.device)
             try:

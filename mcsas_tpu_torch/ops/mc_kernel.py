@@ -37,6 +37,11 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   ``tools/kern_probe.py``.  No PyTorch function computes a cut step: a
   ``full`` rung is K1 or K2 and is held against it.
 
+The post pass's float64 bank of orientation-averaged cylinders
+(``csrc/cyl_bank.cu``, no TPU counterpart) is built and bound here with
+the three; its wrapper and route are in ``ops/cyl_bank.py``, its plain
+version is the eager bank of ``post/histogram.py``.
+
 The plain versions are batched over (R, K, Nq) in the operation order of
 the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
 :func:`_step`.  The CPU tests hold them against the JAX package, and each
@@ -110,7 +115,8 @@ PREFETCH_ROW_BYTES = 64 * 2 ** 20
 # segment's rows
 ROWS_BLOCK_VALUES = PREFETCH_ROW_BYTES // 64
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
-KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe")  # csrc/<name>.cu each
+# csrc/<name>.cu each
+KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe", "cyl_bank")
 # the shared headers; every kernel's build hash covers all of them
 _HEADERS = ("mc_common.cuh", "mc_models.cuh", "mc_chunk.cuh",
             "mc_prefetch.cuh")
@@ -706,6 +712,18 @@ class _ChunkParams(ctypes.Structure):
         + [("seed", ctypes.c_uint32)])
 
 
+class _CylBankParams(ctypes.Structure):
+    """Mirror of ``CylBankParams`` in csrc/cyl_bank.cu (same field order):
+    the post pass's float64 cylinder bank (ops/cyl_bank.py)."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "grid", "smear_w", "radius", "length", "weight", "x", "s",
+            "out")]
+        + [("step", ctypes.c_double)]
+        + [(name, ctypes.c_int32) for name in (
+            "n_contribs", "nq", "n_off", "n_nodes", "device")])
+
+
 class _PrefetchParams(ctypes.Structure):
     """Mirror of ``PrefetchParams`` in csrc/mc_prefetch.cuh (same field
     order)."""
@@ -738,7 +756,9 @@ _ENTRIES = {
     "mc_chunk": ("mc_chunk", _ChunkParams, 0, _K1_SHAPE),
     "mc_prefetch": ("mc_prefetch", _PrefetchParams, 0, _K2_SHAPE),
     "mc_probe": ("mc_probe", _ChunkParams, 2, _K1_SHAPE),
-    "mc_probe_prefetch": ("mc_probe", _PrefetchParams, 1, _K2_SHAPE)}
+    "mc_probe_prefetch": ("mc_probe", _PrefetchParams, 1, _K2_SHAPE),
+    "cyl_bank": ("cyl_bank", _CylBankParams, 0,
+                 ("group", "threads", "blocks", "registers", "local_bytes"))}
 
 
 @dataclass(frozen=True)

@@ -25,6 +25,7 @@ from ..core.fitcore import agofs as agofs_fn
 from ..core.fitcore import make_constants, solve_scale_bg
 from ..data import SASData
 from ..models.base import BoundModel
+from ..ops import cyl_bank
 from ..utils import profiling
 
 WEIGHTINGS = ("vol", "num", "int", "surf")
@@ -165,13 +166,29 @@ def _bank_f64(bound: BoundModel, data: SASData, comp2: float,
     (reference: sasmodel.py:56-73), or for 2D (q, ψ) data ff2d²·w on the
     fit grid's (q, ψ) pairs (no smearing), with w = volume^comp2.
 
-    Evaluated *block* contributions at a time, so that the temporaries
-    (block × Nq × n_off × the model's quadrature nodes) stay bounded: a
-    smeared cylinder's whole bank would take gigabytes per temporary.
-    *block* None sizes the blocks to :data:`BANK_BLOCK_VALUES`; the
-    result does not depend on it (each contribution's row is its own), up
-    to the last bit where a block moves where a row of quadrature nodes
-    starts in memory (the vectorized sums read from there)."""
+    Where :func:`ops.cyl_bank.launches_on` says so (orientation-averaged
+    cylinders on 1D data, on a CUDA device) the bank is one launch of its
+    kernel (:func:`ops.cyl_bank.run_cyl_bank`); everything else, and
+    every CPU call, is :func:`_bank_eager`, that kernel's plain
+    version."""
+    if cyl_bank.launches_on(bound, data, rset.device):
+        out = cyl_bank.run_cyl_bank(cyl_bank.bank_inputs(bound, data,
+                                                         comp2, rset))
+        return out.reshape(*rset.shape[:2], -1)
+    return _bank_eager(bound, data, comp2, rset, block)
+
+
+def _bank_eager(bound: BoundModel, data: SASData, comp2: float,
+                rset: torch.Tensor, block: Optional[int] = None
+                ) -> torch.Tensor:
+    """:func:`_bank_f64` evaluated eagerly on rset's device, *block*
+    contributions at a time, so that the temporaries (block × Nq × n_off
+    × the model's quadrature nodes) stay bounded: a smeared cylinder's
+    whole bank would take gigabytes per temporary.  *block* None sizes
+    the blocks to :data:`BANK_BLOCK_VALUES`; the result does not depend
+    on it (each contribution's row is its own), up to the last bit where
+    a block moves where a row of quadrature nodes starts in memory (the
+    vectorized sums read from there)."""
     model, dev = bound.model, rset.device
     two_d = data.psi is not None and model.ff2d is not None
     smearing = data.uses_smearing and model.can_smear and not two_d

@@ -65,6 +65,19 @@ SOLVE_OPS = 14
 XS_OPS = 23
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, ditto
+F64_OPS_PER_S = 34e12         # float64 outside the tensor cores, ditto
+# the post pass's cylinder bank (csrc/cyl_bank.cu), float64 operations:
+# J1 below |x| <= 3 (x/3, its square, the 7-term Horner, × x, × sign) and
+# above (the reciprocal, × 3, two Horners, + x, cos, ×, sqrt, ÷, × sign)
+J1_POLY_OPS = 16
+J1_ASYM_OPS = 32
+# an interior node besides its J1 (qR·s and qL·x two products each, the
+# halving, sin, the numerator, the denominator, the division, the square,
+# the sum) and an offset's two endpoints besides j1_over_x and sinc_sin
+# (qR, the halving, qL, its halving, two squares, their sum, the halving,
+# the sum); a smeared point adds its weight's product to each
+NODE_OPS = 11
+ENDS_OPS = 9
 STATE_FIELDS = ("rset", "ibank", "ft", "scale", "background", "conval",
                 "n_iter", "n_moves")
 SECTIONS = ("fused", "prefetch", "kab")
@@ -136,6 +149,51 @@ def k2_work(eng, state0, state1, cands, rows=None, sw=None):
 def k2_bound(eng, state0, state1, cands, rows=None, sw=None):
     """:func:`bound_ms` of :func:`k2_work`."""
     return bound_ms(*k2_work(eng, state0, state1, cands, rows, sw))
+
+
+def cyl_bank_work(inp, block_values=2 ** 24):
+    """(bytes, operations) of one launch of the post pass's cylinder bank
+    on *inp* (``ops.cyl_bank.BankInputs``): the inputs read once and the
+    (B, Nq) bank written once; per contribution, point and offset the
+    interior nodes, each on the branch of J1 its argument takes (the
+    argument formed as the kernel forms it), and the two endpoints on
+    their branches (j1_over_x's limit below 1e-6, sinc_sin's series below
+    0.05); per output the three products of the weight.  Counted on the
+    inputs' device, *block_values* nodes at a time."""
+    import torch
+    nq, n_off = inp.grid.shape
+    smeared = inp.smear_w is not None
+    n_bytes = 8 * (sum(t.numel() for t in inp if torch.is_tensor(t))
+                   + inp.radius.numel() * nq)
+    per_node = NODE_OPS + smeared
+    ops = inp.radius.numel() * nq * 3
+    block = max(1, block_values // max(1, nq * n_off * inp.x.numel()))
+    for i in range(0, inp.radius.numel(), block):
+        g = inp.grid[None]
+        a = g * inp.radius[i:i + block, None, None]     # (b, Nq, n_off)
+        c = g * inp.length[i:i + block, None, None]
+        poly = int(((a[..., None] * inp.s).abs() <= 3.0).sum())
+        nodes = a.numel() * inp.x.numel()
+        ops += (nodes * per_node + poly * J1_POLY_OPS
+                + (nodes - poly) * J1_ASYM_OPS)
+        small = a.abs() < 1e-6
+        ops += int(small.sum()) * 3
+        big = ~small
+        ops += int((big & (a.abs() <= 3.0)).sum()) * (1 + J1_POLY_OPS)
+        ops += int((a.abs() > 3.0).sum()) * (1 + J1_ASYM_OPS)
+        series = int(((c * 0.5).abs() < 0.05).sum())
+        ops += series * 5 + (a.numel() - series) * 2
+        ops += a.numel() * (ENDS_OPS + smeared)
+    return n_bytes, ops
+
+
+def cyl_bank_bound(inp):
+    """(ms, what bounds it) of :func:`cyl_bank_work`: its bytes over the
+    HBM rate, its operations over the float64 rate."""
+    n_bytes, n_ops = cyl_bank_work(inp)
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
+    return (max(t_b, t_o) * 1e3,
+            "bytes" if t_b >= t_o else "float64 operations")
 
 
 # ------------------------------------------------------------ counting

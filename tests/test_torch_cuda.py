@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 
 from mcsas_tpu_torch import load  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
-from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing  # noqa: E402
+from mcsas_tpu_torch.data import (DataConfig, TrapezoidSmearing,  # noqa: E402
+                                  from_raw)
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
 from mcsas_tpu_torch.models import get_model  # noqa: E402
 from mcsas_tpu_torch.ops import mc_kernel, tables  # noqa: E402
@@ -1449,8 +1450,10 @@ def test_q_axis_on_the_card_needs_the_plain_chunk():
 def test_prewarm_loads_the_library_and_keeps_the_fit(small_tables, model,
                                                      lib):
     """prewarm() on the card returns a load entry for the library of the
-    engine's kernel (K1 for Sphere, K2 for the cylinder) with every entry
-    a time, and the fit after it is bitwise the fit without one."""
+    engine's kernel (K1 for Sphere, K2 for the cylinder; the cylinder's
+    post pass launches the bank kernel, so its library beside K2's) with
+    every entry a time, and the fit after it is bitwise the fit without
+    one."""
     from mcsas_tpu_torch import api, fit
     d = load(DATA)
     bound = (get_model("Sphere").bind() if model == "Sphere"
@@ -1462,8 +1465,10 @@ def test_prewarm_loads_the_library_and_keeps_the_fit(small_tables, model,
     plain = McSASEngine(d, bound, cfg, device="cuda").run()
     eng = McSASEngine(d, bound, cfg, device="cuda")
     out = eng.prewarm()
-    assert list(out) == [f"nvcc {lib}", f"load {lib}", "init",
-                         f"attributes {lib}"]
+    libs = [lib] + (["cyl_bank"] if model != "Sphere" else [])
+    assert list(out) == ([f"nvcc {n}" for n in libs]
+                         + [f"load {n}" for n in libs]
+                         + ["init", f"attributes {lib}"])
     assert all(isinstance(v, float) and v >= 0.0 for v in out.values())
     after = eng.run()
     for f in ("contribs", "conval", "n_iter", "n_moves", "scaling",
@@ -1525,3 +1530,113 @@ def test_k2_launch_calls_lie_inside_the_launch_spans():
                    for s, e in spans), (ev.name(), ev.start_ns())
     reads = [s for s in rec.spans if s[0] == "core.engine.read"]
     assert len(reads) == res.engine.n_chunks
+
+
+# ------------------------------------------ the post pass's cylinder bank
+
+def _bank_case(name):
+    """(binding, data, contributions) of the bank kernel's card tests:
+    the benchmark's cylinder cells (300 × 10 contributions over radius
+    0.5-300 nm, aspect 10, intDiv 100, the 100-point grid, unsmeared and
+    through the 25-step trapezoid slit), useAspect 0 with the length
+    active, intDiv 801 and 3, and contributions that reach qR < 1e-6 (the
+    limit branch of j1_over_x and sinc_sin's series)."""
+    model = get_model("CylindersIsotropic")
+    radii = {"radius": (0.5e-9, 300e-9)}
+    d = suite.cylinder_golden()
+    if name == "useAspect-0":
+        bound = model.bind(active=("radius", "length"),
+                           active_ranges=dict(radii, length=(1e-9, 2e-6)),
+                           fixed={"useAspect": 0.0})
+    elif name == "qR-limit":
+        bound = model.bind(active=("radius",),
+                           active_ranges={"radius": (1e-10, 1e-8)})
+        q = np.geomspace(1e-6, 2.0, 100)
+        i = 1.0 / (1.0 + q)
+        d = from_raw(np.column_stack([q, i, 0.01 * i]),
+                     config=DataConfig(n_bin=0))
+    else:
+        div = {"intDiv-801": 801.0, "intDiv-3": 3.0}.get(name, 100.0)
+        bound = model.bind(active=("radius",), active_ranges=radii,
+                           fixed={"aspect": 10.0, "intDiv": div})
+        if name == "slit":
+            d = suite.cylinder_smeared_golden()
+    rs = np.random.default_rng(17)
+    lo, hi = np.log(np.asarray(bound.ranges)).T
+    c = np.exp(rs.uniform(lo, hi, (10, 300, len(lo))))
+    if name == "qR-limit":
+        c[0, 0, 0] = 1e-10
+    return bound, d, c
+
+
+@pytest.mark.parametrize("name", ["unsmeared", "slit", "useAspect-0",
+                                  "intDiv-801", "intDiv-3", "qR-limit"])
+def test_cyl_bank_matches_the_eager_bank(name, monkeypatch):
+    """The bank kernel (one launch a post pass) against its plain
+    version, the eager bank on the CPU: the bank and every output of the
+    float64 post pass to 1e-10 relative (float64 on both sides; the sum's
+    order and the math library's last bit differ)."""
+    _needs_card()
+    from mcsas_tpu_torch.ops import cyl_bank
+    from mcsas_tpu_torch.post import histogram
+    bound, d, c = _bank_case(name)
+    cfg = McSASConfig(num_contribs=c.shape[1], num_reps=c.shape[0])
+    comp2 = 2.0 * cfg.compensation_exponent
+    inp = cyl_bank.bank_inputs(bound, d, comp2,
+                               torch.as_tensor(c, device="cuda"))
+    if name == "qR-limit":
+        a = inp.grid[None] * inp.radius[:, None, None]
+        assert float(a.abs().min()) < 1e-6
+    shape = cyl_bank.launch_shape(inp)
+    pairs = inp.x.numel() * inp.grid.shape[1]
+    assert shape["group"] == (32 if pairs >= 256 else 8)
+    assert shape["blocks"] == -(-c.shape[0] * c.shape[1] * d.count
+                                // (256 // shape["group"]))
+    banks = {}
+    real = histogram._bank_f64
+
+    def keep(bound, data, comp2, rset, block=None):
+        out = real(bound, data, comp2, rset, block)
+        banks[rset.device.type] = out.cpu().numpy()
+        return out
+
+    monkeypatch.setattr(histogram, "_bank_f64", keep)
+    before = cyl_bank.run_cyl_bank.launches
+    card = histogram._post_pass_f64(bound, d, cfg, c, device="cuda")
+    assert cyl_bank.run_cyl_bank.launches == before + 1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        cpu = histogram._post_pass_f64(bound, d, cfg, c, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert cyl_bank.run_cyl_bank.launches == before + 1
+    assert np.isfinite(banks["cpu"]).all() and (banks["cpu"] > 0).all()
+    np.testing.assert_allclose(banks["cuda"], banks["cpu"], rtol=1e-10,
+                               atol=0.0)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=0.0)
+
+
+def test_cyl_bank_launches_once_a_cylinder_post_pass(small_tables):
+    """fit() on the card: the bank kernel launches once in each cylinder
+    fit's post pass (unsmeared and slit-smeared; once more for a
+    prewarm's post pass) and never in a Sphere fit."""
+    from mcsas_tpu_torch import api, fit
+    from mcsas_tpu_torch.ops import cyl_bank
+    api._ENGINE_CACHE.clear()
+    cfg = McSASConfig(num_contribs=40, num_reps=3, candidates_per_step=32,
+                      chunk_steps=64, seed=6, max_iterations=20_000,
+                      max_retries=0, show_incomplete=True)
+    n0 = cyl_bank.run_cyl_bank.launches
+    fit(load(DATA), get_model("Sphere").bind(), cfg, device="cuda",
+        prewarm=True)
+    assert cyl_bank.run_cyl_bank.launches == n0
+    bound = suite.cylinder_bound()
+    for golden in (suite.cylinder_golden(), suite.cylinder_smeared_golden()):
+        n0 = cyl_bank.run_cyl_bank.launches
+        fit(golden, bound, cfg.replace(table_ff="on"), device="cuda",
+            prewarm=True)
+        assert cyl_bank.run_cyl_bank.launches == n0 + 2
+        fit(golden, bound, cfg.replace(table_ff="on"), device="cuda")
+        assert cyl_bank.run_cyl_bank.launches == n0 + 3

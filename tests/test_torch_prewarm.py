@@ -21,7 +21,7 @@ from mcsas_tpu_torch import api  # noqa: E402
 from mcsas_tpu_torch.cli import main as cli_main  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
-from mcsas_tpu_torch.ops import mc_kernel  # noqa: E402
+from mcsas_tpu_torch.ops import cyl_bank, mc_kernel  # noqa: E402
 from mcsas_tpu_torch.parallel import ShardedEnsemble, make_mesh  # noqa: E402
 from mcsas_tpu_torch.tools import suite  # noqa: E402
 
@@ -238,6 +238,39 @@ def test_prewarm_queries_k2_with_a_segment(small_table, recorded_kernel,
         assert tuple(args[1].shape) == (eng.seg_steps, 2, 4, d.count)
     else:
         assert len(args) == 1
+
+
+@pytest.mark.parametrize("smear", [False, True])
+def test_prewarm_builds_the_bank_kernel_beside_k2(small_table,
+                                                  recorded_kernel,
+                                                  monkeypatch, smear):
+    """Where the fit's post pass launches the cylinder bank kernel (its
+    route answered as on the card), prewarm builds mc_prefetch and
+    cyl_bank in one nvcc round and loads both before the init; an engine
+    whose post pass keeps the eager bank (the Sphere) builds its chunk
+    kernel's library alone."""
+    monkeypatch.setattr(cyl_bank, "launches_on",
+                        lambda bound, data, device: cyl_bank.applies(bound,
+                                                                     data))
+    d, b, cfg = _cylinder()
+    if smear:
+        d = suite.cylinder_smeared_golden()
+    eng = _kernel_engine(McSASEngine(d, b, cfg, device="cpu"))
+    out = eng.prewarm()
+    assert list(out) == ["nvcc mc_prefetch", "nvcc cyl_bank",
+                         "load mc_prefetch", "load cyl_bank", "init",
+                         "attributes mc_prefetch"]
+    assert recorded_kernel[0] == ("build", ("mc_prefetch", "cyl_bank"))
+    assert recorded_kernel[1:3] == [("load", "mc_prefetch"),
+                                    ("load", "cyl_bank")]
+    del recorded_kernel[:]
+    sphere = mt.get_model("Sphere").bind()
+    eng = _kernel_engine(McSASEngine(d, sphere, McSASConfig(**_TINY),
+                                     device="cpu"))
+    assert list(eng.prewarm()) == ["nvcc mc_chunk", "load mc_chunk",
+                                   "init", "attributes mc_chunk"]
+    assert recorded_kernel[:2] == [("build", ("mc_chunk",)),
+                                   ("load", "mc_chunk")]
 
 
 def test_sharded_prewarm_queries_every_shard(refdata, recorded_kernel):

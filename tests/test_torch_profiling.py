@@ -229,6 +229,33 @@ def test_a_fit_records_its_span_tree(kind, refdata, monkeypatch):
         0.05 * report["core.engine.mc"]["total_s"]
 
 
+def test_bank_kernel_counts_each_launch_under_recording(monkeypatch):
+    """``post.bank.kernel`` counts one per launch of the cylinder bank
+    kernel under ``recording()`` and nothing with recording off, while the
+    wrapper's own ``launches`` counts every launch.  The launch is
+    rehearsed on CPU tensors: the wrapper's device check and the C call
+    are replaced, the call recorded."""
+    from mcsas_tpu_torch.ops import cyl_bank, mc_kernel
+    calls = []
+    monkeypatch.setattr(cyl_bank, "_check", lambda inp: None)
+    monkeypatch.setattr(mc_kernel, "_device_index", lambda dev: 0)
+    monkeypatch.setattr(mc_kernel, "_launch",
+                        lambda entry, prm, dev: calls.append(entry))
+    rset = torch.full((2, 3, 1), 1e-8, dtype=torch.float64)
+    inp = cyl_bank.bank_inputs(suite.cylinder_bound(),
+                               suite.cylinder_golden(), 4.0 / 3.0, rset)
+    before = cyl_bank.run_cyl_bank.launches
+    with recording() as rec:
+        for _ in range(2):
+            assert tuple(cyl_bank.run_cyl_bank(inp).shape) == (6, 100)
+    cyl_bank.run_cyl_bank(inp)                       # recording off
+    with recording() as idle:
+        pass
+    assert rec.counters == {"post.bank.kernel": 2} and idle.counters == {}
+    assert calls == ["cyl_bank"] * 3
+    assert cyl_bank.run_cyl_bank.launches == before + 3
+
+
 def test_engine_counters_of_a_converging_fit(refdata):
     """rep_chunks counts the repetitions still running at each chunk's
     launch: below n_chunks × R once a repetition converges before the
