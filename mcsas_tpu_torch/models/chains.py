@@ -14,6 +14,7 @@ import torch
 
 from ..ops import tables
 from ..ops.special import gauss_legendre, ipow, j1_over_x, sine_integral
+from ..utils import profiling
 from ..utils.units import ANGSTROM_SLD, NM, NoUnit
 from .base import ParamSpec, SASModel
 
@@ -210,7 +211,18 @@ def _kho_p0_sq_conv(t, x):
     problem keeps (B, Nq) temporaries, whatever B (the float64 bank of
     ``post/histogram.py`` evaluates every contribution in one block, the
     bake every row of the table).  Validated ≤1e-6 relative against
-    adaptive quadrature (the JAX package's tests, ported)."""
+    adaptive quadrature (the JAX package's tests, ported).
+
+    Under ``utils.profiling.recording()`` each call is a span
+    ``models.kholodenko.rule`` (the bake, the magnitude probe and the
+    post pass's bank each call it) and adds the elements of the
+    broadcast shape of *t* and *x* to ``models.kholodenko.rule_values``."""
+    with profiling.span("models.kholodenko.rule"):
+        return _kho_conv_rule(t, x)
+
+
+def _kho_conv_rule(t, x):
+    """The body of :func:`_kho_p0_sq_conv`."""
     dtype, dev = t.dtype, t.device
     x = _as_param(x, t)
     n2 = 2 * _N_HALF
@@ -241,6 +253,7 @@ def _kho_p0_sq_conv(t, x):
     sinh_d, cosh_d = torch.sinh(e * h), torch.cosh(e * h)
     # numpy's rule: torch.broadcast_shapes imports sympy on its first call
     shape = np.broadcast_shapes(tuple(t.shape), tuple(x.shape))
+    profiling.count("models.kholodenko.rule_values", math.prod(shape))
     one = torch.ones(shape, dtype=dtype, device=dev)
     sF, cF = torch.zeros_like(one), one
     she, che = torch.zeros_like(one), one

@@ -341,8 +341,11 @@ def segment_rows(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
     Nq·n_off wide (2,600 at Nq=100 with 26 offsets), and a whole 131-step
     segment at R=10, K=128 would make 1.7 GB temporaries, one step 13 MB,
     one step of one repetition 1.3 MB.  The engine's segment and the plain
-    version evaluate the same blocks."""
+    version evaluate the same blocks.  Rows that carry the lookup's row
+    factor count in ``ops.mc_kernel.cross_section``
+    (:func:`_count_row_factor`)."""
     kern = spec.kern
+    _count_row_factor(kern)
     if kern.table is None:
         return kern.row(cands)
     width = kern.table.values.shape[1]
@@ -355,6 +358,17 @@ def segment_rows(spec: ChunkSpec, cands: torch.Tensor) -> torch.Tensor:
     for i in range(0, flat.shape[0], block):
         out[i:i + block] = kern.row(flat[i:i + block])
     return out.reshape(*cands.shape[:-1], -1)
+
+
+def _count_row_factor(kern) -> None:
+    """Adds one to ``ops.mc_kernel.cross_section`` under
+    ``utils.profiling.recording()`` where a segment's rows carry the
+    factor *kern*'s table lookup declares (``row_factor``, one of
+    :data:`ROW_FACTORS`): a launch of K2's table entry that computes it,
+    its plain version, or rows the lookup evaluates for a segment."""
+    if (kern.table is not None
+            and getattr(kern.table_fn, "row_factor", None) is not None):
+        profiling.count("ops.mc_kernel.cross_section")
 
 
 def supports_prefetch(engine) -> bool:
@@ -1260,8 +1274,10 @@ def run_prefetch_table_chunk(state, ri: int, consts: FitConstants,
     table.  CUDA tensors launch K2 (counted in
     ``run_prefetch_table_chunk.launches``); CPU tensors run
     :func:`prefetch_table_reference`.  *trace* as for
-    :func:`run_prefetch_chunk`."""
+    :func:`run_prefetch_chunk`.  A segment with the lookup's row factor
+    counts in ``ops.mc_kernel.cross_section``."""
     _check_prefetch(state, consts, spec, cands, None, sw)
+    _count_row_factor(spec.kern)
     if state.rset.device.type == "cpu":
         return prefetch_table_reference(state, ri, consts, spec, cands,
                                         trace)

@@ -188,7 +188,9 @@ def _bank_eager(bound: BoundModel, data: SASData, comp2: float,
     the blocks to :data:`BANK_BLOCK_VALUES`; the result does not depend
     on it (each contribution's row is its own), up to the last bit where
     a block moves where a row of quadrature nodes starts in memory (the
-    vectorized sums read from there)."""
+    vectorized sums read from there).  Under ``utils.profiling.
+    recording()`` each call adds one to ``post.bank.eager``."""
+    profiling.count("post.bank.eager")
     model, dev = bound.model, rset.device
     two_d = data.psi is not None and model.ff2d is not None
     smearing = data.uses_smearing and model.can_smear and not two_d

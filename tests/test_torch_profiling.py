@@ -256,6 +256,46 @@ def test_bank_kernel_counts_each_launch_under_recording(monkeypatch):
     assert cyl_bank.run_cyl_bank.launches == before + 3
 
 
+def test_the_worm_records_its_rule_and_counters(refdata, monkeypatch):
+    """A worm fit (16-node table axes) records a span
+    ``models.kholodenko.rule`` under each of the magnitude probe, the
+    table's bake and the post pass's bank, counts the (t, x) elements
+    each evaluated, one ``ops.mc_kernel.cross_section`` a segment (the
+    rows carry the lookup's cross-section) and one ``post.bank.eager``;
+    the Sphere and the cylinder record neither the rule nor the factor."""
+    from mcsas_tpu_torch.ops import tables
+    monkeypatch.setattr(api, "_ENGINE_CACHE", {})
+    monkeypatch.setattr(tables, "_TABLE_CACHE", {})
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    monkeypatch.delenv("MCSAS_TPU_TABLE_CACHE_DIR", raising=False)
+    d = data.load(refdata / "sasfit_kho-1-10-1000.dat")
+    cfg = McSASConfig(num_contribs=10, num_reps=2, max_iterations=3000,
+                      chunk_steps=64, candidates_per_step=4,
+                      local_moves=0.75, table_ff="on", seed=3,
+                      max_retries=0)
+    with recording() as rec:
+        res = api.fit(d, get_model("Kholodenko").bind(), cfg, device="cpu")
+    assert res.engine.used_table
+    spans, names = rec.spans, [s[0] for s in rec.spans]
+    rule = [s for s in spans if s[0] == "models.kholodenko.rule"]
+    assert sorted(spans[s[3]][0] for s in rule) == [
+        "core.engine.probe", "ops.tables.lookup", "post.bank"]
+    nq = len(d.q)
+    c = rec.counters
+    assert c["models.kholodenko.rule_values"] == nq * (1 + 16 * 16 + 2 * 10)
+    assert c["ops.mc_kernel.cross_section"] == names.count(
+        "ops.mc_kernel.launch") == res.engine.n_chunks > 0
+    assert c["post.bank.eager"] == 1 and "post.bank.kernel" not in c
+    for kind in ("sphere", "cylinder"):
+        case = _fit_case(kind, refdata, monkeypatch)
+        with recording() as other:
+            _fit(case)
+        assert "models.kholodenko.rule" not in [s[0] for s in other.spans]
+        assert set(other.counters) & {"models.kholodenko.rule_values",
+                                      "ops.mc_kernel.cross_section"} == set()
+        assert other.counters["post.bank.eager"] == 1
+
+
 def test_engine_counters_of_a_converging_fit(refdata):
     """rep_chunks counts the repetitions still running at each chunk's
     launch: below n_chunks × R once a repetition converges before the
