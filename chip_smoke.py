@@ -8,12 +8,12 @@ Phases (any failure raises and the script exits nonzero):
   1. device: the card's name and power limit (nvidia-smi) and the
      torch/CUDA versions; fails when torch.cuda.is_available() is False;
   2. build: compiles csrc/mc_chunk.cu (K1), csrc/mc_prefetch.cu (K2),
-     csrc/mc_probe.cu (K3) and csrc/cyl_bank.cu (the post pass's cylinder
-     bank) with nvcc for sm_90a, one nvcc each, started
-     together (timed; ptxas registers and spills printed); K1's launch
-     shape for each model (lanes per candidate, threads per block,
-     registers, spills) is printed where its engine is first built, K2's
-     (with its row source and shared memory) in phase 6;
+     csrc/mc_probe.cu (K3), csrc/cyl_bank.cu and csrc/kho_bank.cu (the
+     post pass's cylinder and worm banks) with nvcc for sm_90a, one nvcc
+     each, started together (timed; ptxas registers and spills printed);
+     K1's launch shape for each model (lanes per candidate, threads per
+     block, registers, spills) is printed where its engine is first built,
+     K2's (with its row source and shared memory) in phase 6;
   3. K1 vs plain version: one 256-step chunk at the headline shape
      (R=10, N=300, K=128, local moves 0.5) on injected proposals — the
      accept decisions must be identical, or first differ at a near-tie
@@ -228,8 +228,14 @@ Phases (any failure raises and the script exits nonzero):
      one ``_post_pass_f64`` on the card launches it once, its bank and
      every output within 1e-10 relative of the CPU's eager pass; the
      kernel alone, with its inputs' preparation, and the eager bank on
-     the card timed, the float64 bound and the launch shape printed.
-     The script's wall is printed.
+     the card timed, the float64 bound and the launch shape printed;
+ 27. the post pass's worm bank (csrc/kho_bank.cu) at the worm cell's shape
+     (300 × 10 contributions over worm-k2xs's active ranges, 100 points of
+     0.01-10 nm⁻¹, and a 25-step slit): one launch a post pass, its bank
+     and every output within 1e-10 relative of the eager pass (the CPU's
+     unsmeared, the card's through the slit), the kernel timed as in 26,
+     the float64 bound (tools/roofline.py:kho_bank_bound) and the launch
+     shape printed.  The script's wall is printed.
 
 With ``--profile`` it also runs one more fit of each path under
 torch.profiler and prints where the device time went and the device's
@@ -3201,6 +3207,120 @@ def cyl_bank_phase(torch, card):
     return out
 
 
+# --------------------------- phase 27: the post pass's worm bank
+
+# worm-k2xs's active ranges (benchmark/configs/worm-k2xs.json), in m
+WORM_RANGES = {"radius": (1e-9, 5e-9), "lenKuhn": (1e-8, 5e-8),
+               "lenContour": (1e-7, 1e-6)}
+
+
+def worm_bank_data(smear):
+    """A flat frame on the worm cell's 100 points of 0.01-10 nm⁻¹,
+    unsmeared or through the 25-step trapezoid slit."""
+    from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing, from_raw
+    q = np.geomspace(0.01, 10.0, 100)
+    cfg = DataConfig(n_bin=0, smearing=TrapezoidSmearing(
+        do_smear=True, n_steps=25, umbra=0.05e9, penumbra=0.2e9)
+        if smear else None)
+    return from_raw(np.column_stack([q, np.ones_like(q),
+                                     np.full_like(q, 0.01)]), config=cfg)
+
+
+def kho_bank_phase(torch, card):
+    """Phase 27: the post pass's worm bank (csrc/kho_bank.cu) at the worm
+    cell's shape, 300 × 10 contributions log-uniform over worm-k2xs's
+    active ranges on 100 points of 0.01-10 nm⁻¹, unsmeared and through a
+    25-step slit: one ``_post_pass_f64`` on the card launches the kernel
+    exactly once, and its bank and every output equal the eager pass to
+    1e-10 relative (unsmeared: the CPU's; the slit: the card's, whose CPU
+    pass would take many minutes); the kernel alone (inputs ready), the
+    bank with its inputs' preparation and the eager bank on the card (the
+    plain version) timed with CUDA events, beside the float64 bound of the
+    launch (tools/roofline.py:kho_bank_bound) and its launch shape."""
+    from mcsas_tpu_torch.config import McSASConfig
+    from mcsas_tpu_torch.models import get_model
+    from mcsas_tpu_torch.ops import kho_bank
+    from mcsas_tpu_torch.post import histogram
+    from mcsas_tpu_torch.tools.roofline import kho_bank_bound
+    bound = get_model("Kholodenko").bind(active=tuple(WORM_RANGES),
+                                         active_ranges=WORM_RANGES)
+    cfg = McSASConfig(num_contribs=300, num_reps=10)
+    comp2 = 2.0 * cfg.compensation_exponent
+    lo, hi = np.log(np.asarray(bound.ranges)).T
+    c = np.exp(np.random.default_rng(2026).uniform(lo, hi, (10, 300, 3)))
+    rset = torch.as_tensor(c, device="cuda")
+    kho_bank.run_kho_bank.launches = 0
+    launches = 0
+    out = {}
+    for name in ("unsmeared", "slit"):
+        data = worm_bank_data(name == "slit")
+        n0 = kho_bank.run_kho_bank.launches
+        card_post, card_bank = _post_pass_bank(histogram, bound, data, cfg,
+                                               c, "cuda")
+        torch.cuda.synchronize()
+        if kho_bank.run_kho_bank.launches != n0 + 1:
+            raise AssertionError(
+                f"[kho_bank {name}] {kho_bank.run_kho_bank.launches - n0}"
+                f" launches in one post pass")
+        launches += 1
+        threads, cpus = torch.get_num_threads(), os.cpu_count() or 1
+        torch.set_num_threads(cpus)
+        real, t0 = kho_bank.launches_on, time.perf_counter()
+        try:
+            if name == "slit":
+                kho_bank.launches_on = lambda *a: False
+            ref = "cuda" if name == "slit" else "cpu"
+            ref_post, ref_bank = _post_pass_bank(histogram, bound, data,
+                                                 cfg, c, ref)
+            torch.cuda.synchronize()
+        finally:
+            kho_bank.launches_on = real
+            torch.set_num_threads(threads)
+        ref_s = time.perf_counter() - t0
+        if kho_bank.run_kho_bank.launches != n0 + 1:
+            raise AssertionError(f"[kho_bank {name}] the eager pass "
+                                 f"launched")
+        if not (np.isfinite(ref_bank).all() and (ref_bank > 0).all()):
+            raise AssertionError(f"[kho_bank {name}] the eager bank")
+        bank_err = _max_rel(card_bank, ref_bank)
+        post_err = max(_max_rel(a, b) for a, b in zip(card_post, ref_post))
+        if not (bank_err <= 1e-10 and post_err <= 1e-10):
+            raise AssertionError(f"[kho_bank {name}] against the eager "
+                                 f"pass on the {ref}: bank {bank_err:.3g}, "
+                                 f"post pass {post_err:.3g}")
+        inp = kho_bank.bank_inputs(bound, data, comp2, rset)
+        shape = kho_bank.launch_shape(inp)
+        n0 = kho_bank.run_kho_bank.launches
+        ms = cuda_ms(lambda: kho_bank.run_kho_bank(inp), 5)
+        with_inputs_ms = cuda_ms(
+            lambda: histogram._bank_f64(bound, data, comp2, rset), 5)
+        timed = kho_bank.run_kho_bank.launches - n0
+        if timed != 12:
+            raise AssertionError(f"[kho_bank {name}] {timed} timed launches")
+        plain_ms = cuda_ms(
+            lambda: histogram._bank_eager(bound, data, comp2, rset), 1)
+        if kho_bank.run_kho_bank.launches != n0 + timed:
+            raise AssertionError(f"[kho_bank {name}] the eager bank "
+                                 f"launched the kernel")
+        b_ms, b_by = kho_bank_bound(inp)
+        nq, n_off = inp.grid.shape
+        print(f"[kho_bank {name}] 3000 contributions x {nq} points x "
+              f"{n_off} offsets: 1 launch in the card's post pass; against "
+              f"the eager pass on the {ref} ({cpus} threads, {ref_s:.2f} s) "
+              f"bank max rel {bank_err:.3g}, post pass outputs "
+              f"{post_err:.3g}; kernel {ms:.4f} ms, with its inputs' "
+              f"preparation {with_inputs_ms:.4f} ms, the eager bank on the "
+              f"card {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}), "
+              f"{100.0 * b_ms / ms:.2f} % of it; shape {shape}; {card}",
+              flush=True)
+        out[name] = dict(ms=ms, with_inputs_ms=with_inputs_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         shape=shape, max_rel_err=max(bank_err, post_err),
+                         against=ref)
+    out["launches"] = launches
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     import torch
@@ -3656,7 +3776,10 @@ def main():
 
     # ---- phase 26: the post pass's cylinder bank kernel
     bank = cyl_bank_phase(torch, card)
-    print(f"[time] phases 1-24 {phases_s:.2f} s, all 26 "
+
+    # ---- phase 27: the post pass's worm bank kernel
+    worm_bank = kho_bank_phase(torch, card)
+    print(f"[time] phases 1-24 {phases_s:.2f} s, all 27 "
           f"{time.perf_counter() - t_script:.2f} s; on {card}", flush=True)
 
     # max_abs_err: the largest |Δχ²| of a kernel's comparisons, over the
@@ -3835,6 +3958,22 @@ def main():
                  "nodes; the JAX package runs it as jnp, "
                  "mcsas_tpu/post/histogram.py)",
         "unsmeared": bank["unsmeared"]})
+    worm = worm_bank["unsmeared"]
+    kernels.append({
+        "name": "kho_bank", "route": "cuda",
+        "source": "mcsas_tpu_torch/csrc/kho_bank.cu",
+        "replaces": None, "launches": worm_bank["launches"],
+        "max_rel_err": max(worm["max_rel_err"],
+                           worm_bank["slit"]["max_rel_err"]),
+        "ms": worm["ms"], "plain_ms": worm["plain_ms"],
+        "bound_ms": worm["bound_ms"], "bound_by": worm["bound_by"],
+        "library_ms": None, "shape": worm["shape"],
+        "with_inputs_ms": worm["with_inputs_ms"],
+        "entry": "the post pass's float64 bank of the Kholodenko worm on "
+                 "1D data (the worm cell's 3000 x 100 points, the 513-node "
+                 "rule; the JAX package runs it as jnp, "
+                 "mcsas_tpu/post/histogram.py)",
+        "slit": worm_bank["slit"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

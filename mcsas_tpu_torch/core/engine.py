@@ -48,7 +48,7 @@ import torch
 from ..config import McSASConfig
 from ..data import SASData
 from ..models.base import BoundModel
-from ..ops import cyl_bank, mc_kernel
+from ..ops import cyl_bank, kho_bank, mc_kernel
 from ..ops.tables import ParamTable
 from ..utils import profiling
 from .fitcore import FitConstants, make_constants, solve_scale_bg
@@ -697,16 +697,17 @@ class McSASEngine:
         them, without running the MC: builds (nvcc, where build/kernels/
         lacks it) and loads the library of the kernel its chunks launch
         (``mc_chunk``, K1, or for prefetch segments ``mc_prefetch``, K2)
-        and, where this fit's post pass launches the bank kernel
-        (:func:`ops.cyl_bank.launches_on`), ``cyl_bank`` in the same nvcc
-        round; runs the batched init and the eager work before a first
-        launch on a generator of its own, and asks CUDA for the attributes of
-        the kernel instantiation that will run (which loads it).  The
-        parameter table was baked in ``__init__`` (and persists through
-        MCSAS_TPU_TABLE_CACHE_DIR).  The engine's generator and state are
-        left as they were, so a fit after a prewarm is the fit without
-        one, bit for bit.  Entry points: ``fit(..., prewarm=True)`` and
-        the CLI's ``--prewarm``.
+        and, where this fit's post pass launches a bank kernel
+        (:func:`ops.cyl_bank.launches_on`,
+        :func:`ops.kho_bank.launches_on`), ``cyl_bank`` or ``kho_bank``
+        in the same nvcc round; runs the batched init and the eager work
+        before a first launch on a generator of its own, and asks CUDA for
+        the attributes of the kernel instantiation that will run (which
+        loads it).  The parameter table was baked in ``__init__`` (and
+        persists through MCSAS_TPU_TABLE_CACHE_DIR).  The engine's
+        generator and state are left as they were, so a fit after a
+        prewarm is the fit without one, bit for bit.  Entry points:
+        ``fit(..., prewarm=True)`` and the CLI's ``--prewarm``.
 
         Returns {label: seconds}; where no kernel runs this engine (the
         CPU, ``use_pallas='off'``) each label maps to a string saying why
@@ -722,9 +723,10 @@ class McSASEngine:
                        f"(use_pallas={self.cfg.use_pallas!r})")
                 return dict.fromkeys(labels, why)
             # the post pass's bank kernel, where this fit's post pass
-            # launches it: built beside the chunk kernel's library
-            libs = (lib,) + ((cyl_bank.LIBRARY,) if cyl_bank.launches_on(
-                self.bound, self.data, self.device) else ())
+            # launches one: built beside the chunk kernel's library
+            libs = (lib,) + tuple(
+                bank.LIBRARY for bank in (cyl_bank, kho_bank)
+                if bank.launches_on(self.bound, self.data, self.device))
             builds = mc_kernel.build_libraries(libs)
             timings = {f"nvcc {name}": builds[name].seconds
                        for name in libs}

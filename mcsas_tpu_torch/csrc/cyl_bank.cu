@@ -25,8 +25,9 @@
 // 16 integral and the contraction with smear_w moved inside the sum (all
 // terms are positive: this changes the last bits only).  J1 is the port's
 // own approximation (ops/special.py::bessel_j1, Abramowitz & Stegun 9.4.4 /
-// 9.4.6, its coefficients and its |x| <= 3 switch), not CUDA's j1(): the
-// two differ by the polynomial's ~1e-8.  The operations that feed sin and
+// 9.4.6, its coefficients and its |x| <= 3 switch; bank_common.cuh, shared
+// with kho_bank.cu), not CUDA's j1(): the two differ by the polynomial's
+// ~1e-8.  The operations that feed sin and
 // cos (a s_j, c x_j, the phase ax + theta(3/ax)) are the plain version's,
 // in its order and rounded as it rounds them (_rn intrinsics, no FMA), so
 // that the arguments of the transcendentals are the same bits; what is
@@ -47,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bank_common.cuh"
+
 #define CB_THREADS 256
 
 struct CylBankParams {
@@ -65,51 +68,6 @@ struct CylBankParams {
   int32_t n_nodes;        // >= 2
   int32_t device;
 };
-
-// ops/special.py::_poly on float64 coefficients: acc = c6, then acc t + ci,
-// each product and sum rounded
-__device__ __forceinline__ double cb_poly7(double t, double c0, double c1,
-                                           double c2, double c3, double c4,
-                                           double c5, double c6) {
-  double acc = c6;
-  acc = __dadd_rn(__dmul_rn(acc, t), c5);
-  acc = __dadd_rn(__dmul_rn(acc, t), c4);
-  acc = __dadd_rn(__dmul_rn(acc, t), c3);
-  acc = __dadd_rn(__dmul_rn(acc, t), c2);
-  acc = __dadd_rn(__dmul_rn(acc, t), c1);
-  return __dadd_rn(__dmul_rn(acc, t), c0);
-}
-
-// ops/special.py::bessel_j1 in float64: ax / 3.0 a division (PyTorch's on
-// the CPU), 3.0 / ax the reciprocal times 3 (Tensor.__rtruediv__)
-__device__ __forceinline__ double cb_j1(double x) {
-  const double ax = fabs(x);
-  double j;
-  if (ax <= 3.0) {
-    double t = __ddiv_rn(ax, 3.0);
-    t = __dmul_rn(t, t);
-    j = __dmul_rn(ax, cb_poly7(t, 0.5, -0.56249985, 0.21093573, -0.03954289,
-                               0.00443319, -0.00031761, 0.00001109));
-  } else {
-    const double t = __dmul_rn(__drcp_rn(ax), 3.0);
-    const double f1 = cb_poly7(t, 0.79788456, 0.00000156, 0.01659667,
-                               0.00017105, -0.00249511, 0.00113653,
-                               -0.00020033);
-    const double th = __dadd_rn(
-        ax, cb_poly7(t, -2.35619449, 0.12499612, 0.00005650, -0.00637879,
-                     0.00074348, 0.00079824, -0.00029166));
-    j = __ddiv_rn(__dmul_rn(f1, cos(th)), __dsqrt_rn(ax));
-  }
-  const double sign = x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : 0.0);
-  return __dmul_rn(sign, j);
-}
-
-// ops/special.py::j1_over_x: 1/2 - x^2/16 below |x| < 1e-6
-__device__ __forceinline__ double cb_j1_over_x(double x) {
-  if (fabs(x) < 1e-6)
-    return __dsub_rn(0.5, __dmul_rn(__dmul_rn(x, x), 0.0625));
-  return __ddiv_rn(cb_j1(x), x);
-}
 
 // ops/special.py::sinc_sin in float64: the series below |x| < 0.05
 __device__ __forceinline__ double cb_sinc_sin(double x) {

@@ -17,7 +17,9 @@ version.  :func:`launch_shape` reports the launch (``chip_smoke.py``'s
 ``kernels`` line prints it).  The weight w =
 volume^comp2, the radius and the length 2·half of each contribution are
 computed in PyTorch (:func:`bank_inputs`).  The library is built and
-bound with the chunk kernels (``ops/mc_kernel.py``, ``KERNELS``).
+bound with the chunk kernels (``ops/mc_kernel.py``, ``KERNELS``);
+the grid, the checks and the counted launch are shared with the worm's
+bank kernel (``ops/bank_common.py``).
 """
 from __future__ import annotations
 
@@ -27,8 +29,7 @@ import numpy as np
 import torch
 
 from ..models.cylinders import _cyl_half, _cyl_iso_ff
-from ..utils import profiling
-from . import mc_kernel
+from . import bank_common, mc_kernel
 
 LIBRARY = "cyl_bank"            # csrc/cyl_bank.cu
 
@@ -64,24 +65,18 @@ def bank_inputs(bound, data, comp2: float, rset: torch.Tensor
     device, each per-contribution value computed as the eager bank
     computes it."""
     model, dev = bound.model, rset.device
-    f64 = torch.float64
-    smearing = data.uses_smearing and model.can_smear
-    grid = torch.as_tensor(np.asarray(data.locs if smearing else data.q,
-                                      np.float64)).to(dev)
-    smear_w = (torch.as_tensor(np.asarray(data.smear_w, np.float64)).to(dev)
-               if smearing else None)
+    grid, smear_w = bank_common.grid_inputs(bound, data, dev)
     flat = rset.reshape(-1, rset.shape[-1])
     pd = bound.pdict(flat)
 
     def per_contribution(v):
-        return torch.broadcast_to(torch.as_tensor(v, dtype=f64, device=dev),
-                                  (len(flat),)).contiguous()
+        return bank_common.per_contribution(v, len(flat), dev)
 
     n = int(pd["intDiv"])
     x, step = np.linspace(0.0, 1.0, n, retstep=True)
-    x = torch.as_tensor(x[1:-1], dtype=f64, device=dev)
+    x = torch.as_tensor(x[1:-1], dtype=torch.float64, device=dev)
     return BankInputs(
-        grid=grid.reshape(len(data.q), -1), smear_w=smear_w,
+        grid=grid, smear_w=smear_w,
         radius=per_contribution(pd["radius"]),
         length=per_contribution(2.0 * _cyl_half(pd)),
         weight=per_contribution(model.volume(pd) ** comp2),
@@ -91,31 +86,12 @@ def bank_inputs(bound, data, comp2: float, rset: torch.Tensor
 def _check(inp: BankInputs):
     """Raises unless *inp* is what the kernel takes: float64 and
     contiguous on one CUDA device, the shapes of :class:`BankInputs`."""
-    dev = inp.radius.device
     if inp.grid.dim() != 2 or inp.x.dim() != 1:
         raise ValueError("grid must be (Nq, n_off) and x (n - 2,)")
-    nq, n_off = inp.grid.shape
     b, m = inp.radius.numel(), inp.x.numel()
-    if n_off > 1 and inp.smear_w is None:
-        raise ValueError(f"a grid of {n_off} offsets a point needs smear_w")
-    want = {"grid": (nq, n_off), "radius": (b,), "length": (b,),
-            "weight": (b,), "x": (m,), "s": (m,)}
-    if inp.smear_w is not None:
-        want["smear_w"] = (n_off,)
-    for name, shape in want.items():
-        t = getattr(inp, name)
-        if (t.device != dev or t.dtype != torch.float64
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"{name}: want contiguous float64 {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}"
-                             + ("" if t.is_contiguous()
-                                else ", not contiguous"))
-    if b < 1 or nq < 1 or n_off < 1:
-        raise ValueError("the bank needs a contribution and a point")
-    if dev.type != "cuda":
-        raise ValueError(f"run_cyl_bank launches the CUDA kernel: its "
-                         f"inputs must lie on a CUDA device, not {dev}")
+    bank_common.check(inp, {"grid": tuple(inp.grid.shape), "radius": (b,),
+                            "length": (b,), "weight": (b,), "x": (m,),
+                            "s": (m,)}, "run_cyl_bank")
 
 
 def _params(inp: BankInputs, out: torch.Tensor):
@@ -138,13 +114,7 @@ def run_cyl_bank(inp: BankInputs) -> torch.Tensor:
     a refused launch.  Counts ``run_cyl_bank.launches`` and, under
     ``profiling.recording()``, ``post.bank.kernel``."""
     _check(inp)
-    dev = inp.radius.device
-    out = torch.empty((inp.radius.numel(), inp.grid.shape[0]),
-                      dtype=torch.float64, device=dev)
-    mc_kernel._launch(LIBRARY, _params(inp, out), dev)
-    run_cyl_bank.launches += 1
-    profiling.count("post.bank.kernel")
-    return out
+    return bank_common.launch(LIBRARY, _params, inp, run_cyl_bank)
 
 
 run_cyl_bank.launches = 0

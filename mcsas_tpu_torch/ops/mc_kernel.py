@@ -37,10 +37,12 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   ``tools/kern_probe.py``.  No PyTorch function computes a cut step: a
   ``full`` rung is K1 or K2 and is held against it.
 
-The post pass's float64 bank of orientation-averaged cylinders
-(``csrc/cyl_bank.cu``, no TPU counterpart) is built and bound here with
-the three; its wrapper and route are in ``ops/cyl_bank.py``, its plain
-version is the eager bank of ``post/histogram.py``.
+The post pass's float64 banks of orientation-averaged cylinders
+(``csrc/cyl_bank.cu``) and of the Kholodenko worm (``csrc/kho_bank.cu``),
+neither with a TPU counterpart, are built and bound here with the three;
+their wrappers and routes are in ``ops/cyl_bank.py`` and
+``ops/kho_bank.py``, their plain version is the eager bank of
+``post/histogram.py``.
 
 The plain versions are batched over (R, K, Nq) in the operation order of
 the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
@@ -116,10 +118,10 @@ PREFETCH_ROW_BYTES = 64 * 2 ** 20
 ROWS_BLOCK_VALUES = PREFETCH_ROW_BYTES // 64
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
 # csrc/<name>.cu each
-KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe", "cyl_bank")
+KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe", "cyl_bank", "kho_bank")
 # the shared headers; every kernel's build hash covers all of them
 _HEADERS = ("mc_common.cuh", "mc_models.cuh", "mc_chunk.cuh",
-            "mc_prefetch.cuh")
+            "mc_prefetch.cuh", "bank_common.cuh")
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
               / "build" / "kernels")
@@ -738,6 +740,19 @@ class _CylBankParams(ctypes.Structure):
             "n_contribs", "nq", "n_off", "n_nodes", "device")])
 
 
+class _KhoBankParams(ctypes.Structure):
+    """Mirror of ``KhoBankParams`` in csrc/kho_bank.cu (same field order):
+    the post pass's float64 worm bank (ops/kho_bank.py)."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "grid", "smear_w", "radius", "kuhn", "x", "weight", "rule",
+            "out")]
+        + [(name, ctypes.c_double) for name in ("z_cut", "si_cut")]
+        + [(name, ctypes.c_int32) for name in (
+            "n_contribs", "nq", "n_off", "n_steps", "n_tail", "n_lag",
+            "n_taylor", "device")])
+
+
 class _PrefetchParams(ctypes.Structure):
     """Mirror of ``PrefetchParams`` in csrc/mc_prefetch.cuh (same field
     order)."""
@@ -772,7 +787,10 @@ _ENTRIES = {
     "mc_probe": ("mc_probe", _ChunkParams, 2, _K1_SHAPE),
     "mc_probe_prefetch": ("mc_probe", _PrefetchParams, 1, _K2_SHAPE),
     "cyl_bank": ("cyl_bank", _CylBankParams, 0,
-                 ("group", "threads", "blocks", "registers", "local_bytes"))}
+                 ("group", "threads", "blocks", "registers", "local_bytes")),
+    "kho_bank": ("kho_bank", _KhoBankParams, 0,
+                 ("threads", "blocks", "smem_bytes", "registers",
+                  "local_bytes"))}
 
 
 @dataclass(frozen=True)

@@ -25,7 +25,7 @@ from ..core.fitcore import agofs as agofs_fn
 from ..core.fitcore import make_constants, solve_scale_bg
 from ..data import SASData
 from ..models.base import BoundModel
-from ..ops import cyl_bank
+from ..ops import cyl_bank, kho_bank
 from ..utils import profiling
 
 WEIGHTINGS = ("vol", "num", "int", "surf")
@@ -168,11 +168,17 @@ def _bank_f64(bound: BoundModel, data: SASData, comp2: float,
 
     Where :func:`ops.cyl_bank.launches_on` says so (orientation-averaged
     cylinders on 1D data, on a CUDA device) the bank is one launch of its
-    kernel (:func:`ops.cyl_bank.run_cyl_bank`); everything else, and
-    every CPU call, is :func:`_bank_eager`, that kernel's plain
-    version."""
+    kernel (:func:`ops.cyl_bank.run_cyl_bank`), where
+    :func:`ops.kho_bank.launches_on` says so (the Kholodenko worm on 1D
+    data, on a CUDA device) one launch of the worm's
+    (:func:`ops.kho_bank.run_kho_bank`); everything else, and every CPU
+    call, is :func:`_bank_eager`, those kernels' plain version."""
     if cyl_bank.launches_on(bound, data, rset.device):
         out = cyl_bank.run_cyl_bank(cyl_bank.bank_inputs(bound, data,
+                                                         comp2, rset))
+        return out.reshape(*rset.shape[:2], -1)
+    if kho_bank.launches_on(bound, data, rset.device):
+        out = kho_bank.run_kho_bank(kho_bank.bank_inputs(bound, data,
                                                          comp2, rset))
         return out.reshape(*rset.shape[:2], -1)
     return _bank_eager(bound, data, comp2, rset, block)

@@ -78,6 +78,37 @@ J1_ASYM_OPS = 32
 # the sum); a smeared point adds its weight's product to each
 NODE_OPS = 11
 ENDS_OPS = 9
+# the post pass's worm bank (csrc/kho_bank.cu), float64 operations, each
+# +, -, *, /, sqrt, reciprocal, negation, clamp, sin, cos, sinh, cosh, exp
+# and expm1 one.  Per contribution its set-up (h, 2/x, 2h/45) and per node of
+# its grid g = (2/x)(1 - z/x) with z (4), phi = g s (1) and Boole's weight
+# times 2h/45 times g (2); where z > 0 sinh z and its reciprocal (2); s by
+# its series below z < 0.1 (6), else the halvings, 1/z and the difference (4)
+KHO_SETUP_OPS = 5
+KHO_NODE_OPS = 7
+# per element: t = g k / 3, the clamped root of 1 - t^2 or t^2 - 1, its
+# product with h (7); past the rule the clamp, the root, the cross-section's
+# argument and doubling, ff and ff^2 (6); the slit's weight and sum (2)
+KHO_ELEMENT_OPS = 7
+KHO_END_OPS = 6
+# a step of the hyperbolic recurrence with Boole's term (t < 1: four
+# products, two sums; she / sinh z / e times the weight, the sum) and of the
+# rotation with Filon's term (t >= 1: four products, two sums, the product
+# with phi and its sum); each branch's sinh and cosh, or sin and cos, of e h
+KHO_SUB_STEP_OPS = 10
+KHO_SUP_STEP_OPS = 8
+# Filon's coefficients by their series (th < 0.05) or closed form, and the
+# assembly: F X with its sin and cos (3), S_e (3), the sum times h (8), the
+# singular part (5) and (sing + 2 filon) / F (3)
+KHO_FILON_SERIES_OPS = 19
+KHO_FILON_CLOSED_OPS = 23
+KHO_ASSEMBLY_OPS = 22
+# a node of the tail (x > Z_CUT): z (2), 1 - e^-2z and the denominator (5),
+# the numerator and the division of the sub (9) or sup (7) branch, the core
+# (4) and its weighted sum (3); per element the span and the sum (2), else
+# the sum of 0 (1)
+KHO_TAIL_SUB_OPS = 23
+KHO_TAIL_SUP_OPS = 21
 STATE_FIELDS = ("rset", "ibank", "ft", "scale", "background", "conval",
                 "n_iter", "n_moves")
 SECTIONS = ("fused", "prefetch", "kab")
@@ -191,6 +222,79 @@ def cyl_bank_bound(inp):
     """(ms, what bounds it) of :func:`cyl_bank_work`: its bytes over the
     HBM rate, its operations over the float64 rate."""
     n_bytes, n_ops = cyl_bank_work(inp)
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
+    return (max(t_b, t_o) * 1e3,
+            "bytes" if t_b >= t_o else "float64 operations")
+
+
+def kho_bank_work(inp, block_values=2 ** 24):
+    """(bytes, operations) of one launch of the post pass's worm bank on
+    *inp* (``ops.kho_bank.BankInputs``): the inputs read once and the
+    (B, Nq) bank written once; per contribution its node arrays, each node
+    on the branch its z takes; per contribution, point and offset the rule
+    on the branch its t takes (the hyperbolic recurrence below 1, else the
+    rotation, Filon's coefficients on the branch of F h and Si on the branch
+    of F X), the tail where x > Z_CUT, and the cross-section on the branch
+    its argument takes (j1_over_x's limit below 1e-6, J1's polynomial to
+    3); per output the weight's product.  Each argument is formed as the
+    kernel forms it; counted on the inputs' device, *block_values*
+    elements at a time."""
+    import torch
+    from ..models import chains
+    from ..ops import special
+    nq, n_off = inp.grid.shape
+    b, n2 = inp.radius.numel(), 2 * chains._N_HALF
+    smeared = inp.smear_w is not None
+    n_bytes = 8 * (sum(t.numel() for t in inp if torch.is_tensor(t))
+                   + b * nq)
+    X = torch.clamp_max(inp.x, chains._Z_CUT)
+    h = X / n2
+    z = h[:, None] * torch.arange(n2 + 1, dtype=h.dtype, device=h.device)
+    series = int((z < 0.1).sum())
+    ops = (b * (KHO_SETUP_OPS + nq) + z.numel() * KHO_NODE_OPS
+           + int((z > 0.0).sum()) * 2 + series * 6
+           + (z.numel() - series) * 4)
+    n_taylor, n_lag = len(special._SI_TAYLOR), len(special._SI_LAG_X)
+    si_taylor = 2 + 2 * (n_taylor - 1)
+    si_laguerre = 1 + 4 + 6 * (n_lag - 1) + 7
+    n_tail = len(chains._TAIL_NODES)
+    block = max(1, block_values // max(1, nq * n_off))
+    for i in range(0, b, block):
+        g = inp.grid[None]                              # (1, Nq, n_off)
+        t = g * inp.kuhn[i:i + block, None, None] / 3.0
+        xb = inp.x[i:i + block, None, None].expand_as(t)
+        below = t < 1.0
+        n, n_below = t.numel(), int(below.sum())
+        ops += n * (KHO_ELEMENT_OPS + KHO_END_OPS + 2 * smeared)
+        ops += n_below * (2 + KHO_SUB_STEP_OPS * n2)
+        ops += (n - n_below) * (2 + KHO_SUP_STEP_OPS * n2
+                                + KHO_ASSEMBLY_OPS)
+        Xb = torch.clamp_max(xb, chains._Z_CUT)
+        F = torch.sqrt(torch.clamp_min(t * t - 1.0, 1e-12))
+        above = ~below
+        th_small = int((above & (F * (Xb / n2) < 0.05)).sum())
+        fx_small = int((above & (F * Xb < special._SI_CUT)).sum())
+        ops += (th_small * KHO_FILON_SERIES_OPS
+                + (n - n_below - th_small) * KHO_FILON_CLOSED_OPS
+                + fx_small * si_taylor
+                + (n - n_below - fx_small) * si_laguerre)
+        tail = xb > chains._Z_CUT
+        tail_below = int((tail & below).sum())
+        tail_all = int(tail.sum())
+        ops += (n + tail_all + tail_below * n_tail * KHO_TAIL_SUB_OPS
+                + (tail_all - tail_below) * n_tail * KHO_TAIL_SUP_OPS)
+        a = (g * inp.radius[i:i + block, None, None]).abs()
+        small = a < 1e-6
+        poly = int((~small & (a <= 3.0)).sum())
+        ops += (int(small.sum()) * 3 + poly * (1 + J1_POLY_OPS)
+                + int((a > 3.0).sum()) * (1 + J1_ASYM_OPS))
+    return n_bytes, ops
+
+
+def kho_bank_bound(inp):
+    """(ms, what bounds it) of :func:`kho_bank_work`: its bytes over the
+    HBM rate, its operations over the float64 rate."""
+    n_bytes, n_ops = kho_bank_work(inp)
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
     return (max(t_b, t_o) * 1e3,
             "bytes" if t_b >= t_o else "float64 operations")

@@ -7,7 +7,9 @@ prewarm (the kernel library's build and load, the kernel's attributes)
 is rehearsed here with its mc_kernel calls replaced by recorders, on a
 CPU engine told that a kernel runs its chunks: what it calls, on which
 shards, and that it leaves the engine's generator alone; on the card
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 23 run it."""
+``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 23 and this file's
+``cuda`` test (the worm's prewarm, after which a fit builds nothing) run
+it."""
 import dataclasses
 
 import numpy as np
@@ -21,7 +23,7 @@ from mcsas_tpu_torch import api  # noqa: E402
 from mcsas_tpu_torch.cli import main as cli_main  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
-from mcsas_tpu_torch.ops import cyl_bank, mc_kernel  # noqa: E402
+from mcsas_tpu_torch.ops import cyl_bank, kho_bank, mc_kernel  # noqa: E402
 from mcsas_tpu_torch.parallel import ShardedEnsemble, make_mesh  # noqa: E402
 from mcsas_tpu_torch.tools import suite  # noqa: E402
 
@@ -271,6 +273,87 @@ def test_prewarm_builds_the_bank_kernel_beside_k2(small_table,
                                    "init", "attributes mc_chunk"]
     assert recorded_kernel[:2] == [("build", ("mc_chunk",)),
                                    ("load", "mc_chunk")]
+
+
+def _worm():
+    """The worm row's data (sasfit_kho-1-10-1000.dat rebinned to 100
+    points) and binding on a table of at most the env's nodes an axis."""
+    row = suite.TABLE_ROWS["kholodenko-worm"]
+    d = row.load()
+    return d, row.bound(d)
+
+
+def test_prewarm_builds_the_worm_bank_kernel_beside_k2(recorded_kernel,
+                                                       monkeypatch):
+    """Where the fit's post pass launches the worm's bank kernel (its
+    route answered as on the card), prewarm builds mc_prefetch and
+    kho_bank in one nvcc round and loads both before the init; a Sphere
+    engine builds and loads its chunk kernel's library alone."""
+    for bank in (cyl_bank, kho_bank):
+        monkeypatch.setattr(bank, "launches_on",
+                            lambda bound, data, device, bank=bank:
+                            bank.applies(bound, data))
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    d, b = _worm()
+    eng = _kernel_engine(McSASEngine(d, b, McSASConfig(**dict(
+        _TINY, table_ff="on", chunk_steps=4)), device="cpu"))
+    assert eng.prefetch_entry == "table"
+    assert list(eng.prewarm()) == ["nvcc mc_prefetch", "nvcc kho_bank",
+                                   "load mc_prefetch", "load kho_bank",
+                                   "init", "attributes mc_prefetch"]
+    assert recorded_kernel[0] == ("build", ("mc_prefetch", "kho_bank"))
+    assert recorded_kernel[1:3] == [("load", "mc_prefetch"),
+                                    ("load", "kho_bank")]
+    del recorded_kernel[:]
+    sphere = mt.get_model("Sphere").bind()
+    eng = _kernel_engine(McSASEngine(d, sphere, McSASConfig(**_TINY),
+                                     device="cpu"))
+    assert list(eng.prewarm()) == ["nvcc mc_chunk", "load mc_chunk",
+                                   "init", "attributes mc_chunk"]
+    assert recorded_kernel[:2] == [("build", ("mc_chunk",)),
+                                   ("load", "mc_chunk")]
+
+
+@pytest.mark.cuda
+def test_worm_prewarm_leaves_the_first_fit_nothing_to_build(monkeypatch):
+    """On the card: fit(prewarm=True) of the worm builds and loads
+    mc_prefetch and kho_bank in the engine's prewarm; after it the
+    prewarm's post pass, the fit and the fit's post pass build and load
+    no library, and each post pass is one kho_bank launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+    monkeypatch.setattr(api, "_ENGINE_CACHE", {})
+    for name in ("mc_prefetch", "kho_bank"):
+        monkeypatch.delitem(mc_kernel._LOADED, name, raising=False)
+    labels = []
+
+    def refuse(*args):
+        raise AssertionError(f"built or loaded after the prewarm: {args}")
+
+    def loaded(name):
+        return mc_kernel._LOADED.get(name) or refuse(name)
+
+    class Guarded(McSASEngine):
+        def prewarm(self):
+            out = super().prewarm()
+            labels.extend(out)
+            monkeypatch.setattr(mc_kernel, "build_libraries", refuse)
+            monkeypatch.setattr(mc_kernel, "_library", loaded)
+            return out
+
+    d, b = _worm()
+    cfg = McSASConfig(num_contribs=40, num_reps=3, candidates_per_step=32,
+                      local_moves=0.75, seed=6, max_iterations=200_000,
+                      max_retries=0, table_ff="on", show_incomplete=True)
+    before = kho_bank.run_kho_bank.launches
+    res = mt.fit(d, b, cfg, device="cuda", prewarm=True,
+                 engine_cls=Guarded)
+    assert labels[:4] == ["nvcc mc_prefetch", "nvcc kho_bank",
+                          "load mc_prefetch", "load kho_bank"]
+    assert res.engine.used_prefetch
+    assert kho_bank.run_kho_bank.launches == before + 2
+    assert np.isfinite(res.fractions.measval).all()
 
 
 def test_sharded_prewarm_queries_every_shard(refdata, recorded_kernel):
