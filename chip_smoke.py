@@ -3239,7 +3239,7 @@ def kho_bank_phase(torch, card):
     launch (tools/roofline.py:kho_bank_bound) and its launch shape."""
     from mcsas_tpu_torch.config import McSASConfig
     from mcsas_tpu_torch.models import get_model
-    from mcsas_tpu_torch.ops import kho_bank
+    from mcsas_tpu_torch.ops import bank_route, kho_bank
     from mcsas_tpu_torch.post import histogram
     from mcsas_tpu_torch.tools.roofline import kho_bank_bound
     bound = get_model("Kholodenko").bind(active=tuple(WORM_RANGES),
@@ -3265,16 +3265,16 @@ def kho_bank_phase(torch, card):
         launches += 1
         threads, cpus = torch.get_num_threads(), os.cpu_count() or 1
         torch.set_num_threads(cpus)
-        real, t0 = kho_bank.launches_on, time.perf_counter()
+        real, t0 = bank_route.kernel_for, time.perf_counter()
         try:
             if name == "slit":
-                kho_bank.launches_on = lambda *a: False
+                bank_route.kernel_for = lambda *a: None
             ref = "cuda" if name == "slit" else "cpu"
             ref_post, ref_bank = _post_pass_bank(histogram, bound, data,
                                                  cfg, c, ref)
             torch.cuda.synchronize()
         finally:
-            kho_bank.launches_on = real
+            bank_route.kernel_for = real
             torch.set_num_threads(threads)
         ref_s = time.perf_counter() - t0
         if kho_bank.run_kho_bank.launches != n0 + 1:
@@ -3345,18 +3345,18 @@ def main():
     from mcsas_tpu_torch.core.engine import McSASEngine
     from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing
     from mcsas_tpu_torch.models import get_model
-    from mcsas_tpu_torch.ops import mc_kernel
+    from mcsas_tpu_torch.ops import cuda_lib, mc_kernel
     from mcsas_tpu_torch.post.histogram import HistogramSpec, histogram_all
 
     # ---- phase 2: build (one nvcc per kernel source, in parallel)
     t0 = time.perf_counter()
-    builds = mc_kernel.build_libraries()
+    builds = cuda_lib.build_libraries()
     build_wall = time.perf_counter() - t0
     for name, build in builds.items():
         for line in build.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas [{name}]:", line.strip())
-        mc_kernel._library(name)
+        cuda_lib.load(name)
         print(f"[build] {build.path.name}: nvcc {build.seconds:.2f} s",
               flush=True)
     print(f"[build] {len(builds)} kernels in {build_wall:.2f} s wall",

@@ -48,7 +48,7 @@ import torch
 from ..config import McSASConfig
 from ..data import SASData
 from ..models.base import BoundModel
-from ..ops import cyl_bank, kho_bank, mc_kernel
+from ..ops import bank_route, cuda_lib, mc_kernel
 from ..ops.tables import ParamTable
 from ..utils import profiling
 from .fitcore import FitConstants, make_constants, solve_scale_bg
@@ -697,10 +697,9 @@ class McSASEngine:
         them, without running the MC: builds (nvcc, where build/kernels/
         lacks it) and loads the library of the kernel its chunks launch
         (``mc_chunk``, K1, or for prefetch segments ``mc_prefetch``, K2)
-        and, where this fit's post pass launches a bank kernel
-        (:func:`ops.cyl_bank.launches_on`,
-        :func:`ops.kho_bank.launches_on`), ``cyl_bank`` or ``kho_bank``
-        in the same nvcc round; runs the batched init and the eager work
+        and, where this fit's post pass launches a bank kernel (the route
+        :func:`ops.bank_route.kernel_for`), that kernel's library in the
+        same nvcc round; runs the batched init and the eager work
         before a first launch on a generator of its own, and asks CUDA for
         the attributes of the kernel instantiation that will run (which
         loads it).  The parameter table was baked in ``__init__`` (and
@@ -724,15 +723,14 @@ class McSASEngine:
                 return dict.fromkeys(labels, why)
             # the post pass's bank kernel, where this fit's post pass
             # launches one: built beside the chunk kernel's library
-            libs = (lib,) + tuple(
-                bank.LIBRARY for bank in (cyl_bank, kho_bank)
-                if bank.launches_on(self.bound, self.data, self.device))
-            builds = mc_kernel.build_libraries(libs)
+            bank = bank_route.kernel_for(self.bound, self.data, self.device)
+            libs = (lib,) if bank is None else (lib, bank.ENTRY.library)
+            builds = cuda_lib.build_libraries(libs)
             timings = {f"nvcc {name}": builds[name].seconds
                        for name in libs}
             for name in libs:
                 t0 = time.perf_counter()
-                mc_kernel._library(name)
+                cuda_lib.load(name)
                 timings[f"load {name}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             own, self.gen = self.gen, torch.Generator(device=self.device)

@@ -1,39 +1,46 @@
 # -*- coding: utf-8 -*-
 """The post pass's float64 bank of the Kholodenko worm on the card: one
-launch of ``csrc/kho_bank.cu`` computes the whole (R·N, Nq)
-partial-intensity bank of a worm fit, ff²·w on the fit grid or, for
-slit-smeared data, (ff²(locs) @ smear_w)·w, with the converged
-Filon/Boole rule of ``models/chains.py::_kho_conv_rule`` (its 513-node
-recurrences, Si and the 64-node tail) and the port's own J1
-(``ops/special.py``) held in registers and shared memory.
-
-The route (:func:`applies`) follows what the binding declares: a model
-whose form factor is the worm's (``_kho_ff``) on 1D data, smeared or not.
-:func:`post.histogram._bank_f64` launches :func:`run_kho_bank` where
-:func:`launches_on` says so (such a bank on a CUDA device); everything
-else, and every CPU call, keeps the eager path
-(:func:`post.histogram._bank_eager`), which is this kernel's plain
-version.  :func:`launch_shape` reports the launch (``chip_smoke.py``'s
-``kernels`` line prints it).  The weight w = volume^comp2, the radius,
-the Kuhn length and x = 3·contour/kuhn of each contribution are computed
-in PyTorch (:func:`bank_inputs`), as the eager bank computes them; the
-rule's constants come from the modules that define the plain version
-(:func:`rule_constants`).  The library is built and bound with the chunk
-kernels (``ops/mc_kernel.py``, ``KERNELS``);
-the grid, the checks and the counted launch are shared with the cylinder's
-bank kernel (``ops/bank_common.py``).
+launch of ``csrc/kho_bank.cu`` computes the whole (R·N, Nq) bank of a
+model whose form factor is the worm's (``_kho_ff``) on 1D data
+(:func:`applies`), ff²·w or, smeared, (ff²(locs) @ smear_w)·w, with the
+converged Filon/Boole rule of ``models/chains.py::_kho_conv_rule`` (its
+513-node recurrences, Si and the 64-node tail) and the port's own J1 in
+registers and shared memory.  The route (``ops/bank_route.py``) launches
+it on a CUDA device; everything else keeps the eager bank
+(``post/histogram.py::_bank_eager``), its plain version.  The radius,
+the Kuhn length and x = 3·contour/kuhn come from PyTorch
+(:func:`bank_inputs`), the rule's constants from the modules that define
+the plain version (:func:`rule_constants`); the rest is shared with the
+cylinder's bank kernel (``ops/bank_common.py``), and
+``ops/cuda_lib.py`` builds and launches the kernel this module declares.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..models import chains
-from . import bank_common, mc_kernel, special
+from . import bank_common, cuda_lib, special
 
-LIBRARY = "kho_bank"            # csrc/kho_bank.cu
+
+class _KhoBankParams(ctypes.Structure):
+    """Mirror of ``KhoBankParams`` in csrc/kho_bank.cu."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "grid", "smear_w", "radius", "kuhn", "x", "weight", "rule",
+            "out")]
+        + [(name, ctypes.c_double) for name in ("z_cut", "si_cut")]
+        + [(name, ctypes.c_int32) for name in (
+            "n_contribs", "nq", "n_off", "n_steps", "n_tail", "n_lag",
+            "n_taylor", "device")])
+
+
+ENTRY = cuda_lib.Entry("kho_bank", _KhoBankParams,
+                       ("threads", "blocks", "smem_bytes", "registers",
+                        "local_bytes"))
 
 
 class BankInputs(NamedTuple):
@@ -72,59 +79,33 @@ def applies(bound, data) -> bool:
     return bound.model.ff is chains._kho_ff and data.psi is None
 
 
-def launches_on(bound, data, device) -> bool:
-    """True when a post pass of *bound* on *data* on *device* launches the
-    kernel (and so needs its library)."""
-    return torch.device(device).type == "cuda" and applies(bound, data)
-
-
 def bank_inputs(bound, data, comp2: float, rset: torch.Tensor
                 ) -> BankInputs:
     """The kernel's inputs for contributions *rset* (R, N, P) on rset's
     device, each per-contribution value computed as the eager bank
     computes it."""
-    model, dev = bound.model, rset.device
-    grid, smear_w = bank_common.grid_inputs(bound, data, dev)
-    flat = rset.reshape(-1, rset.shape[-1])
-    pd = bound.pdict(flat)
-
-    def per_contribution(v):
-        return bank_common.per_contribution(v, len(flat), dev)
-
-    return BankInputs(
-        grid=grid, smear_w=smear_w,
-        radius=per_contribution(pd["radius"]),
-        kuhn=per_contribution(pd["lenKuhn"]),
-        x=per_contribution(3.0 * pd["lenContour"] / pd["lenKuhn"]),
-        weight=per_contribution(model.volume(pd) ** comp2),
-        rule=rule_constants(dev))
+    shared, pd, each = bank_common.contributions(bound, data, comp2, rset)
+    return BankInputs(**shared, radius=each(pd["radius"]),
+                      kuhn=each(pd["lenKuhn"]),
+                      x=each(3.0 * pd["lenContour"] / pd["lenKuhn"]),
+                      rule=rule_constants(rset.device))
 
 
 def _check(inp: BankInputs):
     """Raises unless *inp* is what the kernel takes: float64 and
     contiguous on one CUDA device, the shapes of :class:`BankInputs`."""
-    if inp.grid.dim() != 2:
-        raise ValueError("grid must be (Nq, n_off)")
     b = inp.radius.numel()
-    bank_common.check(inp, {"grid": tuple(inp.grid.shape), "radius": (b,),
-                            "kuhn": (b,), "x": (b,), "weight": (b,),
+    bank_common.check(inp, {"kuhn": (b,), "x": (b,),
                             "rule": (RULE_VALUES,)}, "run_kho_bank")
 
 
 def _params(inp: BankInputs, out: Optional[torch.Tensor]):
     """The kernel's parameter struct for *inp* and the bank *out*."""
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-    nq, n_off = inp.grid.shape
-    return mc_kernel._KhoBankParams(
-        grid=ptr(inp.grid), smear_w=ptr(inp.smear_w),
-        radius=ptr(inp.radius), kuhn=ptr(inp.kuhn), x=ptr(inp.x),
-        weight=ptr(inp.weight), rule=ptr(inp.rule), out=ptr(out),
-        z_cut=chains._Z_CUT, si_cut=special._SI_CUT,
-        n_contribs=inp.radius.numel(), nq=nq, n_off=n_off,
-        n_steps=2 * chains._N_HALF, n_tail=N_TAIL, n_lag=N_LAG,
-        n_taylor=N_TAYLOR,
-        device=mc_kernel._device_index(inp.radius.device))
+    return _KhoBankParams(
+        **bank_common.params(inp, out), kuhn=inp.kuhn.data_ptr(),
+        x=inp.x.data_ptr(), rule=inp.rule.data_ptr(), z_cut=chains._Z_CUT,
+        si_cut=special._SI_CUT, n_steps=2 * chains._N_HALF, n_tail=N_TAIL,
+        n_lag=N_LAG, n_taylor=N_TAYLOR)
 
 
 def run_kho_bank(inp: BankInputs) -> torch.Tensor:
@@ -133,10 +114,11 @@ def run_kho_bank(inp: BankInputs) -> torch.Tensor:
     a refused launch.  Counts ``run_kho_bank.launches`` and, under
     ``profiling.recording()``, ``post.bank.kernel``."""
     _check(inp)
-    return bank_common.launch(LIBRARY, _params, inp, run_kho_bank)
+    return bank_common.launch(ENTRY, _params, inp, run_kho_bank)
 
 
 run_kho_bank.launches = 0
+run = run_kho_bank                   # the name the route calls
 
 
 def launch_shape(inp: BankInputs) -> dict:
@@ -144,4 +126,4 @@ def launch_shape(inp: BankInputs) -> dict:
     memory bytes per block, registers and local memory bytes per
     thread."""
     _check(inp)
-    return mc_kernel._shape(LIBRARY, _params(inp, None))
+    return cuda_lib.shape(ENTRY, _params(inp, None))

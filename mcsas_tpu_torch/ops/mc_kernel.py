@@ -37,21 +37,14 @@ kernels (mcsas_tpu/ops/mc_kernel.py and tools/kern_probe.py):
   ``tools/kern_probe.py``.  No PyTorch function computes a cut step: a
   ``full`` rung is K1 or K2 and is held against it.
 
-The post pass's float64 banks of orientation-averaged cylinders
-(``csrc/cyl_bank.cu``) and of the Kholodenko worm (``csrc/kho_bank.cu``),
-neither with a TPU counterpart, are built and bound here with the three;
-their wrappers and routes are in ``ops/cyl_bank.py`` and
-``ops/kho_bank.py``, their plain version is the eager bank of
-``post/histogram.py``.
-
 The plain versions are batched over (R, K, Nq) in the operation order of
 the JAX scan path (mcsas_tpu/core/engine.py::McSASEngine._step) and share
 :func:`_step`.  The CPU tests hold them against the JAX package, and each
-kernel is held against its plain version on the card.  The kernels are
-built with nvcc at first use into ``build/kernels/`` (one library per
-source, built in parallel) and bound with ctypes; each wrapper checks its
-arguments, launches its kernel for CUDA tensors, runs the plain version
-for CPU tensors, and counts kernel launches in ``<wrapper>.launches``
+kernel is held against its plain version on the card.  This module
+declares the kernels' parameter structs and C entries; ``ops/cuda_lib.py``
+builds, loads and launches them.  Each wrapper checks its arguments,
+launches its kernel for CUDA tensors, runs the plain version for CPU
+tensors, and counts kernel launches in ``<wrapper>.launches``
 (``run_chunk.model_launches`` also by model name; K3's two wrappers
 count in ``run_probe.launches``).
 
@@ -71,12 +64,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -89,6 +76,7 @@ from ..models.chains import GaussianChain
 from ..models.ellipsoids import SphericalCoreShell
 from ..models.sphere import LMADenseSphere, Sphere, lma_standoff
 from ..utils import profiling
+from . import cuda_lib
 
 MAX_P = 8                      # active parameters the kernels take
 MAX_MODEL_P = 8                # parameters of a K1 model, fixed included
@@ -117,16 +105,6 @@ PREFETCH_ROW_BYTES = 64 * 2 ** 20
 # segment's rows
 ROWS_BLOCK_VALUES = PREFETCH_ROW_BYTES // 64
 _GEN_CODES = {"uniform": 0, "logdec1": 1, "logdec2": 2, "logdec3": 3}
-# csrc/<name>.cu each
-KERNELS = ("mc_chunk", "mc_prefetch", "mc_probe", "cyl_bank", "kho_bank")
-# the shared headers; every kernel's build hash covers all of them
-_HEADERS = ("mc_common.cuh", "mc_models.cuh", "mc_chunk.cuh",
-            "mc_prefetch.cuh", "bank_common.cuh")
-_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
-              / "build" / "kernels")
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -703,15 +681,19 @@ def philox_proposals(spec: ChunkSpec, seed: int, n_reps: int,
     return out
 
 
-# -------------------------------------------------- build and binding
+# ------------------------------------------ parameter structs and entries
+
+# the state's pointer fields of K1's and K2's structs, in their order
+_STATE_PTRS = ("rset", "ibank", "ft", "scale", "background", "conval",
+               "n_iter", "n_moves")
+
 
 class _ChunkParams(ctypes.Structure):
     """Mirror of ``ChunkParams`` in csrc/mc_chunk.cuh (same field
     order)."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "q", "y", "u", "rset", "ibank", "ft", "scale", "background",
-            "conval", "n_iter", "n_moves", "sink", "proposals", "trace")]
+            "q", "y", "u", *_STATE_PTRS, "sink", "proposals", "trace")]
         + [(name, ctypes.c_double) for name in ("s_u", "s_uy", "comp2")]
         + [("pfix", ctypes.c_double * MAX_MODEL_P),
            ("lo", ctypes.c_float * MAX_P), ("hi", ctypes.c_float * MAX_P)]
@@ -728,38 +710,12 @@ class _ChunkParams(ctypes.Structure):
         + [("seed", ctypes.c_uint32)])
 
 
-class _CylBankParams(ctypes.Structure):
-    """Mirror of ``CylBankParams`` in csrc/cyl_bank.cu (same field order):
-    the post pass's float64 cylinder bank (ops/cyl_bank.py)."""
-    _fields_ = (
-        [(name, ctypes.c_void_p) for name in (
-            "grid", "smear_w", "radius", "length", "weight", "x", "s",
-            "out")]
-        + [("step", ctypes.c_double)]
-        + [(name, ctypes.c_int32) for name in (
-            "n_contribs", "nq", "n_off", "n_nodes", "device")])
-
-
-class _KhoBankParams(ctypes.Structure):
-    """Mirror of ``KhoBankParams`` in csrc/kho_bank.cu (same field order):
-    the post pass's float64 worm bank (ops/kho_bank.py)."""
-    _fields_ = (
-        [(name, ctypes.c_void_p) for name in (
-            "grid", "smear_w", "radius", "kuhn", "x", "weight", "rule",
-            "out")]
-        + [(name, ctypes.c_double) for name in ("z_cut", "si_cut")]
-        + [(name, ctypes.c_int32) for name in (
-            "n_contribs", "nq", "n_off", "n_steps", "n_tail", "n_lag",
-            "n_taylor", "device")])
-
-
 class _PrefetchParams(ctypes.Structure):
     """Mirror of ``PrefetchParams`` in csrc/mc_prefetch.cuh (same field
     order)."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "q", "y", "u", "rset", "ibank", "ft", "scale", "background",
-            "conval", "n_iter", "n_moves", "rows", "cands", "table", "sw",
+            "q", "y", "u", *_STATE_PTRS, "rows", "cands", "table", "sw",
             "sink", "trace")]
         + [("s_u", ctypes.c_double), ("s_uy", ctypes.c_double),
            ("crit", ctypes.c_float), ("row_clamp", ctypes.c_float),
@@ -775,160 +731,15 @@ class _PrefetchParams(ctypes.Structure):
             "xs_col")])
 
 
-# The C entries, <entry>_launch, <entry>_shape and <entry>_params_size
-# each: (library, parameter struct, int arguments after the struct -- K3's
-# rung and, for K1's rungs, the group width -- and the names of what
-# <entry>_shape reports).
+# the C entries (cuda_lib.Entry): K1, K2, and K3's rungs of each, which
+# take the rung and, for K1's, the group width after the struct
 _K1_SHAPE = ("group", "threads", "registers", "local_bytes")
 _K2_SHAPE = _K1_SHAPE + ("source", "smem_bytes", "ft_parts")
-_ENTRIES = {
-    "mc_chunk": ("mc_chunk", _ChunkParams, 0, _K1_SHAPE),
-    "mc_prefetch": ("mc_prefetch", _PrefetchParams, 0, _K2_SHAPE),
-    "mc_probe": ("mc_probe", _ChunkParams, 2, _K1_SHAPE),
-    "mc_probe_prefetch": ("mc_probe", _PrefetchParams, 1, _K2_SHAPE),
-    "cyl_bank": ("cyl_bank", _CylBankParams, 0,
-                 ("group", "threads", "blocks", "registers", "local_bytes")),
-    "kho_bank": ("kho_bank", _KhoBankParams, 0,
-                 ("threads", "blocks", "smem_bytes", "registers",
-                  "local_bytes"))}
-
-
-@dataclass(frozen=True)
-class KernelBuild:
-    path: pathlib.Path
-    seconds: float          # nvcc wall time; 0.0 when the library existed
-    log: str                # nvcc/ptxas output (registers, spills)
-
-
-_LOADED: dict = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): cannot build the CUDA chunk "
-                       "kernels")
-
-
-def _library_path(name: str) -> pathlib.Path:
-    """build/kernels/<name>_<hash>.so, the hash covering the kernel's
-    source, every shared header and the flags."""
-    digest = hashlib.sha256()
-    for path in (_CSRC / f"{name}.cu", *(_CSRC / h for h in _HEADERS)):
-        digest.update(path.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
-
-
-def build_libraries(names=KERNELS) -> dict:
-    """Compiles csrc/<name>.cu into build/kernels/ for each name missing
-    there, one nvcc process per source, all started together; reuses
-    existing builds.  Returns {name: KernelBuild}.  Waits for every nvcc
-    it started, then raises with nvcc's output if any build failed."""
-    with profiling.span("ops.mc_kernel.build"):
-        builds, running = {}, {}
-        for name in names:
-            path = _library_path(name)
-            if path.exists():
-                builds[name] = KernelBuild(path=path, seconds=0.0, log="")
-                continue
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-            proc = subprocess.Popen(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                 str(_CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            running[name] = (path, tmp, time.perf_counter(), proc)
-        failed = []
-        for name, (path, tmp, t0, proc) in running.items():
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed with exit code {proc.returncode} "
-                              f"building csrc/{name}.cu:\n{err}{out}")
-                continue
-            os.replace(tmp, path)
-            builds[name] = KernelBuild(path=path,
-                                       seconds=time.perf_counter() - t0,
-                                       log=err + out)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        return builds
-
-
-def _library(name: str):
-    """The loaded library of kernel *name*, resolved once per process:
-    the first call builds it if build/kernels/ lacks the build of the
-    present sources (:func:`build_libraries`) and loads it; later calls
-    neither hash nor stat the sources."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build = build_libraries((name,))[name]
-        with profiling.span("ops.mc_kernel.load"):
-            lib = ctypes.CDLL(str(build.path))
-            err_fn = getattr(lib, f"{name}_error_string")
-            err_fn.argtypes = [ctypes.c_int]
-            err_fn.restype = ctypes.c_char_p
-            for entry, (of, params, n_extra, _) in _ENTRIES.items():
-                if of != name:
-                    continue
-                extra = [ctypes.c_int] * n_extra
-                launch = getattr(lib, f"{entry}_launch")
-                launch.argtypes = [ctypes.c_void_p] + extra + [ctypes.c_void_p]
-                launch.restype = ctypes.c_int
-                shape = getattr(lib, f"{entry}_shape")
-                shape.argtypes = ([ctypes.c_void_p] + extra
-                                  + [ctypes.POINTER(ctypes.c_int)])
-                shape.restype = ctypes.c_int
-                size_fn = getattr(lib, f"{entry}_params_size")
-                size_fn.argtypes = []
-                size_fn.restype = ctypes.c_int
-                want = ctypes.sizeof(params)
-                if size_fn() != want:
-                    raise RuntimeError(
-                        f"{entry} parameter layout mismatch: C {size_fn()} "
-                        f"bytes, ctypes {want} bytes")
-        _LOADED[name] = lib
-    return lib
-
-
-def _call(entry: str, what: str, *args):
-    """Calls the C function ``<entry>_<what>`` of the entry's library;
-    raises on a CUDA error code."""
-    name = _ENTRIES[entry][0]
-    lib = _library(name)
-    rc = getattr(lib, f"{entry}_{what}")(*args)
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{entry} {what} failed: CUDA error {rc} ({msg})")
-
-
-def _launch(entry: str, prm, device: torch.device, *extra):
-    """Launches the kernel of C entry *entry* with *prm* (and the ints
-    *extra*) on the current stream of *device*; raises on a refused
-    launch."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _call(entry, "launch", ctypes.byref(prm), *extra,
-          ctypes.c_void_p(stream))
-
-
-def _shape(entry: str, prm, *extra) -> dict:
-    """The launch shape of the kernel that C entry *entry* would launch
-    for *prm* (and the ints *extra*: a K3 rung), by the names in
-    :data:`_ENTRIES`."""
-    names = _ENTRIES[entry][3]
-    out = (ctypes.c_int * len(names))()
-    _call(entry, "shape", ctypes.byref(prm), *extra, out)
-    return dict(zip(names, out))
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
+_K1 = cuda_lib.Entry("mc_chunk", _ChunkParams, _K1_SHAPE)
+_K2 = cuda_lib.Entry("mc_prefetch", _PrefetchParams, _K2_SHAPE)
+_K3 = cuda_lib.Entry("mc_probe", _ChunkParams, _K1_SHAPE, n_extra=2)
+_K3_K2 = cuda_lib.Entry("mc_probe_prefetch", _PrefetchParams, _K2_SHAPE,
+                        library="mc_probe", n_extra=1)
 
 
 # ---------------------------------------------------------- the wrapper
@@ -942,64 +753,52 @@ def _check(state, consts: FitConstants, spec: ChunkSpec, proposals,
             "scale": (r,), "background": (r,), "conval": (r,),
             "n_iter": (r,), "n_moves": (r,)}
     for name, shape in want.items():
-        t = getattr(state, name)
         dt = torch.int32 if name in ("n_iter", "n_moves") else torch.float32
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"state.{name}: want {dt} {shape} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"state.{name} must be contiguous")
+        cuda_lib.require(f"state.{name}", getattr(state, name), dt, shape,
+                         dev)
     for name, t in (("consts.y", consts.y), ("consts.u", consts.u),
                     ("spec.kern.grid", spec.kern.grid)):
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != (nq,) or not t.is_contiguous()):
-            raise ValueError(f"{name}: want contiguous float32 ({nq},) "
-                             f"on {dev}")
+        cuda_lib.require(name, t, torch.float32, (nq,), dev)
     if n != spec.n_contribs or p != len(spec.ranges):
         raise ValueError(f"state has N={n}, P={p}; spec wants "
                          f"N={spec.n_contribs}, P={len(spec.ranges)}")
-    if proposals is not None:
-        k = spec.k_cand
-        if (proposals.device != dev or proposals.dtype != torch.float32
-                or proposals.dim() != 4
-                or tuple(proposals.shape[1:]) != (r, k, p)
-                or not proposals.is_contiguous()):
-            raise ValueError(f"{what}: want contiguous float32 "
-                             f"(S, {r}, {k}, {p}) on {dev}, got "
-                             f"{proposals.dtype} {tuple(proposals.shape)} "
-                             f"on {proposals.device}")
+    if proposals is not None:          # (S, R, K, P), any S
+        cuda_lib.require(what, proposals, torch.float32,
+                         (*proposals.shape[:1], r, spec.k_cand, p), dev)
+
+
+def _shared_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
+                   n_steps: int, sink, choice) -> dict:
+    """The fields K1's and K2's parameter structs share: the fit's and
+    the state's pointers, the solve's sums, the step's scalars and
+    sizes."""
+    r, n, p = state.rset.shape
+    return dict(
+        y=consts.y.data_ptr(), u=consts.u.data_ptr(),
+        **{f: getattr(state, f).data_ptr() for f in _STATE_PTRS},
+        sink=cuda_lib.ptr(sink), trace=cuda_lib.ptr(choice), s_u=consts.s_u,
+        s_uy=consts.s_uy, crit=spec.crit, row_clamp=spec.kern.row_clamp,
+        n_reps=r, n_contribs=n, nq=consts.n, n_params=p,
+        k_cand=spec.k_cand, n_steps=n_steps, ri0=ri % n,
+        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
+        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
+        device=cuda_lib.device_index(state.rset.device))
 
 
 def _chunk_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
                   proposals, seed, n_steps: int, sink=None,
                   choice=None, rep_base: int = 0) -> _ChunkParams:
     """The kernel's parameter struct for one chunk (K1 and K3)."""
-    r, n, p = state.rset.shape
     pfix, pcol, sw = spec.model_layout
     kern = spec.kern
     prm = _ChunkParams(
-        q=kern.grid.data_ptr(), y=consts.y.data_ptr(),
-        u=consts.u.data_ptr(), rset=state.rset.data_ptr(),
-        ibank=state.ibank.data_ptr(), ft=state.ft.data_ptr(),
-        scale=state.scale.data_ptr(),
-        background=state.background.data_ptr(),
-        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
-        n_moves=state.n_moves.data_ptr(),
-        sink=(sink.data_ptr() if sink is not None else None),
-        proposals=(proposals.data_ptr() if proposals is not None else None),
-        trace=(choice.data_ptr() if choice is not None else None),
-        s_u=consts.s_u, s_uy=consts.s_uy, comp2=kern.comp2,
-        crit=spec.crit, local_scale=spec.local_scale,
+        **_shared_params(state, ri, consts, spec, n_steps, sink, choice),
+        q=kern.grid.data_ptr(), proposals=cuda_lib.ptr(proposals),
+        comp2=kern.comp2, local_scale=spec.local_scale,
         inv_v_ref=kern.inv_v_ref, inv_i_ref=kern.inv_i_ref,
-        row_clamp=kern.row_clamp, sw_fixed=sw or 0.0,
-        n_reps=r, n_contribs=n, nq=consts.n, n_params=p,
-        n_model_params=len(pcol), k_cand=spec.k_cand,
-        k_global=spec.k_global, n_steps=n_steps, ri0=ri % n,
-        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
-        model_id=model_id(spec.model), vol_fixed=int(sw is not None),
-        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
-        device=_device_index(state.rset.device), rep_base=rep_base,
+        sw_fixed=sw or 0.0, n_model_params=len(pcol),
+        k_global=spec.k_global, model_id=model_id(spec.model),
+        vol_fixed=int(sw is not None), rep_base=rep_base,
         seed=(seed or 0) & 0xFFFFFFFF)
     for ip, ((lo, hi), g) in enumerate(zip(spec.ranges, spec.generators)):
         prm.lo[ip], prm.hi[ip], prm.gen[ip] = lo, hi, _GEN_CODES[g]
@@ -1054,7 +853,7 @@ def run_chunk(state, ri: int, consts: FitConstants, spec: ChunkSpec,
               if trace is not None else None)
     prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
                         choice=choice, rep_base=rep_base)
-    _launch("mc_chunk", prm, dev)
+    cuda_lib.launch(_K1, prm, dev)
     run_chunk.launches += 1
     name = spec.model.name
     run_chunk.model_launches[name] = run_chunk.model_launches.get(name,
@@ -1089,8 +888,8 @@ def launch_shape(state, consts: FitConstants, spec: ChunkSpec,
     _check_probe(level, group)
     prm = _chunk_params(state, 0, consts, spec, None, 0, 0)
     if level == "full" and not group:
-        return _shape("mc_chunk", prm)
-    return _shape("mc_probe", prm, PROBE_LEVELS.index(level), group)
+        return cuda_lib.shape(_K1, prm)
+    return cuda_lib.shape(_K3, prm, PROBE_LEVELS.index(level), group)
 
 
 def run_probe(state, ri: int, consts: FitConstants, spec: ChunkSpec,
@@ -1125,22 +924,12 @@ def run_probe(state, ri: int, consts: FitConstants, spec: ChunkSpec,
         sink = torch.empty((r, threads), dtype=torch.float32, device=dev)
     prm = _chunk_params(state, ri, consts, spec, proposals, seed, n_steps,
                         sink=sink)
-    _launch("mc_probe", prm, dev, PROBE_LEVELS.index(level), group)
+    cuda_lib.launch(_K3, prm, dev, PROBE_LEVELS.index(level), group)
     run_probe.launches += 1
     return state, (ri + n_steps) % n, sink
 
 
 run_probe.launches = 0
-
-
-def _check_rows(rows, cands, state, consts, spec):
-    dev = state.rset.device
-    want = (int(cands.shape[0]), state.rset.shape[0], spec.k_cand, consts.n)
-    if (rows.device != dev or rows.dtype != torch.float32
-            or tuple(rows.shape) != want or not rows.is_contiguous()):
-        raise ValueError(f"rows: want contiguous float32 {want} on {dev}, "
-                         f"got {rows.dtype} {tuple(rows.shape)} on "
-                         f"{rows.device}")
 
 
 def _check_table(sw, cands, state, consts, spec):
@@ -1164,23 +953,16 @@ def _check_table(sw, cands, state, consts, spec):
     table = spec.kern.table
     if table is None:
         raise ValueError("table: this engine has no parameter table")
-    vals = table.values
-    if (vals.device != dev or vals.dtype != torch.float32 or vals.dim() != 2
-            or vals.shape[1] != consts.n or not vals.is_contiguous()):
-        raise ValueError(f"table: want contiguous float32 (rows, "
-                         f"{consts.n}) on {dev}, got {vals.dtype} "
-                         f"{tuple(vals.shape)} on {vals.device}")
+    vals = table.values                # (rows, Nq)
+    cuda_lib.require("table", vals, torch.float32,
+                     (*vals.shape[:1], consts.n), dev)
     layout = spec.table_layout
     n_rows = int(np.prod([ax[4] for ax in layout], dtype=np.int64))
     if n_rows != vals.shape[0] or vals.numel() >= 2 ** 31:
         raise ValueError(f"table: its axes {[ax[4] for ax in layout]} give "
                          f"{n_rows} rows, the values have {vals.shape[0]} "
                          f"(at most 2^31 values in all)")
-    want = tuple(cands.shape[:-1])
-    if (sw.device != dev or sw.dtype != torch.float32
-            or tuple(sw.shape) != want or not sw.is_contiguous()):
-        raise ValueError(f"sw: want contiguous float32 {want} on {dev}, got "
-                         f"{sw.dtype} {tuple(sw.shape)} on {sw.device}")
+    cuda_lib.require("sw", sw, torch.float32, cands.shape[:-1], dev)
 
 
 def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
@@ -1190,25 +972,13 @@ def _prefetch_params(state, ri: int, consts: FitConstants, spec: ChunkSpec,
     rungs): rows in with *rows*, else table in with *sw* (a tensor, or
     :class:`TableFactors`) and the lookup's factor of each point
     (``spec.factor_layout``) on the fit grid."""
-    r, n, p = state.rset.shape
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     if isinstance(sw, TableFactors):
         sw = sw.values
     prm = _PrefetchParams(
-        y=consts.y.data_ptr(), u=consts.u.data_ptr(),
-        rset=state.rset.data_ptr(), ibank=state.ibank.data_ptr(),
-        ft=state.ft.data_ptr(), scale=state.scale.data_ptr(),
-        background=state.background.data_ptr(),
-        conval=state.conval.data_ptr(), n_iter=state.n_iter.data_ptr(),
-        n_moves=state.n_moves.data_ptr(), rows=ptr(rows),
-        cands=cands.data_ptr(), sw=ptr(sw), sink=ptr(sink),
-        trace=ptr(choice), s_u=consts.s_u, s_uy=consts.s_uy,
-        crit=spec.crit, row_clamp=spec.kern.row_clamp,
-        n_reps=r, n_contribs=n, nq=consts.n, n_params=p, k_cand=spec.k_cand,
-        n_steps=int(cands.shape[0]), ri0=ri % n,
-        max_iter=min(spec.max_iter, 2 ** 31 - 1), n_fit=consts.n,
-        find_bg=int(spec.find_bg), pos_bg=int(spec.pos_bg),
-        device=_device_index(state.rset.device))
+        **_shared_params(state, ri, consts, spec, int(cands.shape[0]), sink,
+                         choice),
+        rows=cuda_lib.ptr(rows), cands=cands.data_ptr(),
+        sw=cuda_lib.ptr(sw))
     if rows is None:
         prm.table = spec.kern.table.values.data_ptr()
         prm.n_table_rows = spec.kern.table.values.shape[0]
@@ -1228,7 +998,8 @@ def _check_prefetch(state, consts, spec, cands, rows, sw):
     """Checks a K2 call, rows in (*rows*) or table in (*sw*)."""
     _check(state, consts, spec, cands, "cands")
     if rows is not None:
-        _check_rows(rows, cands, state, consts, spec)
+        cuda_lib.require("rows", rows, torch.float32,
+                         (*cands.shape[:-1], consts.n), state.rset.device)
     else:
         _check_table(sw, cands, state, consts, spec)
     dev = state.rset.device
@@ -1244,9 +1015,8 @@ def _run_prefetch(wrapper, state, ri, consts, spec, cands, rows, sw, trace):
     n_steps, r, n = int(cands.shape[0]), *state.rset.shape[:2]
     choice = (torch.empty((n_steps, r), dtype=torch.int32, device=dev)
               if trace is not None else None)
-    _launch("mc_prefetch",
-            _prefetch_params(state, ri, consts, spec, cands, rows, sw,
-                             choice=choice), dev)
+    cuda_lib.launch(_K2, _prefetch_params(state, ri, consts, spec, cands,
+                                          rows, sw, choice=choice), dev)
     wrapper.launches += 1
     if trace is not None:
         trace["choice"] = choice
@@ -1327,9 +1097,9 @@ def prefetch_launch_shape(state, consts: FitConstants, spec: ChunkSpec,
     bank."""
     prm = _prefetch_params(state, 0, consts, spec, cands, rows)
     if level == "full":
-        shape = _shape("mc_prefetch", prm)
+        shape = cuda_lib.shape(_K2, prm)
     else:
-        shape = _shape("mc_probe_prefetch", prm, _prefetch_level(level))
+        shape = cuda_lib.shape(_K3_K2, prm, _prefetch_level(level))
     shape["source"] = PREFETCH_SOURCES[shape["source"]]
     return shape
 
@@ -1356,8 +1126,7 @@ def run_prefetch_probe(state, ri: int, consts: FitConstants,
                                         level)["threads"]
         sink = torch.empty((state.rset.shape[0], threads),
                            dtype=torch.float32, device=dev)
-    _launch("mc_probe_prefetch",
-            _prefetch_params(state, ri, consts, spec, cands, rows, sw,
-                             sink=sink), dev, lv)
+    cuda_lib.launch(_K3_K2, _prefetch_params(state, ri, consts, spec, cands,
+                                             rows, sw, sink=sink), dev, lv)
     run_probe.launches += 1
     return state, (ri + int(cands.shape[0])) % state.rset.shape[1], sink

@@ -25,7 +25,7 @@ from ..core.fitcore import agofs as agofs_fn
 from ..core.fitcore import make_constants, solve_scale_bg
 from ..data import SASData
 from ..models.base import BoundModel
-from ..ops import cyl_bank, kho_bank
+from ..ops import bank_common, bank_route
 from ..utils import profiling
 
 WEIGHTINGS = ("vol", "num", "int", "surf")
@@ -166,22 +166,16 @@ def _bank_f64(bound: BoundModel, data: SASData, comp2: float,
     (reference: sasmodel.py:56-73), or for 2D (q, ψ) data ff2d²·w on the
     fit grid's (q, ψ) pairs (no smearing), with w = volume^comp2.
 
-    Where :func:`ops.cyl_bank.launches_on` says so (orientation-averaged
-    cylinders on 1D data, on a CUDA device) the bank is one launch of its
-    kernel (:func:`ops.cyl_bank.run_cyl_bank`), where
-    :func:`ops.kho_bank.launches_on` says so (the Kholodenko worm on 1D
-    data, on a CUDA device) one launch of the worm's
-    (:func:`ops.kho_bank.run_kho_bank`); everything else, and every CPU
-    call, is :func:`_bank_eager`, those kernels' plain version."""
-    if cyl_bank.launches_on(bound, data, rset.device):
-        out = cyl_bank.run_cyl_bank(cyl_bank.bank_inputs(bound, data,
-                                                         comp2, rset))
-        return out.reshape(*rset.shape[:2], -1)
-    if kho_bank.launches_on(bound, data, rset.device):
-        out = kho_bank.run_kho_bank(kho_bank.bank_inputs(bound, data,
-                                                         comp2, rset))
-        return out.reshape(*rset.shape[:2], -1)
-    return _bank_eager(bound, data, comp2, rset, block)
+    Where the route :func:`ops.bank_route.kernel_for` names a bank
+    kernel (on a CUDA device: orientation-averaged cylinders, the
+    Kholodenko worm, on 1D data) the bank is one launch of it; everything
+    else, and every CPU call, is :func:`_bank_eager`, those kernels' plain
+    version."""
+    kernel = bank_route.kernel_for(bound, data, rset.device)
+    if kernel is None:
+        return _bank_eager(bound, data, comp2, rset, block)
+    out = kernel.run(kernel.bank_inputs(bound, data, comp2, rset))
+    return out.reshape(*rset.shape[:2], -1)
 
 
 def _bank_eager(bound: BoundModel, data: SASData, comp2: float,
@@ -200,10 +194,7 @@ def _bank_eager(bound: BoundModel, data: SASData, comp2: float,
     model, dev = bound.model, rset.device
     two_d = data.psi is not None and model.ff2d is not None
     smearing = data.uses_smearing and model.can_smear and not two_d
-    grid = torch.as_tensor(np.asarray(data.locs if smearing else data.q,
-                                      np.float64)).to(dev)
-    smear_w = (torch.as_tensor(np.asarray(data.smear_w, np.float64)).to(dev)
-               if smearing else None)
+    grid, smear_w = bank_common.grid_inputs(data, smearing, dev)
     psi = (torch.as_tensor(np.asarray(data.psi, np.float64)).to(dev)
            if two_d else None)
     flat = rset.reshape(-1, rset.shape[-1])

@@ -101,7 +101,7 @@ def run_child(tier: str, prewarm: bool, import_s: float) -> dict:
 
     from .. import api
     from ..core.engine import McSASEngine
-    from ..ops import mc_kernel
+    from ..ops import cuda_lib, mc_kernel
     from ..utils.profiling import card_line, require_card
     require_card("coldstart")
     out = dict(tier=tier, prewarm=prewarm, import_s=import_s)
@@ -132,8 +132,8 @@ def run_child(tier: str, prewarm: bool, import_s: float) -> dict:
         out["nvcc_s"] = {lib: timings[f"nvcc {lib}"]}
         out["load_s"] = timings[f"load {lib}"]
     else:
-        out["nvcc_s"] = {lib: mc_kernel.build_libraries((lib,))[lib].seconds}
-        stage("load_s", lambda: mc_kernel._library(lib))
+        out["nvcc_s"] = {lib: cuda_lib.build_libraries((lib,))[lib].seconds}
+        stage("load_s", lambda: cuda_lib.load(lib))
     k2 = (mc_kernel.run_prefetch_table_chunk, mc_kernel.run_prefetch_chunk)
     for fn in (mc_kernel.run_chunk, *k2):
         fn.launches = 0

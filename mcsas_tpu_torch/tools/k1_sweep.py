@@ -28,7 +28,7 @@ from contextlib import contextmanager
 import torch
 
 from ..core.engine import McSASEngine
-from ..ops import mc_kernel
+from ..ops import cuda_lib, mc_kernel
 from . import kern_probe
 
 CAPS = (1024, 512)
@@ -39,13 +39,12 @@ _DEFINE = "#define MC_BLOCK_THREADS "
 
 @contextmanager
 def _sources(cap: int):
-    """mc_kernel's sources and build directory pointed at a copy of
-    csrc/ whose block holds at most *cap* threads, for the duration."""
-    saved = mc_kernel._CSRC, mc_kernel._BUILD_DIR
-    root = mc_kernel._BUILD_DIR / "sweep" / str(cap)
+    """The kernel libraries built and loaded from a copy of csrc/ whose
+    block holds at most *cap* threads, for the duration."""
+    root = cuda_lib.BUILD_DIR / "sweep" / str(cap)
     csrc = root / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(saved[0], csrc)
+    shutil.copytree(cuda_lib.CSRC, csrc)
     header = csrc / "mc_chunk.cuh"
     text = header.read_text()
     if text.count(_DEFINE) != 1:
@@ -53,13 +52,8 @@ def _sources(cap: int):
                            f"{header}")
     head, tail = text.split(_DEFINE)
     header.write_text(head + _DEFINE + str(cap) + tail[tail.index("\n"):])
-    mc_kernel._CSRC, mc_kernel._BUILD_DIR = csrc, root
-    mc_kernel._LOADED.pop("mc_chunk", None)
-    try:
+    with cuda_lib.sources(csrc, root):
         yield
-    finally:
-        mc_kernel._CSRC, mc_kernel._BUILD_DIR = saved
-        mc_kernel._LOADED.pop("mc_chunk", None)
 
 
 def time_k1(eng: McSASEngine, state0, launches: int = LAUNCHES) -> tuple:
@@ -93,7 +87,7 @@ def run(caps=CAPS, candidates=CANDIDATES, models=None,
                            "torch.cuda.is_available() is False")
     for cap in caps:                 # build every cap before timing any
         with _sources(cap):
-            mc_kernel.build_libraries(("mc_chunk",))
+            cuda_lib.build_libraries(("mc_chunk",))
     names = models or [m.name for m in mc_kernel.K1_MODELS]
     out, first = [], {}
     for name in names:

@@ -191,11 +191,8 @@ def cyl_bank_work(inp, block_values=2 ** 24):
     their branches (j1_over_x's limit below 1e-6, sinc_sin's series below
     0.05); per output the three products of the weight.  Counted on the
     inputs' device, *block_values* nodes at a time."""
-    import torch
     nq, n_off = inp.grid.shape
     smeared = inp.smear_w is not None
-    n_bytes = 8 * (sum(t.numel() for t in inp if torch.is_tensor(t))
-                   + inp.radius.numel() * nq)
     per_node = NODE_OPS + smeared
     ops = inp.radius.numel() * nq * 3
     block = max(1, block_values // max(1, nq * n_off * inp.x.numel()))
@@ -207,24 +204,41 @@ def cyl_bank_work(inp, block_values=2 ** 24):
         nodes = a.numel() * inp.x.numel()
         ops += (nodes * per_node + poly * J1_POLY_OPS
                 + (nodes - poly) * J1_ASYM_OPS)
-        small = a.abs() < 1e-6
-        ops += int(small.sum()) * 3
-        big = ~small
-        ops += int((big & (a.abs() <= 3.0)).sum()) * (1 + J1_POLY_OPS)
-        ops += int((a.abs() > 3.0).sum()) * (1 + J1_ASYM_OPS)
+        ops += _j1_over_x_ops(a.abs())
         series = int(((c * 0.5).abs() < 0.05).sum())
         ops += series * 5 + (a.numel() - series) * 2
         ops += a.numel() * (ENDS_OPS + smeared)
-    return n_bytes, ops
+    return _bank_bytes(inp), ops
 
 
-def cyl_bank_bound(inp):
-    """(ms, what bounds it) of :func:`cyl_bank_work`: its bytes over the
-    HBM rate, its operations over the float64 rate."""
-    n_bytes, n_ops = cyl_bank_work(inp)
+def _f64_bound(n_bytes, n_ops):
+    """(ms, what bounds it): *n_bytes* over the HBM rate, *n_ops* float64
+    operations over the float64 rate."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
     return (max(t_b, t_o) * 1e3,
             "bytes" if t_b >= t_o else "float64 operations")
+
+
+def _bank_bytes(inp) -> int:
+    """A bank kernel's bytes: its inputs read once, the (B, Nq) bank
+    written once."""
+    import torch
+    return 8 * (sum(t.numel() for t in inp if torch.is_tensor(t))
+                + inp.radius.numel() * inp.grid.shape[0])
+
+
+def _j1_over_x_ops(a) -> int:
+    """The operations of j1_over_x on |x| = *a*: its limit below 1e-6,
+    else the division and J1 on the branch x takes."""
+    small = a < 1e-6
+    return (int(small.sum()) * 3
+            + int((~small & (a <= 3.0)).sum()) * (1 + J1_POLY_OPS)
+            + int((a > 3.0).sum()) * (1 + J1_ASYM_OPS))
+
+
+def cyl_bank_bound(inp):
+    """:func:`_f64_bound` of :func:`cyl_bank_work`."""
+    return _f64_bound(*cyl_bank_work(inp))
 
 
 def kho_bank_work(inp, block_values=2 ** 24):
@@ -245,8 +259,6 @@ def kho_bank_work(inp, block_values=2 ** 24):
     nq, n_off = inp.grid.shape
     b, n2 = inp.radius.numel(), 2 * chains._N_HALF
     smeared = inp.smear_w is not None
-    n_bytes = 8 * (sum(t.numel() for t in inp if torch.is_tensor(t))
-                   + b * nq)
     X = torch.clamp_max(inp.x, chains._Z_CUT)
     h = X / n2
     z = h[:, None] * torch.arange(n2 + 1, dtype=h.dtype, device=h.device)
@@ -283,21 +295,14 @@ def kho_bank_work(inp, block_values=2 ** 24):
         tail_all = int(tail.sum())
         ops += (n + tail_all + tail_below * n_tail * KHO_TAIL_SUB_OPS
                 + (tail_all - tail_below) * n_tail * KHO_TAIL_SUP_OPS)
-        a = (g * inp.radius[i:i + block, None, None]).abs()
-        small = a < 1e-6
-        poly = int((~small & (a <= 3.0)).sum())
-        ops += (int(small.sum()) * 3 + poly * (1 + J1_POLY_OPS)
-                + int((a > 3.0).sum()) * (1 + J1_ASYM_OPS))
-    return n_bytes, ops
+        ops += _j1_over_x_ops((g * inp.radius[i:i + block, None, None])
+                              .abs())
+    return _bank_bytes(inp), ops
 
 
 def kho_bank_bound(inp):
-    """(ms, what bounds it) of :func:`kho_bank_work`: its bytes over the
-    HBM rate, its operations over the float64 rate."""
-    n_bytes, n_ops = kho_bank_work(inp)
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
-    return (max(t_b, t_o) * 1e3,
-            "bytes" if t_b >= t_o else "float64 operations")
+    """:func:`_f64_bound` of :func:`kho_bank_work`."""
+    return _f64_bound(*kho_bank_work(inp))
 
 
 # ------------------------------------------------------------ counting

@@ -1,103 +1,39 @@
 # -*- coding: utf-8 -*-
 """PyTorch port: the post pass's bank kernel of the Kholodenko worm
-(ops/kho_bank.py, csrc/kho_bank.cu).  On the CPU: which bindings and data
-take its route; what its wrapper builds and refuses; its parameter struct
-against the C source; its operation count; and the CPU post pass, which
-keeps the eager bank (the kernel's plain version) and needs no library.
-On the card (marked ``cuda``, skipped without one; the CUDA kernel has no
-CPU mode): the kernel against the eager bank at the worm cell's size and
-on each branch of the rule, the float64 post pass through it, one launch a
-post pass and its counters (a worm engine's prewarm, which builds the
-kernel's library, is in ``tests/test_torch_prewarm.py``).  On a machine
-with a card and without JAX:
+(ops/kho_bank.py, csrc/kho_bank.cu).  On the CPU: what its wrapper builds,
+the struct a launch and a shape query fill, and its operation count (its
+route, its wrapper's refusals, its struct against the C source and the CPU
+post pass, which keeps the eager bank and needs no library, are tested
+with the cylinder's in ``tests/test_torch_bank_route.py``).  On the card
+(marked ``cuda``, skipped without one; the CUDA kernel has no CPU mode):
+the kernel against the eager bank at the worm cell's size and on each
+branch of the rule, the float64 post pass through it, one launch a post
+pass and its counters (a worm engine's prewarm, which builds the kernel's
+library, is in ``tests/test_torch_prewarm.py``).  On a machine with a card
+and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kho_bank.py -q
 """
-import ctypes
-import dataclasses
-import pathlib
-import re
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from bank_cases import (WORM_Q_NM, WORM_RANGES, contribs,  # noqa: E402
+                        frames, worm)
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
-from mcsas_tpu_torch.data import (DataConfig, TrapezoidSmearing,  # noqa: E402
-                                  from_raw)
-from mcsas_tpu_torch.models import get_model  # noqa: E402
 from mcsas_tpu_torch.models import chains  # noqa: E402
-from mcsas_tpu_torch.ops import (cyl_bank, kho_bank, mc_kernel,  # noqa: E402
+from mcsas_tpu_torch.ops import (bank_route, cuda_lib, kho_bank,  # noqa: E402
                                  special)
 from mcsas_tpu_torch.post import histogram  # noqa: E402
 from mcsas_tpu_torch.utils import profiling  # noqa: E402
 
 RTOL = 1e-10       # float64 on both sides; the math library's last bit
-# worm-k2xs's active ranges (benchmark/configs/worm-k2xs.json), in m
-_RANGES = {"radius": (1e-9, 5e-9), "lenKuhn": (1e-8, 5e-8),
-           "lenContour": (1e-7, 1e-6)}
-_CSRC = (pathlib.Path(__file__).resolve().parent.parent / "mcsas_tpu_torch"
-         / "csrc")
 
 
-def _data(q_nm=(0.01, 10.0, 100), smear=False):
-    """Flat frames on geomspace(*q_nm) nm⁻¹ (the worm cell's range),
-    unsmeared or through a 25-step trapezoid slit."""
-    q = np.geomspace(*q_nm)
-    ones = np.ones_like(q)
-    cfg = DataConfig(n_bin=0, smearing=TrapezoidSmearing(
-        do_smear=True, n_steps=25, umbra=0.05e9, penumbra=0.2e9)
-        if smear else None)
-    return from_raw(np.column_stack([q, ones, 0.01 * ones]), config=cfg)
-
-
-def _worm(**bind):
-    return get_model("Kholodenko").bind(
-        **(bind or dict(active=tuple(_RANGES), active_ranges=_RANGES)))
-
-
-def _contribs(bound, n_reps, n, seed=3):
-    """Contributions log-uniform over each active range."""
-    rs = np.random.default_rng(seed)
-    lo, hi = np.log(np.asarray(bound.ranges)).T
-    return np.exp(rs.uniform(lo, hi, (n_reps, n, len(lo))))
-
-
-# ------------------------------------------------------------------ route
-
-def _route_case(case):
-    if case == "worm":
-        return _worm(), _data()
-    if case == "worm-slit":
-        return _worm(), _data(smear=True)
-    if case == "worm-fixed-radius":
-        return _worm(active=("lenKuhn", "lenContour"),
-                     fixed={"radius": 2e-9}), _data()
-    if case == "worm-2d":
-        d = _data()
-        return _worm(), dataclasses.replace(
-            d, psi=np.linspace(0.0, 1.0, d.count))
-    model = {"sphere": "Sphere", "gaussian-chain": "GaussianChain",
-             "cylinders": "CylindersIsotropic"}[case]
-    return get_model(model).bind(), _data(smear=True)
-
-
-@pytest.mark.parametrize("case,takes", [
-    ("worm", True), ("worm-slit", True), ("worm-fixed-radius", True),
-    ("worm-2d", False), ("sphere", False), ("gaussian-chain", False),
-    ("cylinders", False)])
-def test_route_follows_the_binding_and_the_data(case, takes):
-    """The kernel's route: a model whose form factor is the worm's on 1D
-    data, smeared or not, whatever is active; not 2D data, not another
-    model.  Only a CUDA device launches it, and no bank takes both
-    kernels' routes."""
-    bound, d = _route_case(case)
-    assert kho_bank.applies(bound, d) is takes
-    assert kho_bank.launches_on(bound, d, "cuda") is takes
-    assert kho_bank.launches_on(bound, d, torch.device("cpu")) is False
-    assert not (takes and cyl_bank.applies(bound, d))
+def _data(q_nm=WORM_Q_NM, smear=False):
+    return frames(q_nm, smear)
 
 
 # ------------------------------------------------------------- the wrapper
@@ -109,14 +45,14 @@ def test_bank_inputs_shapes_dtypes_and_values(case):
     it (x = 3·contour/kuhn, w = volume^comp2; a fixed parameter broadcast),
     and the rule's constants as the plain version rounds them."""
     if case == "fixed-radius":
-        bound = _worm(active=("lenKuhn", "lenContour"),
-                      active_ranges={k: _RANGES[k] for k in
-                                     ("lenKuhn", "lenContour")},
-                      fixed={"radius": 2e-9})
+        bound = worm(active=("lenKuhn", "lenContour"),
+                     active_ranges={k: WORM_RANGES[k] for k in
+                                    ("lenKuhn", "lenContour")},
+                     fixed={"radius": 2e-9})
     else:
-        bound = _worm()
+        bound = worm()
     d = _data(smear=case == "slit")
-    c = torch.as_tensor(_contribs(bound, 2, 5))
+    c = torch.as_tensor(contribs(bound, 2, 5))
     inp = kho_bank.bank_inputs(bound, d, 4.0 / 3.0, c)
     n_off = 26 if case == "slit" else 1
     assert tuple(inp.grid.shape) == (100, n_off)
@@ -153,71 +89,9 @@ def test_bank_inputs_shapes_dtypes_and_values(case):
 
 
 def _inputs(smear=False):
-    bound = _worm()
-    rset = torch.as_tensor(_contribs(bound, 2, 5))
+    bound = worm()
+    rset = torch.as_tensor(contribs(bound, 2, 5))
     return kho_bank.bank_inputs(bound, _data(smear=smear), 4.0 / 3.0, rset)
-
-
-def _fault(kind):
-    inp = _inputs(smear=kind in ("no smear_w", "contiguity"))
-    if kind == "dtype":
-        return inp._replace(kuhn=inp.kuhn.float()), "kuhn"
-    if kind == "shape":
-        return inp._replace(x=inp.x[:-1].clone()), "x:"
-    if kind == "contiguity":
-        grid = inp.grid.t().contiguous().t()
-        return inp._replace(grid=grid), "not contiguous"
-    if kind == "device":
-        return inp._replace(weight=inp.weight.to("meta")), "weight"
-    if kind == "rule":
-        return inp._replace(rule=inp.rule[:-1].clone()), "rule"
-    if kind == "no smear_w":
-        return inp._replace(smear_w=None), "smear_w"
-    if kind == "grid":
-        return inp._replace(grid=inp.grid.reshape(-1)), "grid"
-    return inp, "CUDA device"                  # all well, but on the CPU
-
-
-@pytest.mark.parametrize("kind", ["cpu", "dtype", "shape", "contiguity",
-                                  "device", "rule", "no smear_w", "grid"])
-def test_wrapper_raises_on_what_the_kernel_does_not_take(kind, monkeypatch):
-    """run_kho_bank checks device, dtype, shape and contiguity before it
-    allocates or launches: each fault raises naming it, nothing launches
-    and the count stays."""
-    def launch(*args):
-        raise AssertionError("launched")
-
-    monkeypatch.setattr(mc_kernel, "_launch", launch)
-    inp, names = _fault(kind)
-    before = kho_bank.run_kho_bank.launches
-    with pytest.raises(ValueError, match=names):
-        kho_bank.run_kho_bank(inp)
-    with pytest.raises(ValueError, match=names):
-        kho_bank.launch_shape(inp)
-    assert kho_bank.run_kho_bank.launches == before
-
-
-_C_TYPES = {"const double*": ctypes.c_void_p, "double*": ctypes.c_void_p,
-            "double": ctypes.c_double, "int32_t": ctypes.c_int32}
-
-
-def test_params_struct_mirrors_the_c_source():
-    """_KhoBankParams has KhoBankParams' fields in csrc/kho_bank.cu's
-    order and types (the library also checks the struct's size when it
-    loads); the entry reports the shape's five values."""
-    src = (_CSRC / "kho_bank.cu").read_text()
-    body = re.search(r"struct KhoBankParams \{(.*?)\};", src, re.S).group(1)
-    fields = re.findall(r"^\s*(const double\*|double\*|double|int32_t)\s+"
-                        r"(\w+);", body, re.M)
-    assert [(n, _C_TYPES[t]) for t, n in fields] == list(
-        mc_kernel._KhoBankParams._fields_)
-    assert ctypes.sizeof(mc_kernel._KhoBankParams) == 8 * 8 + 2 * 8 + 8 * 4
-    assert "kho_bank" in mc_kernel.KERNELS
-    assert mc_kernel._ENTRIES["kho_bank"] == (
-        "kho_bank", mc_kernel._KhoBankParams, 0,
-        ("threads", "blocks", "smem_bytes", "registers", "local_bytes"))
-    assert '#include "bank_common.cuh"' in src
-    assert "bank_common.cuh" in mc_kernel._HEADERS
 
 
 @pytest.mark.parametrize("smear", [False, True])
@@ -229,10 +103,10 @@ def test_launch_and_shape_fill_the_struct(smear, monkeypatch):
     once, and ``post.bank.kernel`` under recording()."""
     calls = []
     monkeypatch.setattr(kho_bank, "_check", lambda inp: None)
-    monkeypatch.setattr(mc_kernel, "_device_index", lambda dev: 0)
-    monkeypatch.setattr(mc_kernel, "_launch", lambda entry, prm, dev:
+    monkeypatch.setattr(cuda_lib, "device_index", lambda dev: 0)
+    monkeypatch.setattr(cuda_lib, "launch", lambda entry, prm, dev:
                         calls.append(("launch", entry, prm)))
-    monkeypatch.setattr(mc_kernel, "_shape", lambda entry, prm:
+    monkeypatch.setattr(cuda_lib, "shape", lambda entry, prm:
                         calls.append(("shape", entry, prm)) or {"threads": 1})
     inp = _inputs(smear=smear)
     before = kho_bank.run_kho_bank.launches
@@ -244,7 +118,7 @@ def test_launch_and_shape_fill_the_struct(smear, monkeypatch):
     assert rec.counters.get("post.bank.kernel") == 1
     assert "post.bank.eager" not in rec.counters
     (_, e1, launch), (_, e2, shape) = calls
-    assert e1 == e2 == "kho_bank"
+    assert e1 == e2 == kho_bank.ENTRY
     assert launch.out == out.data_ptr() and not shape.out
     for prm in (launch, shape):
         assert prm.grid == inp.grid.data_ptr()
@@ -260,60 +134,6 @@ def test_launch_and_shape_fill_the_struct(smear, monkeypatch):
 
 
 # --------------------------------------------------------- the CPU's bank
-
-@pytest.mark.parametrize("smear", [False, True])
-def test_cpu_post_pass_keeps_the_eager_bank(smear, monkeypatch):
-    """On the CPU the worm's bank is the eager chain, unchanged and
-    without a library: no kernel call, no build or load, and the bank is
-    the model's ff²·w (through the slit: (ff²(locs) @ smear_w)·w) bit for
-    bit; the post pass counts one eager bank."""
-    def refuse(*args):
-        raise AssertionError("the kernel route on the CPU")
-
-    monkeypatch.setattr(kho_bank, "run_kho_bank", refuse)
-    monkeypatch.setattr(mc_kernel, "build_libraries", refuse)
-    monkeypatch.setattr(mc_kernel, "_library", refuse)
-    bound, d = _worm(), _data(smear=smear)
-    comp2 = 4.0 / 3.0
-    c = _contribs(bound, 2, 3)
-    rset = torch.as_tensor(c)
-    got = histogram._bank_f64(bound, d, comp2, rset)
-    part = rset.reshape(-1, 3)
-    grid = torch.as_tensor(d.locs if smear else d.q)
-    pd = bound.pdict(part[:, None, None, :] if smear else part[:, None, :])
-    ff = bound.model.ff(grid, pd)
-    it = (ff * ff) @ torch.as_tensor(d.smear_w) if smear else ff * ff
-    w = bound.model.volume(bound.pdict(part[:, None, :])) ** comp2
-    assert torch.equal(got, (it * w).reshape(got.shape))
-    with profiling.recording() as rec:
-        out = histogram._post_pass_f64(bound, d, McSASConfig(
-            num_contribs=3, num_reps=2), c)
-    assert all(np.isfinite(v).all() for v in out)
-    assert rec.counters.get("post.bank.eager") == 1
-    assert "post.bank.kernel" not in rec.counters
-
-
-@pytest.mark.parametrize("launches", [False, True])
-def test_bank_follows_launches_on(launches, monkeypatch):
-    """_bank_f64 takes the worm kernel's route exactly where
-    kho_bank.launches_on says so, and the eager bank everywhere else."""
-    calls = []
-
-    def run(inp):
-        calls.append(inp)
-        return torch.zeros((inp.radius.numel(), inp.grid.shape[0]),
-                           dtype=torch.float64)
-
-    monkeypatch.setattr(kho_bank, "launches_on",
-                        lambda bound, data, device: launches)
-    monkeypatch.setattr(kho_bank, "run_kho_bank", run)
-    bound, d = _worm(), _data()
-    rset = torch.as_tensor(_contribs(bound, 2, 5))
-    got = histogram._bank_f64(bound, d, 4.0 / 3.0, rset)
-    assert len(calls) == int(launches)
-    assert tuple(got.shape) == (2, 5, d.count)
-    assert bool((got > 0).all()) is not launches
-
 
 # ------------------------------------------------- the kernel's bound
 
@@ -382,9 +202,9 @@ def test_kho_bank_bound_is_float64_operations_at_the_cells_shape():
     cell's shape (thousands an element, against 8 bytes an output); the
     count does not depend on the block."""
     from mcsas_tpu_torch.tools import roofline
-    bound = _worm()
+    bound = worm()
     inp = kho_bank.bank_inputs(bound, _data(), 4.0 / 3.0,
-                               torch.as_tensor(_contribs(bound, 4, 25)))
+                               torch.as_tensor(contribs(bound, 4, 25)))
     n_bytes, n_ops = roofline.kho_bank_work(inp)
     assert roofline.kho_bank_work(inp, block_values=700) == (n_bytes,
                                                              n_ops)
@@ -416,13 +236,13 @@ def _card_case(name):
     slit), contributions whose t = q·kuhn/3 lies 1e-7 and 1e-4 either side
     of 1 at points of the grid, and radii and points that reach q·r below
     1e-6 (j1_over_x's limit)."""
-    bound = _worm()
+    bound = worm()
     d = _data(smear=name == "slit")
     if name == "qr-limit":
-        ranges = dict(_RANGES, radius=(1e-10, 5e-9))
-        bound = _worm(active=tuple(ranges), active_ranges=ranges)
+        ranges = dict(WORM_RANGES, radius=(1e-10, 5e-9))
+        bound = worm(active=tuple(ranges), active_ranges=ranges)
         d = _data((1e-6, 10.0, 100))
-    c = _contribs(bound, 10, 300, seed=17)
+    c = contribs(bound, 10, 300, seed=17)
     if name == "t-near-1":
         # 1e-7 from 1 keeps 1 - cos(F X) well above its rounding
         deltas = (-1e-4, -1e-7, 1e-7, 1e-4)
@@ -502,7 +322,7 @@ def test_kho_bank_post_pass_matches_the_eager_pass(smear, monkeypatch):
     assert kho_bank.run_kho_bank.launches == before + 1
     assert rec.counters.get("post.bank.kernel") == 1
     assert "post.bank.eager" not in rec.counters
-    monkeypatch.setattr(kho_bank, "launches_on", lambda *a: False)
+    monkeypatch.setattr(bank_route, "kernel_for", lambda *a: None)
     eager = histogram._post_pass_f64(bound, d, cfg, c, device="cuda")
     assert kho_bank.run_kho_bank.launches == before + 1
     for a, b in zip(card, eager):

@@ -4,7 +4,7 @@ mcsas_tpu/core/engine.py:545-575 in the JAX package) on the CPU.  A fit
 after a prewarm is the fit without one, bit for bit; ``fit`` prewarms a
 cached engine once; ``run_files`` and the CLI take the flag.  The card's
 prewarm (the kernel library's build and load, the kernel's attributes)
-is rehearsed here with its mc_kernel calls replaced by recorders, on a
+is rehearsed here with its kernel calls replaced by recorders, on a
 CPU engine told that a kernel runs its chunks: what it calls, on which
 shards, and that it leaves the engine's generator alone; on the card
 ``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 23 and this file's
@@ -23,7 +23,8 @@ from mcsas_tpu_torch import api  # noqa: E402
 from mcsas_tpu_torch.cli import main as cli_main  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
-from mcsas_tpu_torch.ops import cyl_bank, kho_bank, mc_kernel  # noqa: E402
+from mcsas_tpu_torch.ops import (bank_route, cuda_lib, kho_bank,  # noqa: E402
+                                 mc_kernel)
 from mcsas_tpu_torch.parallel import ShardedEnsemble, make_mesh  # noqa: E402
 from mcsas_tpu_torch.tools import suite  # noqa: E402
 
@@ -150,13 +151,14 @@ def test_prewarm_post_runs_the_post_pass_on_the_device(refdata,
 
 @pytest.fixture
 def recorded_kernel(monkeypatch):
-    """mc_kernel's build, load and shape calls replaced by recorders that
-    answer as on the card; torch.cuda.synchronize a no-op."""
+    """The kernel libraries' build and load and the chunk kernels' shape
+    calls replaced by recorders that answer as on the card;
+    torch.cuda.synchronize a no-op."""
     calls = []
 
     def build(names):
         calls.append(("build", tuple(names)))
-        return {n: mc_kernel.KernelBuild(path=None, seconds=0.0, log="")
+        return {n: cuda_lib.KernelBuild(path=None, seconds=0.0, log="")
                 for n in names}
 
     def shape(kind):
@@ -165,8 +167,8 @@ def recorded_kernel(monkeypatch):
             return {"group": 8}
         return fn
 
-    monkeypatch.setattr(mc_kernel, "build_libraries", build)
-    monkeypatch.setattr(mc_kernel, "_library",
+    monkeypatch.setattr(cuda_lib, "build_libraries", build)
+    monkeypatch.setattr(cuda_lib, "load",
                         lambda name: calls.append(("load", name)))
     monkeypatch.setattr(mc_kernel, "launch_shape", shape("k1"))
     monkeypatch.setattr(mc_kernel, "prefetch_launch_shape", shape("k2"))
@@ -242,39 +244,6 @@ def test_prewarm_queries_k2_with_a_segment(small_table, recorded_kernel,
         assert len(args) == 1
 
 
-@pytest.mark.parametrize("smear", [False, True])
-def test_prewarm_builds_the_bank_kernel_beside_k2(small_table,
-                                                  recorded_kernel,
-                                                  monkeypatch, smear):
-    """Where the fit's post pass launches the cylinder bank kernel (its
-    route answered as on the card), prewarm builds mc_prefetch and
-    cyl_bank in one nvcc round and loads both before the init; an engine
-    whose post pass keeps the eager bank (the Sphere) builds its chunk
-    kernel's library alone."""
-    monkeypatch.setattr(cyl_bank, "launches_on",
-                        lambda bound, data, device: cyl_bank.applies(bound,
-                                                                     data))
-    d, b, cfg = _cylinder()
-    if smear:
-        d = suite.cylinder_smeared_golden()
-    eng = _kernel_engine(McSASEngine(d, b, cfg, device="cpu"))
-    out = eng.prewarm()
-    assert list(out) == ["nvcc mc_prefetch", "nvcc cyl_bank",
-                         "load mc_prefetch", "load cyl_bank", "init",
-                         "attributes mc_prefetch"]
-    assert recorded_kernel[0] == ("build", ("mc_prefetch", "cyl_bank"))
-    assert recorded_kernel[1:3] == [("load", "mc_prefetch"),
-                                    ("load", "cyl_bank")]
-    del recorded_kernel[:]
-    sphere = mt.get_model("Sphere").bind()
-    eng = _kernel_engine(McSASEngine(d, sphere, McSASConfig(**_TINY),
-                                     device="cpu"))
-    assert list(eng.prewarm()) == ["nvcc mc_chunk", "load mc_chunk",
-                                   "init", "attributes mc_chunk"]
-    assert recorded_kernel[:2] == [("build", ("mc_chunk",)),
-                                   ("load", "mc_chunk")]
-
-
 def _worm():
     """The worm row's data (sasfit_kho-1-10-1000.dat rebinned to 100
     points) and binding on a table of at most the env's nodes an axis."""
@@ -283,27 +252,38 @@ def _worm():
     return d, row.bound(d)
 
 
-def test_prewarm_builds_the_worm_bank_kernel_beside_k2(recorded_kernel,
-                                                       monkeypatch):
-    """Where the fit's post pass launches the worm's bank kernel (its
-    route answered as on the card), prewarm builds mc_prefetch and
-    kho_bank in one nvcc round and loads both before the init; a Sphere
-    engine builds and loads its chunk kernel's library alone."""
-    for bank in (cyl_bank, kho_bank):
-        monkeypatch.setattr(bank, "launches_on",
-                            lambda bound, data, device, bank=bank:
-                            bank.applies(bound, data))
-    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
-    d, b = _worm()
-    eng = _kernel_engine(McSASEngine(d, b, McSASConfig(**dict(
-        _TINY, table_ff="on", chunk_steps=4)), device="cpu"))
+@pytest.mark.parametrize("bank,smear", [("cyl_bank", False),
+                                        ("cyl_bank", True),
+                                        ("kho_bank", False)])
+def test_prewarm_builds_the_bank_kernel_beside_k2(small_table,
+                                                  recorded_kernel,
+                                                  monkeypatch, bank, smear):
+    """Where the fit's post pass launches a bank kernel (the route
+    answered as on the card: the cylinders' unsmeared and through the
+    slit, the worm's), prewarm builds mc_prefetch and that kernel's
+    library in one nvcc round and loads both before the init; an engine
+    whose post pass keeps the eager bank (the Sphere) builds its chunk
+    kernel's library alone."""
+    route = bank_route.kernel_for
+    monkeypatch.setattr(bank_route, "kernel_for",
+                        lambda bound, data, device: route(bound, data,
+                                                          "cuda"))
+    if bank == "cyl_bank":
+        d, b, cfg = _cylinder()
+        if smear:
+            d = suite.cylinder_smeared_golden()
+    else:
+        monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
+        d, b = _worm()
+        cfg = McSASConfig(**dict(_TINY, table_ff="on", chunk_steps=4))
+    eng = _kernel_engine(McSASEngine(d, b, cfg, device="cpu"))
     assert eng.prefetch_entry == "table"
-    assert list(eng.prewarm()) == ["nvcc mc_prefetch", "nvcc kho_bank",
-                                   "load mc_prefetch", "load kho_bank",
+    assert list(eng.prewarm()) == ["nvcc mc_prefetch", f"nvcc {bank}",
+                                   "load mc_prefetch", f"load {bank}",
                                    "init", "attributes mc_prefetch"]
-    assert recorded_kernel[0] == ("build", ("mc_prefetch", "kho_bank"))
+    assert recorded_kernel[0] == ("build", ("mc_prefetch", bank))
     assert recorded_kernel[1:3] == [("load", "mc_prefetch"),
-                                    ("load", "kho_bank")]
+                                    ("load", bank)]
     del recorded_kernel[:]
     sphere = mt.get_model("Sphere").bind()
     eng = _kernel_engine(McSASEngine(d, sphere, McSASConfig(**_TINY),
@@ -324,22 +304,18 @@ def test_worm_prewarm_leaves_the_first_fit_nothing_to_build(monkeypatch):
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "16")
     monkeypatch.setattr(api, "_ENGINE_CACHE", {})
-    for name in ("mc_prefetch", "kho_bank"):
-        monkeypatch.delitem(mc_kernel._LOADED, name, raising=False)
     labels = []
 
     def refuse(*args):
         raise AssertionError(f"built or loaded after the prewarm: {args}")
 
-    def loaded(name):
-        return mc_kernel._LOADED.get(name) or refuse(name)
-
     class Guarded(McSASEngine):
         def prewarm(self):
             out = super().prewarm()
             labels.extend(out)
-            monkeypatch.setattr(mc_kernel, "build_libraries", refuse)
-            monkeypatch.setattr(mc_kernel, "_library", loaded)
+            # a library the process has not loaded is built (or found
+            # built) first: refusing the build refuses every new load
+            monkeypatch.setattr(cuda_lib, "build_libraries", refuse)
             return out
 
     d, b = _worm()
@@ -347,8 +323,10 @@ def test_worm_prewarm_leaves_the_first_fit_nothing_to_build(monkeypatch):
                       local_moves=0.75, seed=6, max_iterations=200_000,
                       max_retries=0, table_ff="on", show_incomplete=True)
     before = kho_bank.run_kho_bank.launches
-    res = mt.fit(d, b, cfg, device="cuda", prewarm=True,
-                 engine_cls=Guarded)
+    # the loaded libraries forgotten: the prewarm loads them
+    with cuda_lib.sources(cuda_lib.CSRC, cuda_lib.BUILD_DIR):
+        res = mt.fit(d, b, cfg, device="cuda", prewarm=True,
+                     engine_cls=Guarded)
     assert labels[:4] == ["nvcc mc_prefetch", "nvcc kho_bank",
                           "load mc_prefetch", "load kho_bank"]
     assert res.engine.used_prefetch
@@ -377,7 +355,7 @@ def test_prewarm_raises_when_the_build_fails(refdata, recorded_kernel,
         raise RuntimeError("nvcc failed with exit code 1 building "
                            "csrc/mc_chunk.cu")
 
-    monkeypatch.setattr(mc_kernel, "build_libraries", failing)
+    monkeypatch.setattr(cuda_lib, "build_libraries", failing)
     d, b = mt.load(refdata / _SPHERE), mt.get_model("Sphere").bind()
     eng = _kernel_engine(McSASEngine(d, b, McSASConfig(**_TINY),
                                      device="cpu"))

@@ -235,12 +235,12 @@ def test_bank_kernel_counts_each_launch_under_recording(monkeypatch):
     wrapper's own ``launches`` counts every launch.  The launch is
     rehearsed on CPU tensors: the wrapper's device check and the C call
     are replaced, the call recorded."""
-    from mcsas_tpu_torch.ops import cyl_bank, mc_kernel
+    from mcsas_tpu_torch.ops import cuda_lib, cyl_bank
     calls = []
     monkeypatch.setattr(cyl_bank, "_check", lambda inp: None)
-    monkeypatch.setattr(mc_kernel, "_device_index", lambda dev: 0)
-    monkeypatch.setattr(mc_kernel, "_launch",
-                        lambda entry, prm, dev: calls.append(entry))
+    monkeypatch.setattr(cuda_lib, "device_index", lambda dev: 0)
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda entry, prm, dev: calls.append(entry.name))
     rset = torch.full((2, 3, 1), 1e-8, dtype=torch.float64)
     inp = cyl_bank.bank_inputs(suite.cylinder_bound(),
                                suite.cylinder_golden(), 4.0 / 3.0, rset)
