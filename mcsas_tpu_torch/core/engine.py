@@ -49,7 +49,7 @@ from ..config import McSASConfig
 from ..data import SASData
 from ..models.base import BoundModel
 from ..ops import bank_route, cuda_lib, mc_kernel
-from ..ops.tables import ParamTable
+from ..ops.tables import ParamTable, grid_fingerprint
 from ..utils import profiling
 from .fitcore import FitConstants, make_constants, solve_scale_bg
 from .rng import draw_params, local_candidates, whole_vectors
@@ -58,8 +58,8 @@ log = logging.getLogger(__name__)
 
 __all__ = ["RepState", "EngineResult", "IntensityKernel", "McSASEngine",
            "chunk_vectors", "fresh_state", "local_candidates",
-           "magnitude_probe", "make_intensity_kernels", "resolve_device",
-           "state_from_numpy", "state_to_numpy"]
+           "magnitude_probe", "make_intensity_kernels", "memo_probe",
+           "resolve_device", "state_from_numpy", "state_to_numpy"]
 
 
 @dataclass
@@ -265,6 +265,42 @@ def magnitude_probe(bound: BoundModel, probe_grid, two_d_psi=None) -> float:
     return i_ref
 
 
+# i_ref of the last few (model, probe grid, ψ) keys: a series of frames on
+# one grid builds an engine a frame, and the probe reads nothing of a
+# frame's intensities.  Oldest entry out first.
+_PROBE_MEMO: dict = {}
+_PROBE_MEMO_CAP = 8
+
+
+def _grid_key(grid):
+    return grid_fingerprint(grid), np.shape(grid)
+
+
+def memo_probe(bound: BoundModel, probe_grid, two_d_psi=None) -> float:
+    """:func:`magnitude_probe` through a per-process memo keyed by all it
+    reads: the bound model, the probe grid's bytes and shape and, on 2D
+    data, ψ's.  The probe is a pure float64 function of that key, so a hit
+    returns its value bit for bit.  A model piece that cannot be hashed is
+    probed every time.  Counters ``core.engine.probe_memo.hit`` and
+    ``.miss``."""
+    key = (bound, _grid_key(probe_grid),
+           None if two_d_psi is None else _grid_key(two_d_psi))
+    try:
+        i_ref = _PROBE_MEMO.get(key)
+    except TypeError:       # a model piece that cannot be hashed
+        key = i_ref = None
+    if i_ref is not None:
+        profiling.count("core.engine.probe_memo.hit")
+        return i_ref
+    profiling.count("core.engine.probe_memo.miss")
+    i_ref = magnitude_probe(bound, probe_grid, two_d_psi=two_d_psi)
+    if key is not None:
+        if len(_PROBE_MEMO) >= _PROBE_MEMO_CAP:
+            _PROBE_MEMO.pop(next(iter(_PROBE_MEMO)))
+        _PROBE_MEMO[key] = i_ref
+    return i_ref
+
+
 @dataclass(frozen=True)
 class IntensityKernel:
     """The normalized intensity row of one (data, model, config) triple.
@@ -417,8 +453,8 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
         psi = torch.as_tensor(np.asarray(data.psi, np.float64)).to(
             device=device, dtype=dtype)
     with profiling.span("core.engine.probe"):
-        i_ref = magnitude_probe(bound, data.locs if smearing else data.q,
-                                two_d_psi=data.psi if two_d else None)
+        i_ref = memo_probe(bound, data.locs if smearing else data.q,
+                           two_d_psi=data.psi if two_d else None)
     model_ff = bound.model.ff
     if dtype == torch.float32 and bound.model.ff_fast is not None:
         model_ff = bound.model.ff_fast

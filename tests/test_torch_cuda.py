@@ -1640,3 +1640,69 @@ def test_cyl_bank_launches_once_a_cylinder_post_pass(small_tables):
         assert cyl_bank.run_cyl_bank.launches == n0 + 2
         fit(golden, bound, cfg.replace(table_ff="on"), device="cuda")
         assert cyl_bank.run_cyl_bank.launches == n0 + 3
+
+
+def _frame_on_the_grid(d):
+    """Another frame of dataset *d* on its grid (and its slit's offsets):
+    the intensities times 1 + 0.3 (q / q_max)^1.5."""
+    raw = np.array(d.raw, np.float64)
+    raw[:, 1] *= 1.0 + 0.3 * (raw[:, 0] / raw[:, 0].max()) ** 1.5
+    out = from_raw(raw, title="another frame", config=d.config)
+    np.testing.assert_array_equal(out.q, d.q)
+    if d.locs is not None:
+        np.testing.assert_array_equal(out.locs, d.locs)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["worm", "slit"])
+def test_probe_memo_keeps_engines_and_fits_bitwise(small_tables,
+                                                   monkeypatch, kind):
+    """A worm engine and a slit-smeared cylinder engine built on the card
+    on a warm memo of the magnitude probe (another frame on the same grid
+    probed first) have the inv_i_ref and w_ref of engines built after the
+    memo is cleared, and their fits are the same bits."""
+    from mcsas_tpu_torch import api, fit
+    from mcsas_tpu_torch.core import engine as engine_mod
+    from mcsas_tpu_torch.utils.profiling import recording
+    if kind == "worm":
+        first = load(DATA.parent / "sasfit_kho-1-10-1000.dat")
+        bound = get_model("Kholodenko").bind()
+    else:
+        first, bound = suite.cylinder_smeared_golden(), suite.cylinder_bound()
+    frame = _frame_on_the_grid(first)
+    cfg = McSASConfig(num_contribs=40, num_reps=3, candidates_per_step=32,
+                      chunk_steps=64, seed=6, max_iterations=20_000,
+                      max_retries=0, show_incomplete=True, table_ff="on")
+    monkeypatch.setattr(api, "_ENGINE_CACHE", {})
+
+    def fit_on_a_new_engine():
+        api._ENGINE_CACHE.clear()
+        with recording() as rec:
+            res = fit(frame, bound, cfg, device="cuda")
+        (eng,) = api._ENGINE_CACHE.values()
+        assert eng.runs_prefetch
+        memo = {k: v for k, v in rec.counters.items()
+                if k.startswith("core.engine.probe_memo.")}
+        return res, eng, memo
+
+    monkeypatch.setattr(engine_mod, "_PROBE_MEMO", {})
+    McSASEngine(first, bound, cfg, device="cuda")
+    warm, warm_eng, memo = fit_on_a_new_engine()
+    assert memo == {"core.engine.probe_memo.hit": 1}
+    engine_mod._PROBE_MEMO.clear()
+    cold, cold_eng, memo = fit_on_a_new_engine()
+    assert memo == {"core.engine.probe_memo.miss": 1}
+    assert warm_eng is not cold_eng
+    assert warm_eng.kern.inv_i_ref == cold_eng.kern.inv_i_ref
+    assert warm_eng.kern.w_ref == cold_eng.kern.w_ref == cold.engine.w_ref
+    for f in dataclasses.fields(cold.engine):
+        if f.name in ("elapsed", "iters_per_sec", "moves_per_sec"):
+            continue
+        np.testing.assert_array_equal(getattr(warm.engine, f.name),
+                                      getattr(cold.engine, f.name), f.name)
+    np.testing.assert_array_equal(warm.fractions.measval,
+                                  cold.fractions.measval)
+    np.testing.assert_array_equal(warm.fractions.fraction["vol"],
+                                  cold.fractions.fraction["vol"])
+    for a, b in zip(warm.histograms, cold.histograms):
+        np.testing.assert_array_equal(a.bins.full, b.bins.full)

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from mcsas_tpu_torch import api, data  # noqa: E402
 from mcsas_tpu_torch.config import McSASConfig  # noqa: E402
+from mcsas_tpu_torch.core import engine  # noqa: E402
 from mcsas_tpu_torch.core.engine import McSASEngine  # noqa: E402
 from mcsas_tpu_torch.models import get_model  # noqa: E402
 from mcsas_tpu_torch.tools import suite  # noqa: E402
@@ -27,6 +28,13 @@ from mcsas_tpu_torch.utils import profiling  # noqa: E402
 from mcsas_tpu_torch.utils.profiling import (annotate,  # noqa: E402
                                              debug_guards, recording, span,
                                              trace)
+
+
+@pytest.fixture(autouse=True)
+def fresh_probe_memo(monkeypatch):
+    """Each test starts with an empty memo of the magnitude probe: the
+    span trees and counts below include the probe's own work."""
+    monkeypatch.setattr(engine, "_PROBE_MEMO", {})
 
 
 def test_trace_writes_capture_with_the_span(tmp_path):
