@@ -892,6 +892,8 @@ class McSASEngine:
             n_live = int((running | need_retry).sum())
             if need_retry.any():
                 retried_iters += int(n_iter[need_retry].sum())
+                profiling.count("core.engine.retried_reps",
+                                int(need_retry.sum()))
                 with profiling.span("core.engine.retry"):
                     state = self._retry(state, need_retry)
                 attempts[need_retry] += 1
@@ -902,6 +904,11 @@ class McSASEngine:
                             int(attempts[need_retry].max()), max_attempts)
                 continue
             if not running.any():
+                # what is neither converged nor retried has spent its
+                # last attempt
+                if not converged.all():
+                    profiling.count("core.engine.unconverged_reps",
+                                    int((~converged).sum()))
                 break
 
         with profiling.span("core.engine.result"):
