@@ -2315,7 +2315,7 @@ def contribs_match(label, res, base):
 
 def mesh_phase(torch, mc_kernel, fit, load, cfg, sphere_contribs,
                sphere_launches, sphere_median, cyl, cyl_contribs,
-               cyl_launches, native_s, card):
+               cyl_segments, native_s, card):
     """Phase 22: the sharded ensemble on one card, the CLI's --mesh,
     profiling.trace and the native parser.  Returns the launches of K1
     and K2 per mesh."""
@@ -2377,9 +2377,9 @@ def mesh_phase(torch, mc_kernel, fit, load, cfg, sphere_contribs,
     cres, cwall = sharded_fit((2, 1), golden, cyl_bound, cyl_cfg)
     k2 = mc_kernel.run_prefetch_table_chunk.launches
     if (mc_kernel.run_chunk.launches or mc_kernel.run_prefetch_chunk.launches
-            or k2 != 2 * cyl_launches):
+            or k2 != 2 * cyl_segments):
         raise AssertionError(f"mesh 2x1 cylinder: {k2} launches of K2's "
-                             f"table entry (want 2 x {cyl_launches})")
+                             f"table entry (want 2 x {cyl_segments})")
     _held_converged("mesh 2x1 cylinder", cres)
     if not np.array_equal(cres.engine.contribs, cyl_contribs):
         raise AssertionError("mesh 2x1: the cylinder contributions differ "
@@ -2389,7 +2389,7 @@ def mesh_phase(torch, mc_kernel, fit, load, cfg, sphere_contribs,
     out["k2_2x1"] = k2
     print(f"[mesh] cylinder row on a 2x1 mesh of one card: contributions "
           f"bitwise equal to phase 7, {k2} launches of K2's table entry "
-          f"(2 x {cyl_launches}); warm walls of 5 {cwalls}, median "
+          f"(2 x {cyl_segments}); warm walls of 5 {cwalls}, median "
           f"{float(np.median(cwalls)):.4f} s; on {card}", flush=True)
 
     # ---- (d): the q axis, the plain chunk only
@@ -2884,10 +2884,12 @@ def plugin_phase(torch, mc_kernel, fit, engine_cls, load, cfg,
     reset_counts(mc_kernel)
     mres = fit(DATA, plugin, cfg, mesh=mesh)
     mesh_launches = mc_kernel.run_prefetch_chunk.launches
-    if (mesh_launches != 2 * launches or mc_kernel.run_chunk.launches
+    # a shard launches once a segment of the serial order (the unsharded
+    # fit's n_chunks; its lookahead may launch one spent segment more)
+    if (mesh_launches != 2 * e.n_chunks or mc_kernel.run_chunk.launches
             or mc_kernel.run_prefetch_table_chunk.launches):
         raise AssertionError(f"[plugin mesh] {mesh_launches} launches of "
-                             f"K2's rows entry, want {2 * launches}")
+                             f"K2's rows entry, want {2 * e.n_chunks}")
     for f in ("contribs", "conval", "n_iter", "n_moves", "scaling",
               "background"):
         if not np.array_equal(getattr(mres.engine, f), getattr(e, f)):
@@ -2902,7 +2904,7 @@ def plugin_phase(torch, mc_kernel, fit, engine_cls, load, cfg,
         mesh_walls.append(time.perf_counter() - t0)
     print(f"[plugin mesh] 2x1 repetition mesh of cuda:0: bitwise the "
           f"unsharded fit, {mesh_launches} launches of K2's rows entry "
-          f"(2 x {launches}); warm walls {mesh_walls}, median "
+          f"(2 x {e.n_chunks} segments); warm walls {mesh_walls}, median "
           f"{float(np.median(mesh_walls)):.4f} s against the unsharded "
           f"{median:.4f} s; on {card}", flush=True)
 
@@ -3748,7 +3750,7 @@ def main():
     # ---- phase 22: the sharded ensemble, profiling, the native parser
     mesh = mesh_phase(torch, mc_kernel, fit, load, cfg, e.contribs, launches,
                       float(np.median(walls)),
-                      (golden, cyl_bound, cyl_cfg), ce.contribs, k2_launches,
+                      (golden, cyl_bound, cyl_cfg), ce.contribs, ce.n_chunks,
                       native_s, card)
 
     # ---- phase 23: prewarm, the cold-start and scaling tools, examples

@@ -361,8 +361,13 @@ class IntensityKernel:
 
     def _row_weight(self, pvec: torch.Tensor) -> torch.Tensor:
         w = self.weight(self.bound.pdict(pvec[..., None, :]))
-        return torch.as_tensor(w, dtype=self.grid.dtype,
-                               device=self.grid.device)
+        if isinstance(w, torch.Tensor):
+            return torch.as_tensor(w, dtype=self.grid.dtype,
+                                   device=self.grid.device)
+        # a volume of no active parameter: filled on the device, with the
+        # rounding of a copy from the host but without its wait
+        return torch.full((), w, dtype=self.grid.dtype,
+                          device=self.grid.device)
 
     def sqrt_weight(self, pvec: torch.Tensor) -> torch.Tensor:
         """√w of parameter vectors (..., P), shaped as
@@ -502,6 +507,43 @@ def make_intensity_kernels(bound: BoundModel, data: SASData,
                            smear_w=smear_w,
                            table_is_intensity=table_is_intensity, psi=psi,
                            table_declined=table_declined)
+
+
+class _HostReads:
+    """Where the host reads a chunk's χ² and counters.  On the card: a
+    copy, in stream order right behind the chunk, into a pinned host
+    buffer, and an event that marks it done, so that the host can wait
+    for chunk n's read while chunk n+1 is queued behind it.  Two buffers
+    in turn, so that read n+1's copy never lands in the buffer of a read
+    the host has not taken.  Elsewhere the read is the vector itself."""
+
+    def __init__(self):
+        self._slots = []
+        self._turn = 0
+
+    def post(self, vec: torch.Tensor):
+        """Enqueues the copy of *vec* to the host; returns what
+        :meth:`take` waits for."""
+        if vec.device.type != "cuda":
+            return vec, None
+        if not self._slots:         # a run reads one shape throughout
+            self._slots = [(torch.empty(vec.shape, dtype=vec.dtype,
+                                        pin_memory=True), torch.cuda.Event())
+                           for _ in range(2)]
+        buf, done = self._slots[self._turn]
+        self._turn ^= 1
+        buf.copy_(vec, non_blocking=True)
+        done.record(torch.cuda.current_stream(vec.device))
+        return buf, done
+
+    @staticmethod
+    def take(posted) -> np.ndarray:
+        """Waits for a posted read; returns it as an array of its own."""
+        vec, done = posted
+        if done is None:
+            return vec.cpu().numpy()
+        done.synchronize()
+        return vec.numpy().copy()
 
 
 class McSASEngine:
@@ -645,8 +687,10 @@ class McSASEngine:
                                 device=self.device).expand(r, n, p)
             rset = rset.contiguous()
         else:
-            rset = draw_params(self.gen, bound, count=r * n,
-                               dtype=self.dtype).reshape(r, n, p)
+            rset = draw_params(
+                self.gen, bound, count=r * n, dtype=self.dtype,
+                vectors=self.spec.bounds(self.dtype, self.device)
+            ).reshape(r, n, p)
         return rset
 
     def _init_batch(self) -> RepState:
@@ -667,7 +711,9 @@ class McSASEngine:
         if k_global:
             parts.append(draw_params(
                 self.gen, self.bound, count=s * r * k_global,
-                dtype=self.dtype).reshape(s, r, k_global, p))
+                dtype=self.dtype,
+                vectors=self.spec.bounds(self.dtype, self.device)
+            ).reshape(s, r, k_global, p))
         if k_local:
             parts.append(torch.rand((s, r, k_local, p), generator=self.gen,
                                     dtype=self.dtype, device=self.device))
@@ -815,6 +861,31 @@ class McSASEngine:
         :func:`chunk_vectors` of the state."""
         return chunk_vectors(state, guard)
 
+    def _issue(self, state, ri: int, guard, reads: "_HostReads"):
+        """Issues one chunk and, behind it in the stream, the copy of what
+        the host reads of it; returns (state, cursor, the posted read)."""
+        state, ri = self._chunk(state, ri)
+        return state, ri, reads.post(self._read(state, guard))
+
+    def _may_issue_ahead(self, running: np.ndarray,
+                         n_iter: np.ndarray) -> bool:
+        """True when the chunk after next may be issued before the next
+        read, which then cannot ask for a retry (whose fresh batch comes
+        from the same generator): on an engine of prefetch segments, where
+        every repetition the read just taken found running (so with a
+        finite χ² and an advancing counter: else it is stuck) has more
+        than one segment's proposals left before max_iterations, and where
+        the kernels' float32 test of the criterion agrees with the host's
+        (a χ² between the two would look running here and stall on the
+        card).  A K1 chunk's seed waits on the card anyway: it runs in
+        series."""
+        crit = float(self.cfg.convergence_criterion)
+        if not self.runs_prefetch or float(np.float32(crit)) != crit:
+            return False
+        room = (min(int(self.cfg.max_iterations), 2 ** 31 - 1)
+                - self.seg_steps * self.cfg.candidates_per_step)
+        return bool((n_iter[running] < room).all())
+
     def _retry(self, state, need_retry: np.ndarray):
         """The state with the repetitions of *need_retry* (R,) started
         afresh (the whole batch is drawn, as every retry draws it)."""
@@ -838,7 +909,18 @@ class McSASEngine:
             return self._run(stop, progress)
 
     def _run(self, stop, progress) -> EngineResult:
-        """:meth:`run`'s body, inside its ``core.engine.mc`` span."""
+        """:meth:`run`'s body, inside its ``core.engine.mc`` span.
+
+        One segment of lookahead: where :meth:`_may_issue_ahead` allows
+        it, segment n+1 is issued (drawn and launched) before the host
+        waits for read n, so that the host's work runs while segment n
+        does; elsewhere the chunks run in series.  Either way the
+        generator is called in the same order, ``stop`` is polled once a
+        chunk before the next one is issued and ``progress`` sees every
+        read, so the result is the serial run's bit for bit.  Counters
+        ``core.engine.lookahead.ahead`` and ``.held`` (chunks issued
+        before and after the previous read) and ``.spent`` (a segment
+        issued ahead on an ensemble that the read then found finished)."""
         cfg = self.cfg
         n_reps = cfg.num_reps
         self.gen.manual_seed(cfg.seed)
@@ -848,19 +930,36 @@ class McSASEngine:
         t0 = time.perf_counter()
 
         guard = profiling.guard_flags()
+        reads = _HostReads()
         with profiling.span("core.engine.init"):
             state = self._init_batch()
         ri = 0
         prev_iter = None
         n_chunks = rep_chunks = 0
         n_live = n_reps     # repetitions running when the next chunk starts
+        ahead = None        # the read of a segment issued ahead of a read
+        may_go_ahead = False
         while True:
             with profiling.span("core.engine.chunk"):
-                state, ri = self._chunk(state, ri)
+                if ahead is None:
+                    state, ri, posted = self._issue(state, ri, guard, reads)
+                    profiling.count("core.engine.lookahead.held")
+                else:
+                    posted, ahead = ahead, None
+                polled = may_go_ahead
+                if polled:
+                    stopped = stop is not None and stop()
+                    if not stopped:
+                        # the segment rewrites ft from the bank even where
+                        # nothing runs: kept for a spent one
+                        ft_kept = state.ft.clone()
+                        state, ri, ahead = self._issue(state, ri, guard,
+                                                       reads)
+                        profiling.count("core.engine.lookahead.ahead")
                 n_chunks += 1
                 rep_chunks += n_live
                 with profiling.span("core.engine.read"):
-                    host = self._read(state, guard).cpu().numpy()
+                    host = reads.take(posted)
                 conval = host[0]
                 n_iter = host[1].astype(np.int64)
                 if guard:
@@ -883,13 +982,15 @@ class McSASEngine:
                 if progress is not None:
                     progress(dict(conval=conval, n_iter=n_iter,
                                   converged=converged, attempts=attempts))
-                stopped = stop is not None and stop()
+                if not polled:
+                    stopped = stop is not None and stop()
                 need_retry = (~converged & exhausted
                               & (attempts < max_attempts))
             if stopped:
                 log.warning("stop requested, exiting MC loop")
                 break
             n_live = int((running | need_retry).sum())
+            may_go_ahead = False
             if need_retry.any():
                 retried_iters += int(n_iter[need_retry].sum())
                 profiling.count("core.engine.retried_reps",
@@ -904,12 +1005,18 @@ class McSASEngine:
                             int(attempts[need_retry].max()), max_attempts)
                 continue
             if not running.any():
+                if ahead is not None:
+                    # the segment issued ahead found nothing running and
+                    # changed nothing but ft
+                    state.ft.copy_(ft_kept)
+                    profiling.count("core.engine.lookahead.spent")
                 # what is neither converged nor retried has spent its
                 # last attempt
                 if not converged.all():
                     profiling.count("core.engine.unconverged_reps",
                                     int((~converged).sum()))
                 break
+            may_go_ahead = self._may_issue_ahead(running, n_iter)
 
         with profiling.span("core.engine.result"):
             host = {k: np.asarray(v, np.float64)

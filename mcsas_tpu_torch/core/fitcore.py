@@ -119,8 +119,9 @@ def solve_scale_bg(x, c, find_background: bool,
     home = xs[0].device
 
     s_x, s_xx, s_xy = moments(xs, cs)
-    s_u = torch.tensor(cs[0].s_u, dtype=acc, device=home)
-    s_uy = torch.tensor(cs[0].s_uy, dtype=acc, device=home)
+    # filled on the device: a copy from the host would wait for the stream
+    s_u = torch.full((), cs[0].s_u, dtype=acc, device=home)
+    s_uy = torch.full((), cs[0].s_uy, dtype=acc, device=home)
 
     # scale-invariant guards: x may span absurd absolute magnitudes
     # (SI intensities ~1e-30), so degeneracy is judged relative to

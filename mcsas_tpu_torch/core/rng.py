@@ -39,19 +39,32 @@ def draw_unit(gen: torch.Generator, generators, count=None,
     return torch.stack(cols, dim=-1)
 
 
-def scale_to_ranges(unit_samples: torch.Tensor, ranges) -> torch.Tensor:
-    """Maps unit samples (…, P) onto the per-parameter (lo, hi) ranges."""
-    kw = dict(dtype=unit_samples.dtype, device=unit_samples.device)
-    lo = torch.tensor([r[0] for r in ranges], **kw)
-    hi = torch.tensor([r[1] for r in ranges], **kw)
+def range_vectors(ranges, dtype=torch.float32, device="cpu"):
+    """The (lo, hi) vectors (P,) of the per-parameter ranges, as tensors
+    of *dtype* on *device*.  Each is a copy from the host, which on the
+    card waits for the stream: a caller that draws once a segment builds
+    them once and passes them on (``ChunkSpec.bounds``)."""
+    lo = torch.tensor([r[0] for r in ranges], dtype=dtype, device=device)
+    hi = torch.tensor([r[1] for r in ranges], dtype=dtype, device=device)
+    return lo, hi
+
+
+def scale_to_ranges(unit_samples: torch.Tensor, ranges,
+                    vectors=None) -> torch.Tensor:
+    """Maps unit samples (…, P) onto the per-parameter (lo, hi) ranges;
+    *vectors* are their :func:`range_vectors` on the samples' dtype and
+    device where the caller holds them."""
+    lo, hi = vectors or range_vectors(ranges, unit_samples.dtype,
+                                      unit_samples.device)
     return unit_samples * (hi - lo) + lo
 
 
 def draw_params(gen: torch.Generator, bound, count=None,
-                dtype=torch.float32) -> torch.Tensor:
-    """Draws proposal parameter vectors for a BoundModel's active set."""
+                dtype=torch.float32, vectors=None) -> torch.Tensor:
+    """Draws proposal parameter vectors for a BoundModel's active set
+    (*vectors* as for :func:`scale_to_ranges`)."""
     un = draw_unit(gen, bound.generators, count=count, dtype=dtype)
-    return scale_to_ranges(un, bound.ranges)
+    return scale_to_ranges(un, bound.ranges, vectors)
 
 
 def local_candidates(cur: torch.Tensor, uniforms: torch.Tensor,

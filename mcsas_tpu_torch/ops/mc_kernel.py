@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from ..core.fitcore import FitConstants, solve_scale_bg
-from ..core.rng import DECADES, local_candidates
+from ..core.rng import DECADES, local_candidates, range_vectors
 from ..models.chains import GaussianChain
 from ..models.ellipsoids import SphericalCoreShell
 from ..models.sphere import LMADenseSphere, Sphere, lma_standoff
@@ -132,12 +132,18 @@ class ChunkSpec:
         return self.k_cand - self.k_local
 
     def bounds(self, dtype, device):
-        """(lo, hi) active-range vectors as tensors."""
-        lo = torch.tensor([r[0] for r in self.ranges], dtype=dtype,
-                          device=device)
-        hi = torch.tensor([r[1] for r in self.ranges], dtype=dtype,
-                          device=device)
-        return lo, hi
+        """(lo, hi) active-range vectors as tensors, built once per dtype
+        and device (``rng.range_vectors``): a copy from the host waits for
+        the card's stream, and a segment is issued while the previous one
+        runs."""
+        key = (dtype, torch.device(device))
+        if key not in self._bounds:
+            self._bounds[key] = range_vectors(self.ranges, dtype, device)
+        return self._bounds[key]
+
+    @functools.cached_property
+    def _bounds(self) -> dict:
+        return {}
 
     @functools.cached_property
     def model_layout(self):

@@ -249,9 +249,11 @@ def lookup_param_table(table: ParamTable, pvals) -> torch.Tensor:
         if n == 1:
             continue
         v = torch.as_tensor(v, dtype=dt, device=dev)
+        # offset and spacing filled on the device: a copy from the host
+        # would wait for the card's stream once an axis and call
         f = (torch.log(torch.clamp_min(v, 1e-300))
-             - torch.tensor(l0, dtype=dt, device=dev)) \
-            / torch.tensor(dl, dtype=dt, device=dev)
+             - torch.full((), l0, dtype=dt, device=dev)) \
+            / torch.full((), dl, dtype=dt, device=dev)
         f = torch.clamp(f, 0.0, n - 1.000001)
         fl = torch.floor(f)
         i = fl.to(torch.int64)

@@ -283,6 +283,12 @@ class ShardedEnsemble(McSASEngine):
                 mc_kernel.run_prefetch_chunk(
                     cells[0], ri, sh.consts[0], spec, made, cands)
 
+    def _may_issue_ahead(self, running, n_iter) -> bool:
+        """Never: the shards' chunks run in series, each issued after the
+        read of the one before (``McSASEngine._run``'s lookahead keeps a
+        whole state's ft, not the shards')."""
+        return False
+
     def _kernel_work(self, states, props):
         """:meth:`McSASEngine.prewarm`'s work per repetition shard: each
         shard's state, constants, spec and slice of the proposals on its

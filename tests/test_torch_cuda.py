@@ -1420,7 +1420,10 @@ def test_sharded_table_fit_is_bitwise_on_one_card(small_tables):
     n_base = mc_kernel.run_prefetch_table_chunk.launches
     mc_kernel.run_prefetch_table_chunk.launches = 0
     res = ShardedEnsemble(d, bound, cfg, mesh=_mesh((2, 1))).run()
-    assert mc_kernel.run_prefetch_table_chunk.launches == 2 * n_base
+    # the shards run the serial order's segments; the unsharded engine's
+    # lookahead may launch one more, spent on a finished ensemble
+    assert mc_kernel.run_prefetch_table_chunk.launches == 2 * base.n_chunks
+    assert n_base - base.n_chunks in (0, 1)
     np.testing.assert_array_equal(res.contribs, base.contribs)
     np.testing.assert_array_equal(res.conval, base.conval)
 
@@ -1497,7 +1500,8 @@ def test_k2_launch_calls_lie_inside_the_launch_spans():
     ``profiling.recording()``: the host-side launch call of every K2
     kernel (the runtime event of its correlation id) lies inside an
     ``ops.mc_kernel.launch`` span, compared on one clock with no offset;
-    one launch and one χ² read a segment."""
+    one launch a segment issued (``n_chunks`` and the spent one) and one
+    χ² read a segment of the serial order."""
     _needs_card()
     from torch.profiler import ProfilerActivity, profile
     from mcsas_tpu_torch import api
@@ -1521,10 +1525,12 @@ def test_k2_launch_calls_lie_inside_the_launch_spans():
             host[ev.correlation_id()] = ev
     calls = [host.get(ev.correlation_id())
              or host.get(ev.linked_correlation_id()) for ev in kernels]
-    assert len(kernels) == res.engine.n_chunks and None not in calls
+    issued = res.engine.n_chunks + rec.counters.get(
+        "core.engine.lookahead.spent", 0)
+    assert len(kernels) == issued and None not in calls
     spans = [(s, e) for name, s, e, _, _ in rec.spans
              if name == "ops.mc_kernel.launch"]
-    assert len(spans) == res.engine.n_chunks
+    assert len(spans) == issued
     for ev in calls:
         assert any(s <= ev.start_ns() and ev.end_ns() <= e
                    for s, e in spans), (ev.name(), ev.start_ns())
@@ -1706,3 +1712,94 @@ def test_probe_memo_keeps_engines_and_fits_bitwise(small_tables,
                                   cold.fractions.fraction["vol"])
     for a, b in zip(warm.histograms, cold.histograms):
         np.testing.assert_array_equal(a.bins.full, b.bins.full)
+
+
+# ------------------------------------ the engine's one-segment lookahead
+
+_LOOKAHEAD = tuple(f"core.engine.lookahead.{k}"
+                   for k in ("ahead", "held", "spent"))
+_RESULT_FIELDS = ("contribs", "conval", "n_iter", "n_moves", "attempts",
+                  "scaling", "background", "measval", "n_chunks",
+                  "rep_chunks", "retried_iters")
+
+
+def _lookahead_engine(kind):
+    """The suite's cylinder row on K2's one-axis table and its worm row
+    on the two-axis table with the cross-section, full-size tables."""
+    if kind == "cylinder":
+        return McSASEngine(suite.cylinder_golden(), suite.cylinder_bound(),
+                           suite.cylinder_config(), device="cuda")
+    row = suite.TABLE_ROWS["kholodenko-worm"]
+    d = row.load()
+    return McSASEngine(d, row.bound(d), row.config(), device="cuda")
+
+
+def _assert_ahead_but_two(res, counters):
+    """Every segment but the first two of a fit without retries went
+    ahead of the read before it."""
+    ahead, held, _ = (counters.get(k, 0) for k in _LOOKAHEAD)
+    assert (res.attempts == 1).all()
+    assert ahead > 0 and held == 2     # ahead: all segments issued but two
+
+
+@pytest.mark.parametrize("kind", ["cylinder", "worm"])
+def test_lookahead_fit_equals_serial_order(kind, monkeypatch):
+    """A fit through K2's table entry with segment n+1 issued before read
+    n equals the same fit in series (the hold-back predicate made to hold
+    always) in every field of the result, bit for bit."""
+    from mcsas_tpu_torch.utils import profiling
+    _needs_card()
+    monkeypatch.delenv("MCSAS_TPU_TABLE_RES_CAP", raising=False)
+    eng = _lookahead_engine(kind)
+    assert eng.runs_cuda_kernel and eng.prefetch_entry == "table"
+    with profiling.recording() as rec:
+        res = eng.run()
+    monkeypatch.setattr(eng, "_may_issue_ahead", lambda *a: False)
+    with profiling.recording() as serial:
+        ref = eng.run()
+    for name in _RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(res, name), getattr(ref, name),
+                                      name)
+    assert res.converged.all() and res.used_prefetch
+    _assert_ahead_but_two(res, rec.counters)
+    assert serial.counters[_LOOKAHEAD[1]] == ref.n_chunks
+    assert _LOOKAHEAD[0] not in serial.counters
+
+
+@pytest.mark.parametrize("kind", ["cylinder", "worm"])
+def test_lookahead_issues_without_a_sync(kind, monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode('error')`` a whole fit
+    raises nothing but where it is let wait: the event of each read, a
+    retry's mask and the result's final copy.  So drawing a segment, its
+    candidates and factors, the checks, the launch, the copy of its read
+    and the ft kept for a spent segment wait for nothing on the card, and
+    segment n+1 is issued while segment n runs."""
+    from mcsas_tpu_torch.core.engine import _HostReads
+    from mcsas_tpu_torch.utils import profiling
+    _needs_card()
+    monkeypatch.delenv("MCSAS_TPU_TABLE_RES_CAP", raising=False)
+    eng = _lookahead_engine(kind)
+    eng.run()       # builds and loads K2's library, fills the spec's caches
+
+    def let_wait(fn):
+        def inner(*a, **kw):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return inner
+    monkeypatch.setattr(_HostReads, "take",
+                        staticmethod(let_wait(_HostReads.take)))
+    monkeypatch.setattr(eng, "_retry", let_wait(eng._retry))
+    monkeypatch.setattr(eng, "_host_state", let_wait(eng._host_state))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.tensor([1.0], device="cuda")   # the mode does catch one
+        with profiling.recording() as rec:
+            res = eng.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res.converged.all() and res.used_prefetch
+    _assert_ahead_but_two(res, rec.counters)

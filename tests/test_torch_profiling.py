@@ -269,7 +269,9 @@ def test_the_worm_records_its_rule_and_counters(refdata, monkeypatch):
     ``models.kholodenko.rule`` under each of the magnitude probe, the
     table's bake and the post pass's bank, counts the (t, x) elements
     each evaluated, one ``ops.mc_kernel.cross_section`` a segment (the
-    rows carry the lookup's cross-section) and one ``post.bank.eager``;
+    rows carry the lookup's cross-section; a segment issued ahead of a
+    read that found the ensemble finished is one too) and one
+    ``post.bank.eager``;
     the Sphere and the cylinder record neither the rule nor the factor."""
     from mcsas_tpu_torch.ops import tables
     monkeypatch.setattr(api, "_ENGINE_CACHE", {})
@@ -292,7 +294,8 @@ def test_the_worm_records_its_rule_and_counters(refdata, monkeypatch):
     c = rec.counters
     assert c["models.kholodenko.rule_values"] == nq * (1 + 16 * 16 + 2 * 10)
     assert c["ops.mc_kernel.cross_section"] == names.count(
-        "ops.mc_kernel.launch") == res.engine.n_chunks > 0
+        "ops.mc_kernel.launch") == res.engine.n_chunks + c.get(
+            "core.engine.lookahead.spent", 0) > 0
     assert c["post.bank.eager"] == 1 and "post.bank.kernel" not in c
     for kind in ("sphere", "cylinder"):
         case = _fit_case(kind, refdata, monkeypatch)
