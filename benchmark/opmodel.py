@@ -8,7 +8,8 @@ Per candidate and q point: the model's row (:data:`ROW_OPS`: every +, −,
 the two passes of the solve (:data:`SOLVE_OPS`); on K2's table entry the
 blend instead of the row (a multiply-add per corner of the table's 2^A
 corners, the factor, the clamp and, for an amplitude table, the square;
-the worm's cross-section :data:`XS_OPS`).  The state is read and written
+the worm's cross-section :data:`XS_OPS`); on K2's rows-in entry the row
+is read, not computed.  The state is read and written
 once a launch, the inputs and the table read once a launch; on K2 each
 proposal's candidate and factor are read once.  The peaks are the H100
 SXM's (NVIDIA's data sheet, at the full 700 W).
@@ -72,6 +73,24 @@ def k2_proposal_ops(shape):
                  + (0 if shape["intensity_table"] else 1)
                  + (XS_OPS if shape["cross_section"] else 0))
     return shape["nq"] * per_point
+
+
+def k2rows_launch_bytes(shape):
+    """A K2 rows-in segment (an elementwise plugin's rows, staged before the
+    launch): the state in and out, and y and u."""
+    return 2 * state_bytes(shape) + 2 * shape["nq"] * 4
+
+
+def k2rows_proposal_bytes(shape):
+    """K2's rows-in entry reads each proposal's row (Nq values) and its
+    candidate (P values)."""
+    return 4 * (shape["nq"] + shape["params"])
+
+
+def k2rows_proposal_ops(shape):
+    """K2's rows-in entry's operations per proposal: the solve alone (the
+    row is the program's, made before the launch)."""
+    return shape["nq"] * SOLVE_OPS
 
 
 def roofline_pct(launches, proposals, kernel_s, launch_bytes, proposal_ops,

@@ -24,6 +24,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import bisect  # noqa: E402
 import contextlib  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
@@ -128,11 +129,16 @@ def generator(name, here=HERE):
 
 def program_setup(config, traffic):
     """The program's objects for a cell: (api, bound, base config,
-    DataConfig)."""
+    DataConfig).  A configuration's ``modelFile`` names a user's model file,
+    ``plugins/<modelFile>.py``, which the program's plugin loader
+    (``--model-file``'s call) registers before the model is looked up."""
     from mcsas_tpu_torch import api
     from mcsas_tpu_torch.config import McSASConfig
     from mcsas_tpu_torch.data import DataConfig, TrapezoidSmearing
-    from mcsas_tpu_torch.models import get_model
+    from mcsas_tpu_torch.models import get_model, load_model_file
+    if "modelFile" in config:
+        name = _named("model file", config["modelFile"])
+        load_model_file(str(HERE / "plugins" / f"{name}.py"))
     bound = get_model(config["model"]).bind(
         active=tuple(config["active"]),
         active_ranges={k: tuple(v) for k, v in
@@ -234,7 +240,10 @@ def device_record(events, window=None):
     ``end_us``): device operations are the device-side events that are
     not the harness's annotations; the traced window is the ``window``
     span's (or *window* (start_us, end_us)); gaps are labelled by the
-    innermost harness span that holds them."""
+    innermost harness span that holds them.  ``engine_eager_s``: the
+    device time of the operations, neither K1 nor K2, whose middle lies in
+    an ``engine.run`` span (which synchronizes at entry and exit, so the
+    run issued them)."""
     from . import stats
     dev, host = [], []
     for ev in events:
@@ -247,7 +256,9 @@ def device_record(events, window=None):
         window = next((s, e) for n, s, e in host if n == "window")
     lo, hi = window
     ivs = [(ev.start_us, ev.end_us) for ev in dev]
-    by_name, by_tag = {}, {}
+    runs = sorted((s, e) for n, s, e in host if n == "engine.run")
+    starts = [s for s, _ in runs]
+    by_name, by_tag, eager = {}, {}, 0.0
     for ev in dev:
         t = (ev.end_us - ev.start_us) * 1e-6
         s, n = by_name.get(ev.name, (0.0, 0))
@@ -256,12 +267,18 @@ def device_record(events, window=None):
         if tag:
             s, n = by_tag.get(tag, (0.0, 0))
             by_tag[tag] = (s + t, n + 1)
+        else:
+            mid = 0.5 * (ev.start_us + ev.end_us)
+            k = bisect.bisect_right(starts, mid) - 1
+            if k >= 0 and mid <= runs[k][1]:
+                eager += t
     idle = stats.label_gaps(stats.gaps(ivs, lo, hi), host)
     return {"busy_s": stats.busy_in(ivs, lo, hi) * 1e-6,
             "window_s": (hi - lo) * 1e-6,
             "kernels": by_name, "kernels_by_tag": by_tag,
             "idle_s": {SPAN_LABELS.get(k, k): v * 1e-6
-                       for k, v in idle.items()}}
+                       for k, v in idle.items()},
+            "engine_eager_s": eager}
 
 
 class _Ev:
